@@ -14,6 +14,7 @@ import torch
 from videollm_online_tpu_torch.core.config import LiveConfig, LlamaConfig
 from videollm_online_tpu_torch.models import live, llama
 from videollm_online_tpu_torch.ops import decode_attention as da
+from videollm_online_tpu_torch.ops import flash_attention as fa
 from videollm_online_tpu_torch.serve.engine import LiveInferEngine
 from videollm_online_tpu_torch.tokenizer.live_tokenizer import LiveTokenizer
 from videollm_online_tpu_torch.tokenizer.tiny import ByteTokenizer
@@ -125,3 +126,100 @@ def test_engine_transcripts_kernel_equal_plain_on_card(card):
     assert da.ring_decode_attention_layered.launches > before
     assert with_k1 == drive(attn_impl=llama._attention)
     assert with_k1
+
+
+@pytest.mark.parametrize("dtype,shape,kw", [
+    ("bfloat16", (1, 8, 2, 512, 512, 128), {}),
+    ("float32", (2, 4, 4, 256, 256, 64), {}),
+    ("bfloat16", (1, 4, 2, 300, 300, 256), {"window": 128}),
+    ("float32", (1, 4, 2, 200, 456, 128), {"q_offset": 256}),
+    ("bfloat16", (1, 4, 1, 384, 384, 64), {"kv_valid": 300}),
+])
+def test_flash_kernels_match_plain_on_card(card, dtype, shape, kw):
+    """K2's forward, dK/dV and dQ kernels against their plain versions, on
+    the plain forward's out and lse. Tolerance, elementwise and on the
+    relative norm error, chip_smoke.py's: bf16 atol 2e-3 (well below a
+    typical value) and rtol 2e-2 (an ulp of the large values), relative
+    norm 5e-3; fp32 atol 1e-5 and rtol 1e-4 (dK/dV sum up to G * T
+    products in another order), relative norm 1e-5; lse 1e-4."""
+    B, Hq, Hkv, T, S, d = shape
+    tdt = getattr(torch, dtype)
+    atol, rtol, rel = ((2e-3, 2e-2, 5e-3) if dtype == "bfloat16"
+                       else (1e-5, 1e-4, 1e-5))
+    rng = np.random.RandomState(sum(shape))
+    q, k, v, do = (torch.from_numpy(rng.randn(*s).astype(np.float32)).to(
+        tdt).to(card) for s in ((B, Hq, T, d), (B, Hkv, S, d),
+                                (B, Hkv, S, d), (B, Hq, T, d)))
+    scale = 1.0 / d ** 0.5
+    before = (fa.flash_fwd.launches, fa.flash_dkdv.launches,
+              fa.flash_dq.launches)
+    out, lse = fa.flash_fwd(q, k, v, scale, **kw)
+    ref_out, ref_lse = fa.flash_attention_fwd_reference(q, k, v, scale, **kw)
+    delta = fa.softmax_delta(do, ref_out)
+    dk, dv = fa.flash_dkdv(q, k, v, do, ref_lse, delta, scale, **kw)
+    dq = fa.flash_dq(q, k, v, do, ref_lse, delta, scale, **kw)
+    assert (fa.flash_fwd.launches, fa.flash_dkdv.launches,
+            fa.flash_dq.launches) == tuple(n + 1 for n in before)
+    want = fa.flash_bwd_plain(q, k, v, do, ref_lse, delta, scale, **kw)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=1e-4)
+    for got, ref in zip((out, dq, dk, dv), (ref_out,) + want):
+        got, ref = got.float(), ref.float()
+        torch.testing.assert_close(got, ref, atol=atol, rtol=rtol)
+        assert float((got - ref).norm() / ref.norm()) <= rel
+
+
+def test_flash_kernels_raise_on_what_they_do_not_take(card):
+    q = torch.zeros((1, 4, 128, 128), dtype=torch.bfloat16, device=card)
+    k = torch.zeros((1, 2, 128, 128), dtype=torch.bfloat16, device=card)
+    with pytest.raises(TypeError):
+        fa.flash_fwd(q, k.float(), k.float(), 0.1)
+    with pytest.raises(ValueError, match="d in"):
+        fa.flash_fwd(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                     k[..., :32].contiguous(), 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_fwd(q.transpose(2, 3), k, k, 0.1)
+    with pytest.raises(ValueError, match="kv_valid"):
+        fa.flash_fwd(q, k, k, 0.1, kv_valid=129)
+
+
+def test_fp32_train_step_through_flash_matches_plain_on_card(card):
+    """Two fp32 train steps (hd 64, T 256, so ops/auto.py sends attention
+    to K2) give the plain attention's loss, grad norm and updated
+    trainables (rtol 1e-4, fp32 sums in another order)."""
+    from videollm_online_tpu_torch.core.config import LoraConfig
+    from videollm_online_tpu_torch.ops.auto import auto_attention
+    from videollm_online_tpu_torch.train import optim
+    from videollm_online_tpu_torch.train import step as step_mod
+    lcfg = LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                       num_layers=2, num_heads=8, num_kv_heads=2, head_dim=64,
+                       dtype="float32")
+    cfg = LiveTokenizer(ByteTokenizer(), LiveConfig(
+        llama=lcfg, lora=LoraConfig(r=8, alpha=16),
+        vision_hidden_size=64)).cfg
+    rng = np.random.RandomState(0)
+    ids = rng.randint(4, 250, (1, 256))
+    ids[0, 100:200:3] = cfg.v_placeholder_id
+    batch = {"input_ids": torch.from_numpy(ids).to(card),
+             "labels": torch.from_numpy(np.roll(ids, -1)).to(card),
+             "frames": torch.from_numpy(rng.randn(
+                 34, 64).astype(np.float32)).to(card)}
+    ocfg = optim.OptimConfig(total_steps=2, warmup_ratio=0.0)
+    out = {}
+    for name, impl in (("K2", auto_attention), ("plain", llama._attention)):
+        gen = torch.Generator(device=card).manual_seed(0)
+        state, frozen = step_mod.init_train_state(
+            live.init_params(gen, cfg, device=card))
+        before = fa.flash_dq.launches
+        for _ in range(2):      # step 0 takes lr 0; step 1 moves
+            state, m = step_mod.train_step(
+                state, frozen, batch, cfg=cfg, optim_cfg=ocfg,
+                schedule=optim.make_schedule(ocfg), attn_impl=impl)
+        out[name] = (m, state, fa.flash_dq.launches - before)
+    (m, state, n), (m_p, state_p, n_p) = out["K2"], out["plain"]
+    assert n == 2 * lcfg.num_layers and n_p == 0
+    torch.testing.assert_close(m["loss"], m_p["loss"], rtol=1e-4, atol=0)
+    torch.testing.assert_close(m["grad_norm"], m_p["grad_norm"], rtol=1e-4,
+                               atol=0)
+    for a, b in zip(optim.tree_leaves(state.trainable),
+                    optim.tree_leaves(state_p.trainable)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)

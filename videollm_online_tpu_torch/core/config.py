@@ -42,13 +42,10 @@ class LlamaConfig:
     attention_bias: bool = False
     # numerics policy: parameters/activations bf16, softmax/norm/loss fp32
     dtype: str = "bfloat16"
-    # Long-sequence TRAINING memory knob: compute each layer's SwiGLU MLP
-    # in (B, mlp_chunk, D) sequence slices (exact — the MLP is pointwise
-    # across positions) so the backward's (S, intermediate) working set
-    # caps at one chunk. 0 = off. Only applies when S is a multiple of
-    # mlp_chunk and S > mlp_chunk, so serving decode/prefill shapes are
-    # unaffected. The port's training slice has not landed; serving ignores
-    # it.
+    # The JAX package's long-sequence training memory knob (each layer's
+    # SwiGLU MLP in (B, mlp_chunk, D) sequence slices, to fit 8B into one
+    # 16 GiB chip). The port drops it: the builder refuses it, and
+    # llama.forward computes each MLP whole (the same function).
     mlp_chunk: int = 0
 
     @property

@@ -1,4 +1,5 @@
-"""Carry a parameter tree of numpy arrays into the port's tensors.
+"""Carry a parameter tree (and a training state) of numpy arrays into the
+port's tensors.
 
 The JAX package's params, fetched to the host as nested dicts of numpy
 arrays, map one to one onto the port's tree: stacked ``layers`` leaves,
@@ -42,3 +43,21 @@ def params_from_numpy(tree: Any, device=None,
         return _tensor(node, device, dtype, keep=key == "scale")
 
     return walk(tree)
+
+
+def train_state_from_numpy(step: int, trainable: Any, mu: Any, nu: Any,
+                           count: int, device=None):
+    """The port's ``TrainState`` from a JAX one fetched to the host: the
+    step, the trainable tree and optax's Adam ``mu``, ``nu`` and ``count``
+    (each a nested dict of numpy arrays, or an int), so that both packages
+    start the same step from the same state. Trainable leaves require
+    gradients."""
+    from ..train.optim import AdamState, tree_map
+    from ..train.step import TrainState
+    trainable = tree_map(lambda x: x.requires_grad_(True),
+                         params_from_numpy(trainable, device))
+    return TrainState(step=int(step), trainable=trainable,
+                      opt_state=AdamState(
+                          count=int(count),
+                          mu=params_from_numpy(mu, device),
+                          nu=params_from_numpy(nu, device)))

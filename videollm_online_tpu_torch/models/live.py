@@ -1,22 +1,33 @@
-"""The streaming video-dialogue model's connector, in PyTorch.
+"""LiveLlama, the streaming video-dialogue model, in PyTorch.
 
-Counterpart of ``init_connector``/``apply_connector``/``visual_embed`` in
-``videollm_online_tpu/models/live.py`` (Linear -> erf GELU -> Linear).
-``joint_embed`` and the losses belong to the training slice.
+Counterpart of ``videollm_online_tpu/models/live.py``: the connector
+(Linear -> erf GELU -> Linear), ``joint_embed`` (the k-th ``<v>`` token in
+flattened batch order takes the k-th projected frame token, a cumsum
+gather), and the training forward with the weighted streaming CE loss of
+reference modeling_live_llama.py:56-61 (weight ``stream_loss_weight`` on
+``<v>`` positions, 1 elsewhere, over the count of supervised labels), whole
+or streamed through lm_head chunks.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..core.config import LiveConfig
 from ..core.device import resolve_device, torch_dtype
+from . import llama
 
 Params = Dict[str, Any]
+
+IGNORE_INDEX = -100
+# Positions per lm_head chunk of the streamed CE loss (the JAX package's
+# LOSS_CHUNK): peak loss memory is about 2 x LOSS_CHUNK x vocab fp32.
+LOSS_CHUNK = 1024
 
 
 def init_connector(generator: torch.Generator, cfg: LiveConfig,
@@ -54,3 +65,131 @@ def visual_embed(params: Params, frames: torch.Tensor, cfg: LiveConfig
     out = apply_connector(params["connector"],
                           frames.to(device=w.device, dtype=w.dtype))
     return out.reshape(-1, out.shape[-1])
+
+
+def init_params(generator: torch.Generator, cfg: LiveConfig, device=None
+                ) -> Params:
+    """Random decoder, connector and (when ``cfg.lora``) LoRA, drawn in
+    that order from ``generator`` (which must live on ``device``)."""
+    params = {"llama": llama.init_params(generator, cfg.llama, device),
+              "connector": init_connector(generator, cfg, device)}
+    if cfg.lora is not None:
+        params["lora"] = llama.init_lora_params(generator, cfg.llama,
+                                                cfg.lora, device)
+    return params
+
+
+def joint_embed(params: Params, cfg: LiveConfig, input_ids: torch.Tensor,
+                frames: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Text embeddings with frame embeddings put into the ``<v>`` slots:
+    the k-th ``<v>`` in flattened (batch-major) order takes the k-th row of
+    the flattened visual embeddings (clipped when the text has more ``<v>``
+    slots than frames). Differentiable in the connector."""
+    embeds = llama.embed_tokens(params["llama"], input_ids, cfg.llama)
+    if frames is None or frames.numel() == 0:
+        return embeds
+    visual = visual_embed(params, frames, cfg)
+    B, T = input_ids.shape
+    v_mask = (torch.as_tensor(input_ids).to(embeds.device).reshape(-1)
+              == cfg.v_placeholder_id)
+    v_idx = (torch.cumsum(v_mask, 0) - 1).clamp(0, visual.shape[0] - 1)
+    gathered = visual[v_idx].reshape(B, T, -1).to(embeds.dtype)
+    return torch.where(v_mask.reshape(B, T)[..., None], gathered, embeds)
+
+
+def _loss_weights(labels, input_ids, cfg: LiveConfig, device):
+    flat_labels = torch.as_tensor(labels).to(device).reshape(-1).long()
+    flat_ids = torch.as_tensor(input_ids).to(device).reshape(-1)
+    valid = flat_labels != IGNORE_INDEX
+    weight = torch.where(flat_ids == cfg.v_placeholder_id,
+                         cfg.stream_loss_weight, 1.0)
+    return valid, torch.where(valid, flat_labels, 0), weight
+
+
+def stream_ce_loss(logits: torch.Tensor, labels, input_ids,
+                   cfg: LiveConfig) -> torch.Tensor:
+    """Weighted CE in fp32: the sum of weighted per-token losses over the
+    number of supervised tokens; label -100 contributes 0."""
+    V = logits.shape[-1]
+    valid, safe, weight = _loss_weights(labels, input_ids, cfg, logits.device)
+    logp = F.log_softmax(logits.reshape(-1, V).float(), dim=-1)
+    nll = -logp.gather(1, safe[:, None])[:, 0]
+    nll = torch.where(valid, nll * weight, torch.zeros_like(nll))
+    return nll.sum() / valid.sum().clamp(min=1)
+
+
+def _stream_ce_loss_chunked(params: Params, cfg: LiveConfig,
+                            hidden: torch.Tensor, labels, input_ids, *,
+                            lora: Optional[Params] = None,
+                            scaling: float = 1.0,
+                            dropout_seed: Optional[int] = None,
+                            drop_rate: float = 0.0,
+                            loss_chunk: Optional[int] = None
+                            ) -> torch.Tensor:
+    """``stream_ce_loss`` streamed through ``loss_chunk``-position lm_head
+    chunks, each under ``torch.utils.checkpoint``, so neither pass holds
+    more than one chunk's (C, V) logits. ``hidden`` is the decoder's
+    final-norm output (B, T, D). Per-position math is the same fp32; only
+    the order of the sum differs. With head dropout, chunk i's mask is
+    seeded by ``fold_seed(fold_seed(dropout_seed, L), i)``: another
+    realization than the unchunked draw, the same law."""
+    B, T, D = hidden.shape
+    valid, safe, weight = _loss_weights(labels, input_ids, cfg, hidden.device)
+    weight = torch.where(valid, weight, torch.zeros_like(weight)).float()
+    N = B * T
+    C = min(loss_chunk or LOSS_CHUNK, N)
+    pad = (-N) % C
+    h_c = F.pad(hidden.reshape(N, D), (0, 0, 0, pad)).reshape(-1, C, D)
+    lab_c = F.pad(safe, (0, pad)).reshape(-1, C)
+    w_c = F.pad(weight, (0, pad)).reshape(-1, C)   # padding weighs 0
+    use_drop = (dropout_seed is not None and drop_rate > 0.0
+                and (lora or {}).get("lm_head") is not None)
+    head_seed = (llama.fold_seed(dropout_seed, cfg.llama.num_layers)
+                 if use_drop else None)
+
+    def chunk_weighted_nll(hc, lc, wc, seed):
+        lg = llama.lm_head(params["llama"], hc, cfg.llama, lora=lora,
+                           lora_scaling=scaling, drop_seed=seed,
+                           drop_rate=drop_rate if seed is not None else 0.0)
+        logp = F.log_softmax(lg.float(), dim=-1)
+        return (-logp.gather(1, lc[:, None])[:, 0] * wc).sum()
+
+    sums = [checkpoint(chunk_weighted_nll, h_c[i], lab_c[i], w_c[i],
+                       llama.fold_seed(head_seed, i) if use_drop else None,
+                       use_reentrant=False)
+            for i in range(h_c.shape[0])]
+    return torch.stack(sums).sum() / valid.sum().clamp(min=1)
+
+
+def forward(params: Params, cfg: LiveConfig, input_ids=None, frames=None,
+            inputs_embeds: Optional[torch.Tensor] = None, labels=None, *,
+            remat: bool = False, attn_impl=None,
+            dropout_seed: Optional[int] = None, chunked_loss: bool = False,
+            loss_chunk: Optional[int] = None
+            ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """The cache-free forward: (logits, loss or None). Labels arrive
+    pre-shifted from the collator, so logits[t] is scored against
+    labels[t]. LoRA dropout (``cfg.lora.dropout``) is on when
+    ``dropout_seed`` is given. ``chunked_loss`` (needs labels) streams the
+    CE through lm_head chunks and returns (None, loss)."""
+    if inputs_embeds is None:
+        inputs_embeds = joint_embed(params, cfg, input_ids, frames)
+    lora = params.get("lora")
+    on = cfg.lora is not None and lora is not None
+    scaling = cfg.lora.scaling if on else 1.0
+    lora_dropout = cfg.lora.dropout if on else 0.0
+    kw = dict(cfg=cfg.llama, inputs_embeds=inputs_embeds, lora=lora,
+              lora_scaling=scaling, remat=remat, attn_impl=attn_impl,
+              dropout_seed=dropout_seed, lora_dropout=lora_dropout)
+    if chunked_loss:
+        if labels is None:
+            raise ValueError("chunked_loss needs labels")
+        hidden, _ = llama.forward(params["llama"], return_hidden=True, **kw)
+        return None, _stream_ce_loss_chunked(
+            params, cfg, hidden, labels, input_ids, lora=lora,
+            scaling=scaling, dropout_seed=dropout_seed,
+            drop_rate=lora_dropout, loss_chunk=loss_chunk)
+    logits, _ = llama.forward(params["llama"], **kw)
+    loss = (None if labels is None
+            else stream_ce_loss(logits, labels, input_ids, cfg))
+    return logits, loss

@@ -1,9 +1,10 @@
 """Llama-3 decoder over a static KV ring, in PyTorch.
 
-Counterpart of ``videollm_online_tpu/models/llama.py`` (inference with a KV
-cache; training, paged caches and int8 KV are later slices). Parameters are
-the JAX package's tree: ``layers`` leaves are stacked on a leading layer
-axis, and a quantized matrix is a ``{"q8", "scale"}`` dict
+Counterpart of ``videollm_online_tpu/models/llama.py``: inference with a KV
+cache, and the cache-free training forward with LoRA, LoRA-input dropout
+and per-layer remat (paged caches and int8 KV are later slices).
+Parameters are the JAX package's tree: ``layers`` leaves are stacked on a
+leading layer axis, and a quantized matrix is a ``{"q8", "scale"}`` dict
 (models/quant.py). The layer ``scan`` is a Python loop over layer indices
 that writes each layer's new K/V into the stacked ring and calls the
 attention's ``layered`` form on it.
@@ -23,8 +24,9 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from ..core.config import LlamaConfig
+from ..core.config import LlamaConfig, LoraConfig
 from ..core.device import resolve_device, torch_dtype
 
 Params = Dict[str, Any]
@@ -61,6 +63,64 @@ def init_params(generator: torch.Generator, cfg: LlamaConfig, device=None
     return params
 
 
+_LORA_NAMES = {"q_proj": "wq", "k_proj": "wk", "v_proj": "wv",
+               "o_proj": "wo", "gate_proj": "w_gate", "up_proj": "w_up",
+               "down_proj": "w_down"}
+_PROJECTIONS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def init_lora_params(generator: torch.Generator, cfg: LlamaConfig,
+                     lora: LoraConfig, device=None) -> Params:
+    """LoRA overlay tree, the JAX package's layout: ``layers`` leaves
+    ``lora_a`` (L, r, in) ~ N(0, 1/r) and ``lora_b`` (L, out, r) = 0, and an
+    ``lm_head`` pair (r, D) / (V, r), drawn from ``generator`` (which must
+    live on ``device``)."""
+    device = resolve_device(device)
+    dtype = torch_dtype(cfg.dtype)
+    L, D, F_, r = (cfg.num_layers, cfg.hidden_size, cfg.intermediate_size,
+                   lora.r)
+    dims = {"wq": (D, cfg.q_dim), "wk": (D, cfg.kv_dim),
+            "wv": (D, cfg.kv_dim), "wo": (cfg.q_dim, D),
+            "w_gate": (D, F_), "w_up": (D, F_), "w_down": (F_, D)}
+    targets = {_LORA_NAMES[t] for t in lora.target_modules
+               if t in _LORA_NAMES}
+
+    def pair(shape_a, shape_b):
+        a = torch.randn(shape_a, generator=generator, device=device)
+        return {"lora_a": (a / np.sqrt(r)).to(dtype),
+                "lora_b": torch.zeros(shape_b, dtype=dtype, device=device)}
+
+    out = {"layers": {name: pair((L, r, din), (L, dout, r))
+                      for name, (din, dout) in dims.items()
+                      if name in targets}}
+    if "lm_head" in lora.target_modules:
+        out["lm_head"] = pair((r, D), (cfg.vocab_size, r))
+    return out
+
+
+def fold_seed(seed: int, *ids: int) -> int:
+    """A dropout seed that depends only on ``seed`` and ``ids`` (step,
+    microbatch, layer, projection): a remat recompute folds the same ids
+    and so draws the same mask. ``torch.utils.checkpoint`` restores only
+    the global RNG states, so an explicit generator carried across the
+    forward would draw another mask in the recompute."""
+    for i in ids:
+        seed = (seed * 6364136223846793005 + 1442695040888963407 + int(i)
+                ) % (1 << 63)
+    return seed
+
+
+def dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+    """Inverted dropout: keep with probability 1 - rate and scale by
+    1 / (1 - rate), in x's dtype; the mask comes from a fresh generator
+    seeded with ``seed`` (the JAX package draws ``bernoulli`` from a
+    folded key, so the masks differ, not their law)."""
+    g = torch.Generator(device=x.device)
+    g.manual_seed(seed)
+    keep = torch.rand(x.shape, generator=g, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     xf = x.float()
     xf = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
@@ -68,16 +128,21 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 def dense(x: torch.Tensor, w, lora: Optional[Dict] = None,
-          scaling: float = 1.0) -> torch.Tensor:
-    """x @ w for a plain or int8 ``{"q8","scale"}`` weight, plus the
-    inference LoRA branch ``scaling * (x A^T) B^T`` (no dropout)."""
+          scaling: float = 1.0, drop_seed: Optional[int] = None,
+          drop_rate: float = 0.0) -> torch.Tensor:
+    """x @ w for a plain or int8 ``{"q8","scale"}`` weight, plus the LoRA
+    branch ``scaling * (x A^T) B^T``; with ``drop_seed`` and a rate, the
+    branch's input goes through dropout first (PEFT's lora_dropout)."""
     if isinstance(w, dict):
         from .quant import quantized_matmul
         y = quantized_matmul(x, w)
     else:
         y = x @ w
     if lora is not None:
-        y = y + scaling * ((x @ lora["lora_a"].transpose(-1, -2))
+        xl = x
+        if drop_seed is not None and drop_rate > 0.0:
+            xl = dropout(x, drop_rate, drop_seed)
+        y = y + scaling * ((xl @ lora["lora_a"].transpose(-1, -2))
                            @ lora["lora_b"].transpose(-1, -2))
     return y
 
@@ -201,16 +266,19 @@ def _index_tree(tree, i: int):
 
 
 def _layer(h, lp, ll, cos, sin, q_pos, kv_ctx, cfg: LlamaConfig,
-           lora_scaling, attn_impl):
+           lora_scaling, attn_impl, drop_seed=None, lora_dropout=0.0):
     """One transformer block. ``kv_ctx`` = (k_all, v_all, starts, layer):
     this layer's K/V are written into the stacked ring at ``starts`` (one
-    host int per stream) and attention reads the ring at ``layer``."""
+    host int per stream) and attention reads the ring at ``layer``.
+    ``drop_seed`` (the layer's) seeds each projection's LoRA dropout."""
     B, S, _ = h.shape
     Hq, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
     def dns(x, name):
+        seed = (None if drop_seed is None
+                else fold_seed(drop_seed, _PROJECTIONS.index(name)))
         return dense(x, lp[name], None if ll is None else ll.get(name),
-                     lora_scaling)
+                     lora_scaling, seed, lora_dropout)
 
     x = rms_norm(h, lp["attn_norm"], cfg.rms_norm_eps)
     q, k, v = dns(x, "wq"), dns(x, "wk"), dns(x, "wv")
@@ -254,14 +322,22 @@ def forward(
     num_valid=None,
     lora: Optional[Params] = None,
     lora_scaling: float = 1.0,
+    remat: bool = False,
     attn_impl=None,
     return_hidden: bool = False,
     last_logit_only: bool = False,
     logit_gather_positions: Optional[torch.Tensor] = None,
+    dropout_seed: Optional[int] = None,
+    lora_dropout: float = 0.0,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the decoder.
 
-    Without a cache: full causal forward over (B, S). With a cache: writes
+    Without a cache: full causal forward over (B, S), the training path:
+    with ``remat`` each layer runs under ``torch.utils.checkpoint`` (its
+    activations are recomputed in the backward), and with ``dropout_seed``
+    and ``lora_dropout`` every LoRA branch (the head's too) drops its input;
+    layer i's masks are seeded by ``fold_seed(dropout_seed, i)`` and the
+    head's by ``fold_seed(dropout_seed, num_layers)``. With a cache: writes
     the (B, S) chunk into the ring at ``kv_cache.offset`` per stream
     (``num_valid`` (B,) of the S tokens are real, the rest is bucket
     padding) and attends over the ring. The write start is clamped into the
@@ -299,10 +375,18 @@ def forward(
               else torch.as_tensor(num_valid, dtype=torch.int32).cpu())
         new_cache = kv_cache.replace(offset=kv_cache.offset + nv)
     else:
+        use_dropout = (dropout_seed is not None and lora_dropout > 0.0
+                       and layer_lora is not None)
         for i in range(cfg.num_layers):
-            h = _layer(h, _index_tree(params["layers"], i),
-                       _index_tree(layer_lora, i), cos, sin, positions,
-                       None, cfg, lora_scaling, attn_impl)
+            args = (h, _index_tree(params["layers"], i),
+                    _index_tree(layer_lora, i), cos, sin, positions, None,
+                    cfg, lora_scaling, attn_impl,
+                    fold_seed(dropout_seed, i) if use_dropout else None,
+                    lora_dropout if use_dropout else 0.0)
+            if remat:
+                h = checkpoint(_layer, *args, use_reentrant=False)
+            else:
+                h = _layer(*args)
         new_cache = None
 
     if logit_gather_positions is not None:
@@ -317,8 +401,10 @@ def forward(
     h = rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
     if return_hidden:
         return h, new_cache
-    return lm_head(params, h, cfg, lora=lora, lora_scaling=lora_scaling), \
-        new_cache
+    head_seed = (fold_seed(dropout_seed, cfg.num_layers)
+                 if dropout_seed is not None and lora_dropout > 0.0 else None)
+    return lm_head(params, h, cfg, lora=lora, lora_scaling=lora_scaling,
+                   drop_seed=head_seed, drop_rate=lora_dropout), new_cache
 
 
 def embed_tokens(params: Params, input_ids: torch.Tensor, cfg: LlamaConfig
@@ -337,7 +423,8 @@ def embed_tokens(params: Params, input_ids: torch.Tensor, cfg: LlamaConfig
 
 
 def lm_head(params: Params, h: torch.Tensor, cfg: LlamaConfig, *,
-            lora: Optional[Params] = None, lora_scaling: float = 1.0
+            lora: Optional[Params] = None, lora_scaling: float = 1.0,
+            drop_seed: Optional[int] = None, drop_rate: float = 0.0
             ) -> torch.Tensor:
     if cfg.tie_word_embeddings:
         if isinstance(params["embed"], dict):
@@ -346,4 +433,5 @@ def lm_head(params: Params, h: torch.Tensor, cfg: LlamaConfig, *,
         w = params["embed"].T
     else:
         w = params["lm_head"]
-    return dense(h, w, (lora or {}).get("lm_head"), lora_scaling)
+    return dense(h, w, (lora or {}).get("lm_head"), lora_scaling,
+                 drop_seed, drop_rate)

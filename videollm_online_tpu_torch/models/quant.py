@@ -8,7 +8,14 @@ A quantized matrix is ``{"q8": int8 (in, out), "scale": fp32 (out,)}``
 ``quantized_matmul`` is plain ``torch.matmul``: the JAX package leaves it
 to XLA, which fuses the s8 -> bf16 convert into the matmul. PyTorch eager
 does not fuse, so every call builds a dequantized copy of the weight; a
-W8A16 kernel that dequantizes in registers is later work.
+W8A16 kernel that dequantizes in registers is later work. It is
+differentiable with respect to ``x`` only (the int8 base is frozen), and
+its backward keeps the int8 codes and the scale, never the cast copy: at 8B
+a kept bf16 copy of every frozen matrix would be 16 GB.
+
+The JAX package's ``quantized_matmul_tiled``/``head_tile_cols`` exist only
+to stop XLA hoisting the dequantized head out of a loop; eager PyTorch
+hoists nothing, so they are not ported.
 """
 
 from __future__ import annotations
@@ -39,12 +46,34 @@ def dequantize_weight(qw: Dict[str, torch.Tensor], axis: int = 0,
     return (qw[QUANT_KEY].float() * scale).to(dtype)
 
 
+def _qmm(x, q8, scale):
+    return (x @ q8.to(x.dtype)) * scale.to(x.dtype)
+
+
+class _QuantizedMatmul(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, x, q8, scale):
+        ctx.save_for_backward(q8, scale)
+        return _qmm(x, q8, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        # what JAX's autodiff of (x @ w) * s gives: (g * s) @ w^T in g's dtype
+        q8, scale = ctx.saved_tensors
+        return (g * scale.to(g.dtype)) @ q8.to(g.dtype).transpose(-1, -2), \
+            None, None
+
+
 def quantized_matmul(x: torch.Tensor, qw: Dict[str, torch.Tensor]
                      ) -> torch.Tensor:
     """x (.., in) @ q8 (in, out), then * scale (out,), both in x's dtype
-    and in that order (the JAX epilogue order)."""
-    y = x @ qw[QUANT_KEY].to(x.dtype)
-    return y * qw["scale"].to(x.dtype)
+    and in that order (the JAX epilogue order); differentiable in x. Calls
+    that autograd does not record (serving) skip the Function's per-call
+    host cost."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _QuantizedMatmul.apply(x, qw[QUANT_KEY], qw["scale"])
+    return _qmm(x, qw[QUANT_KEY], qw["scale"])
 
 
 def quantize_llama_params(params: Dict[str, Any], bits: int = 8

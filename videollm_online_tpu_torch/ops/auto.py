@@ -2,10 +2,14 @@
 
 Counterpart of ``videollm_online_tpu/ops/auto.py``. One adapter with the
 ``models.llama._attention`` signature, plus its cache-resident ``layered``
-form:
-  * on CUDA, a query chunk of at most 64 tokens with d in {64, 128, 256}
-    goes to the ring decode attention kernel (K1);
-  * everything else (chunks over 64 tokens, other head sizes, any CPU
+form. ``route`` decides, in the JAX package's order (auto.py:36-44), for a
+CUDA tensor with d in {64, 128, 256}:
+  * full causal self-attention (no int8 K/V, T == S, T % 128 == 0: the
+    training and cache-free forward, positions 0..T-1) goes to flash
+    attention (K2), with its backward;
+  * a query chunk of at most 64 tokens goes to the ring decode attention
+    kernel (K1);
+  * everything else (longer ragged chunks, other head sizes, any CPU
     tensor) takes the plain ``_attention``, as the JAX package sends them
     to XLA off the TPU.
 """
@@ -16,19 +20,31 @@ import torch
 
 from .decode_attention import (HEAD_DIMS, ring_decode_attention,
                                ring_decode_attention_layered)
+from .flash_attention import flash_attention
 
 MAX_DECODE_CHUNK = 64
 
 
-def _takes_kernel(q) -> bool:
-    return (q.is_cuda and q.shape[2] <= MAX_DECODE_CHUNK
-            and q.shape[3] in HEAD_DIMS)
+def route(q, k, k_scale=None) -> str:
+    """"flash", "decode" or "plain" for q (B, Hq, T, d) against k
+    (B, Hkv, S, d)."""
+    T, S, d = q.shape[2], k.shape[2], q.shape[3]
+    if not q.is_cuda or d not in HEAD_DIMS:
+        return "plain"
+    if k_scale is None and T == S and T % 128 == 0:
+        return "flash"
+    return "decode" if T <= MAX_DECODE_CHUNK else "plain"
 
 
 def auto_attention(q, k, v, q_pos, kv_valid_upto, *, num_groups,
                    sliding_window=None, k_scale=None, v_scale=None):
     from ..models.llama import _attention
-    if _takes_kernel(q):
+    kind = route(q, k, k_scale)
+    if kind == "flash":
+        # the JAX package's scale: a Python float, rounded to fp32 in-kernel
+        return flash_attention(q, k, v, 1.0 / q.shape[3] ** 0.5, True, 0,
+                               window=sliding_window)
+    if kind == "decode":
         return ring_decode_attention(q, k.contiguous(), v.contiguous(),
                                      q_pos.to(torch.int32).contiguous(),
                                      window=sliding_window, k_scale=k_scale,
@@ -42,7 +58,8 @@ def _auto_layered(q, k_all, v_all, q_pos, layer, *, num_groups,
                   sliding_window=None, k_scale=None, v_scale=None):
     """Reads the stacked (L, B, Hkv, C, d) ring at ``layer``; the kernel
     touches only the visible tiles of that layer."""
-    if _takes_kernel(q):
+    if (q.is_cuda and q.shape[2] <= MAX_DECODE_CHUNK
+            and q.shape[3] in HEAD_DIMS):
         return ring_decode_attention_layered(
             q, k_all, v_all, q_pos, layer, window=sliding_window,
             k_scale=k_scale, v_scale=v_scale)
