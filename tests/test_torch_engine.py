@@ -2,8 +2,9 @@
 
 Same tiny config, the same weights (carried over from the JAX params by
 ``params_from_numpy``) and the same frames and queries: the transcripts
-must be equal byte for byte, with spec decode off and on, for fp32 and
-int8 (``quant.quantize_live_params``) weights. The JAX engine runs its
+must be equal byte for byte, with spec decode off and on, for fp32, int8
+and mixed int4 (``quant.quantize_live_params``, ``bits`` 8 and 4) weights;
+on the CPU both packages take the dequantizing route for int4. The JAX engine runs its
 blocking path (``fused_respond=False``), the one the port carries.
 """
 
@@ -92,10 +93,12 @@ def _drive(engine, feats, frame_times, queries):
     return transcripts
 
 
-# every scenario with fp32 weights; int8 weights on the two scenarios that
-# reach every engine step (each case compiles a fresh JAX engine)
+# every scenario with fp32 weights; int8 and int4 weights on the two
+# scenarios that reach every engine step (each case compiles a fresh JAX
+# engine)
 CASES = ([(name, "fp32") for name in SCENARIOS]
-         + [("always_fire", "q8"), ("main_path", "q8")])
+         + [("always_fire", "q8"), ("main_path", "q8"),
+            ("always_fire", "q4"), ("main_path", "q4")])
 
 
 @pytest.mark.parametrize("spec", [False, True], ids=["greedy", "spec"])
@@ -104,8 +107,9 @@ def test_engine_transcripts_equal_jax(scenario, weights, spec):
     seed, thr, bias, times, queries, n_frames, pin = SCENARIOS[scenario]
     (jcfg, jtok), (cfg, tok) = _configs(thr, bias)
     jparams = jax_live.init_params(jax.random.PRNGKey(seed), jcfg)
-    if weights == "q8":
-        jparams = jax_quant.quantize_live_params(jparams)
+    if weights in ("q8", "q4"):
+        jparams = jax_quant.quantize_live_params(
+            jparams, bits=8 if weights == "q8" else 4)
     jparams = jax.device_get(jparams)
     params = params_from_numpy(jparams, device="cpu")
     feats = np.random.RandomState(seed).randn(

@@ -3,8 +3,12 @@ port's tensors.
 
 The JAX package's params, fetched to the host as nested dicts of numpy
 arrays, map one to one onto the port's tree: stacked ``layers`` leaves,
-``{"q8", "scale"}`` int8 leaves, the int8 ``embed`` with per-row scales,
-``lm_head``, ``final_norm``, ``connector`` and the optional ``lora`` tree.
+``{"q8", "scale"}`` int8 leaves, the int4 leaves ``{"q4c", "scale"}``
+(column-packed) and ``{"q4p", "scale"}`` (row-packed) with their packed
+int8 bytes and fp32 ``(in/group, out)`` scales, the int8 ``embed`` with
+per-row scales, ``lm_head``, ``final_norm``, ``connector`` and the optional
+``lora`` tree. The byte layouts are the JAX package's, so a
+``quantize_llama_params(bits=4)`` tree crosses unchanged.
 """
 
 from __future__ import annotations
@@ -34,7 +38,8 @@ def params_from_numpy(tree: Any, device=None,
                       dtype: Optional[torch.dtype] = None) -> Any:
     """Nested dicts of numpy arrays -> the same dicts of tensors on
     ``device``. ``dtype`` recasts floating leaves, except quantization
-    scales (``"scale"`` keys stay fp32); int8 codes are never recast."""
+    scales (``"scale"`` keys stay fp32); int8 codes and packed int4 bytes
+    are never recast."""
     device = resolve_device(device)
 
     def walk(node, key=None):

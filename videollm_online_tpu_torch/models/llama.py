@@ -4,8 +4,9 @@ Counterpart of ``videollm_online_tpu/models/llama.py``: inference with a KV
 cache, and the cache-free training forward with LoRA, LoRA-input dropout
 and per-layer remat (paged caches and int8 KV are later slices).
 Parameters are the JAX package's tree: ``layers`` leaves are stacked on a
-leading layer axis, and a quantized matrix is a ``{"q8", "scale"}`` dict
-(models/quant.py). The layer ``scan`` is a Python loop over layer indices
+leading layer axis, and a quantized matrix is a ``{"q8" | "q4c" | "q4p",
+"scale"}`` dict (models/quant.py). A layer's MLP goes to the whole-MLP
+kernel where ``ops.fused_mlp.maybe_fused`` dispatches it. The layer ``scan`` is a Python loop over layer indices
 that writes each layer's new K/V into the stacked ring and calls the
 attention's ``layered`` form on it.
 
@@ -28,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.config import LlamaConfig, LoraConfig
 from ..core.device import resolve_device, torch_dtype
+from ..ops import fused_mlp
 
 Params = Dict[str, Any]
 
@@ -130,7 +132,8 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
 def dense(x: torch.Tensor, w, lora: Optional[Dict] = None,
           scaling: float = 1.0, drop_seed: Optional[int] = None,
           drop_rate: float = 0.0) -> torch.Tensor:
-    """x @ w for a plain or int8 ``{"q8","scale"}`` weight, plus the LoRA
+    """x @ w for a plain or quantized (int8 ``q8``, int4 ``q4c`` / ``q4p``,
+    models/quant.py) weight, plus the LoRA
     branch ``scaling * (x A^T) B^T``; with ``drop_seed`` and a rate, the
     branch's input goes through dropout first (PEFT's lora_dropout)."""
     if isinstance(w, dict):
@@ -308,6 +311,9 @@ def _layer(h, lp, ll, cos, sin, q_pos, kv_ctx, cfg: LlamaConfig,
     attn_out = attn_out.transpose(1, 2).reshape(B, S, Hq * hd)
     h = h + dns(attn_out, "wo")
     x = rms_norm(h, lp["mlp_norm"], cfg.rms_norm_eps)
+    fused = fused_mlp.maybe_fused(x, lp, ll)
+    if fused is not None:
+        return h + fused.to(h.dtype)
     return h + dns(F.silu(dns(x, "w_gate")) * dns(x, "w_up"), "w_down")
 
 
@@ -428,8 +434,8 @@ def lm_head(params: Params, h: torch.Tensor, cfg: LlamaConfig, *,
             ) -> torch.Tensor:
     if cfg.tie_word_embeddings:
         if isinstance(params["embed"], dict):
-            raise ValueError("tied embeddings are not supported with int8 "
-                             "weights")
+            raise ValueError("tied embeddings are not supported with "
+                             "quantized (int8 / int4) weights")
         w = params["embed"].T
     else:
         w = params["lm_head"]

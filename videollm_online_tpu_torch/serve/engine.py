@@ -49,6 +49,22 @@ def _right_aligned(ids, bucket: int) -> torch.Tensor:
     return buf
 
 
+def _load_features(path: str) -> np.ndarray:
+    """A feature file as the JAX package's ``data/video_io.load_array``
+    reads it."""
+    if path.endswith(".npy"):
+        return np.load(path)
+    if path.endswith(".npz"):
+        with np.load(path) as z:
+            return z[list(z.keys())[0]]
+    if path.endswith(".pt"):
+        t = torch.load(path, weights_only=True, map_location="cpu")
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    raise NotImplementedError(
+        f"{path}: video files need the vision slice; the port reads "
+        f"pre-extracted features (.npy, .npz, .pt)")
+
+
 class LiveInferEngine:
     def __init__(
         self,
@@ -157,9 +173,10 @@ class LiveInferEngine:
     # ------------------------------------------------------------------ I/O
     def load_video(self, video: Any):
         """Pre-extracted features (T, vision_hidden) or (T, fnt,
-        vision_hidden). Raw frames and video paths are a later slice."""
+        vision_hidden), as an array or a path to one (``.npy``, ``.npz``,
+        ``.pt``). Video containers and raw frames are a later slice."""
         if isinstance(video, str):
-            raise NotImplementedError("video files need the vision slice")
+            video = _load_features(video)
         video = np.asarray(video)
         if video.dtype == np.uint8:
             raise NotImplementedError("raw pixels need the vision slice")
