@@ -49,7 +49,28 @@ any failure raises and exits non-zero:
      ``cli.main`` itself on 8 frames;
  12. K6 and K7, which no serving main path reaches, through 8-layer engines
      at the 8B widths: int8 layers with the MLP routed to K6 (its A/B), and
-     row-packed q4p layers, which the dispatch sends to K7.
+     row-packed q4p layers, which the dispatch sends to K7;
+ 13. K3 (paged decode attention) against its plain PyTorch version at the
+     8B shapes (8 streams, Hq 32, Hkv 8, d 128, pages of 512, a pool of 41
+     pages under a shuffled table with a trash-page entry, ragged q_pos
+     crossing pages, S 1 / 20 / 91 / 128, bf16 and int8 pools, window off
+     and on; what no query may read is overwritten with NaN for the kernel
+     call) and on small odd cases (d 64 and 256, pages of 32 and 64, fp32,
+     1 and 3 streams), with its time at S = 1, 20, 91 and 128 over bf16
+     pools and at S = 20 over int8 pools beside the plain version's, the gathering route's (index_select of the pages, then
+     scaled_dot_product_attention), K1's on an equal ring and the bound;
+ 14. a small fp32 MultiStreamEngine (3 streams, pages of 64) through K3 and
+     through its plain version: transcripts equal (or parted at a step
+     shown to be a tie flip), equal to three single-stream engines', and
+     stats() holding after a close, a prefix-cache admission and a fork;
+ 15. the multistream main path: the 8B int8-weight MultiStreamEngine with
+     benchmarks/serve_bench.py's traffic (8 streams x 64 frames admitted at
+     t = 0, a query every 8 frames, 20-token responses, kv_capacity 2560, so
+     a paged pool of 41 pages of 512): aggregate frames/s, responses,
+     ticks, stats(), K3 32 launches a forward and no K1 asserted, a profile
+     of one batched forward of 1, 20, 91 and 128 tokens; then the same traffic with int8 KV and spec
+     decode, and on the batched ring (K1 and the plain attention); then a
+     close, a re-admission and a fork.
 
 ``--phases a,b`` runs the named phases alone and prints no summary. The
 launch counts are set to 0 just before each main path and read just after
@@ -515,7 +536,7 @@ def phase_small_engine():
 # ---------------------------------------------------------------- phase 5
 # kernel classes by name: K1, cuBLAS matmuls, and the dtype-casting copies
 # (chiefly quantized_matmul's per-call int8 -> bf16 weight conversion)
-KERNEL_CLASSES = (("K1", ("k1_",)),
+KERNEL_CLASSES = (("K1", ("k1_",)), ("K3", ("k3_",)),
                   ("K4", ("fused_mlp_", "swiglu_merge")),
                   ("K5", ("matmul_int4c_",)),
                   ("matmul", ("nvjet", "gemm", "cutlass", "xmma")),
@@ -523,23 +544,24 @@ KERNEL_CLASSES = (("K1", ("k1_",)),
 
 
 def _profile_forward(params, cfg, cache, attn_impl, S, what="8B int8"):
-    """One S-token forward on the engine's ring, timed without the profiler
-    and then under torch.profiler: device time by kernel class, and the
-    share of the profiled forward's wall time in which the card ran no
-    kernel."""
+    """One S-token forward of every stream on the engine's ring or pool,
+    timed without the profiler and then under torch.profiler: device time
+    by kernel class, and the share of the profiled forward's wall time in
+    which the card ran no kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     from videollm_online_tpu_torch.models import llama
 
+    B = cache.offset.shape[0]
     emb = llama.embed_tokens(params["llama"],
-                             torch.full((1, S), 33, dtype=torch.int32),
+                             torch.full((B, S), 33, dtype=torch.int32),
                              cfg.llama)
 
     def fwd():
-        return llama.forward(params["llama"], cfg=cfg.llama,
-                             inputs_embeds=emb, kv_cache=cache,
-                             attn_impl=attn_impl,
-                             logit_gather_positions=torch.arange(S)[None])
+        return llama.forward(
+            params["llama"], cfg=cfg.llama, inputs_embeds=emb,
+            kv_cache=cache, attn_impl=attn_impl,
+            logit_gather_positions=torch.arange(S)[None].expand(B, S))
 
     fwd()
     torch.cuda.synchronize()
@@ -580,8 +602,10 @@ def _all_launch_counters():
     from videollm_online_tpu_torch.ops import decode_attention as da
     from videollm_online_tpu_torch.ops import flash_attention as fa
     from videollm_online_tpu_torch.ops import fused_mlp as fm
+    from videollm_online_tpu_torch.ops import paged_attention as pa
     return {"K1": da.ring_decode_attention_layered, "K2f": fa.flash_fwd,
             "K2b": fa.flash_dkdv, "K2q": fa.flash_dq,
+            "K3": pa.paged_decode_attention,
             "K4": fm.fused_mlp_int4c, "K5": fm.matmul_int4c,
             "K6": fm.fused_mlp_int8, "K7": fm.fused_mlp_int4}
 
@@ -1626,6 +1650,486 @@ def phase_ab_paths(n_layers: int = 8, n_frames: int = 16):
     return out
 
 
+# --------------------------------------------------------------- phase 13
+# K3 against its plain version (_close's readings). The plain version is the
+# JAX package's gather reference, all fp32; the kernel rounds the
+# probabilities to q's dtype before P.V, as the TPU kernel does, which moves
+# a bf16 output by about an ulp. The bounds sit above the readings over this
+# phase's cases: bf16 outputs need an atol up to 2.9e-3 at rtol 2e-2 (the
+# small cases, whose outputs are larger; the 8B cases 8.4e-4) and read a
+# relative norm error up to 3.0e-3; fp32 needs 3.0e-7 and reads 2.8e-7.
+K3_TOL = {torch.bfloat16: {"atol": 4e-3, "rtol": 2e-2, "rel": 5e-3},
+          torch.float32: {"atol": 1e-6, "rtol": 1e-5, "rel": 1e-6}}
+K3_MAIN = dict(B=8, Hq=32, Hkv=8, d=128, page=512, maxp=5, P=41)
+# per stream of the 8B case: the query's first slot (S up to 128 stays in
+# the stream's five pages; several cross a page boundary)
+K3_OFFSETS = (0, 100, 448, 511, 1000, 1530, 2000, 2431)
+
+
+def _k3_pools(L, P, Hkv, page, d, kind, gen):
+    """Random pools: bf16 or fp32 values, or int8 codes with fp32 scales."""
+    shape = (L, P, Hkv, page, d)
+    if kind == "int8":
+        pk, pv = (torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                                dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.rand(shape[:-1], generator=gen, device="cuda") / 64
+                  for _ in range(2))
+        return pk, pv, ks, vs
+    pk, pv = (torch.randn(shape, generator=gen, device="cuda").to(kind)
+              for _ in range(2))
+    return pk, pv, None, None
+
+
+def _k3_table(B, maxp, P, seed, trash_row):
+    """Each stream's pages drawn from pool pages 1..P-1 in a shuffled order;
+    ``trash_row``'s last entry is the trash page 0 (an unmapped lookahead)."""
+    perm = np.random.RandomState(seed).permutation(P - 1) + 1
+    table = perm[:B * maxp].reshape(B, maxp).astype(np.int32)
+    table[trash_row, -1] = 0
+    return torch.from_numpy(table).cuda()
+
+
+def _k3_poison(pools, layer, table, last_slot, value):
+    """Writes ``value`` over what no query of the case may read: the trash
+    page and every slot past each stream's last visible slot."""
+    page = pools[0].shape[3]
+    for pool in pools:
+        if pool is None:
+            continue
+        v = value if pool.dtype.is_floating_point else 0
+        pool[layer, 0] = v
+        for b, last in enumerate(last_slot):
+            for j, phys in enumerate(table[b].tolist()):
+                lo = max(last + 1 - j * page, 0)
+                if phys and lo < page:
+                    pool[layer, phys, :, lo:] = v
+
+
+def _k3_case(label, pools, table, q_pos, layer, *, window=None, Hq,
+             dtype, gen):
+    """K3 against the plain version on one input; the plain version reads
+    the pools as they are, the kernel reads them with NaN written over the
+    trash page and past each stream's last visible slot (which it must
+    never read), and they are restored to 0 after."""
+    from videollm_online_tpu_torch.ops import paged_attention as pa
+    pk, pv, ks, vs = pools
+    B, S = q_pos.shape
+    q = torch.randn((B, Hq, S, pk.shape[-1]), generator=gen,
+                    device="cuda").to(dtype)
+    want = pa.paged_attention_reference(q, pk, pv, table, q_pos, layer,
+                                        window=window, k_scale=ks,
+                                        v_scale=vs)
+    last = q_pos.max(dim=1).values.tolist()
+    _k3_poison(pools, layer, table, last, float("nan"))
+    got = pa.paged_decode_attention(q, pk, pv, table, q_pos, layer,
+                                    window=window, k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    _k3_poison(pools, layer, table, last, 0.0)
+    return _close(f"K3 {label}", got, want, K3_TOL[dtype])
+
+
+def _k3_qpos(offsets, S):
+    return (torch.tensor(offsets, dtype=torch.int32)[:, None]
+            + torch.arange(S, dtype=torch.int32)[None]).cuda()
+
+
+def _k3_timing(pools, table, q_pos, Hq, gen):
+    """K3, the plain version, the gathering route (index_select of the
+    table's pages, int8 codes times their scales, then
+    scaled_dot_product_attention over the gathered slots, the nearest
+    library yardstick, never called by the port) and K1 on a ring holding
+    the same K/V (S <= 64), each call on the next layer so that the K/V come
+    from device memory; with the bound from the visible slots of this
+    input. Int8 pools take bf16 queries."""
+    from videollm_online_tpu_torch.ops import decode_attention as da
+    from videollm_online_tpu_torch.ops import paged_attention as pa
+    pk, pv, ks, vs = pools
+    sc = {} if ks is None else {"k_scale": ks, "v_scale": vs}
+    L, P, Hkv, page, d = pk.shape
+    B, S = q_pos.shape
+    maxp = table.shape[1]
+    qdt = torch.bfloat16 if ks is not None else pk.dtype
+    q = torch.randn((B, Hq, S, d), generator=gen, device="cuda").to(qdt)
+    slots = maxp * page
+    mask = (torch.arange(slots, device="cuda")[None, None]
+            <= q_pos[:, :, None])[:, None]                  # (B, 1, S, slots)
+    flat = table.reshape(-1).long()
+
+    def gathered(pool, l):     # (P, Hkv, page[, d]) -> (B, Hkv, slots[, d])
+        tail = pool.shape[4:]
+        g = pool[l].index_select(0, flat).reshape((B, maxp, Hkv, page) + tail)
+        return g.transpose(1, 2).reshape((B, Hkv, slots) + tail)
+
+    def kern(i):
+        return pa.paged_decode_attention(q, pk, pv, table, q_pos, i % L, **sc)
+
+    def plain(i):
+        return pa.paged_attention_reference(q, pk, pv, table, q_pos, i % L,
+                                            **sc)
+
+    def route(i):
+        k, v = gathered(pk, i % L), gathered(pv, i % L)
+        if ks is not None:
+            k = (k.float() * gathered(ks, i % L)[..., None]).to(qdt)
+            v = (v.float() * gathered(vs, i % L)[..., None]).to(qdt)
+        return torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True)
+
+    t = {"ms": graph_ms(kern, L), "plain_ms": cuda_ms(plain, 3, 1),
+         "library_ms": graph_ms(route, L), "eager_ms": cuda_ms(kern, 4 * L)}
+    if S <= da.MAX_CHUNK:
+        ring = {n: torch.stack([gathered(x, l) for l in range(L)])
+                for n, x in (("k", pk), ("v", pv), *sc.items())}
+        rsc = {n: ring[n] for n in sc}
+        t["k1_ms"] = graph_ms(lambda i: da.ring_decode_attention_layered(
+            q, ring["k"], ring["v"], q_pos, i % L, **rsc), L)
+        del ring, rsc
+    visible = int((q_pos.max(dim=1).values + 1).sum())
+    rows_slots = int((q_pos.long() + 1).sum()) * (Hq // Hkv)
+    elt = pk.element_size() + (4 / d if ks is not None else 0)
+    bytes_ = (2 * visible * Hkv * d * elt + 2 * q.numel() * q.element_size()
+              + q_pos.numel() * 4 + table.numel() * 4)
+    flops = 4 * d * Hkv * rows_slots
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    return {**t, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "mbytes": bytes_ / 1e6}
+
+
+def phase_k3():
+    from videollm_online_tpu_torch.ops import paged_attention as pa
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    m = K3_MAIN
+    readings = {}
+
+    def note(cls, r):
+        readings.setdefault(cls, []).append(r)
+
+    table = _k3_table(m["B"], m["maxp"], m["P"], 0, trash_row=0)
+    timing = {}
+    for kind in (torch.bfloat16, "int8"):
+        L = 32
+        pools = _k3_pools(L, m["P"], m["Hkv"], m["page"], m["d"], kind, gen)
+        for S in (1, 20, 91, 128):
+            q_pos = _k3_qpos(K3_OFFSETS, S)
+            for window in (None, 700):
+                for layer in (0, L - 1):
+                    name = f"{'bf16' if kind != 'int8' else 'int8'}" + (
+                        " window" if window else "")
+                    note(name, _k3_case(
+                        f"8B {name} S {S} layer {layer}", pools, table,
+                        q_pos, layer, window=window, Hq=m["Hq"],
+                        dtype=torch.bfloat16, gen=gen))
+        for S in ((1, 20, 91, 128) if kind == torch.bfloat16 else (20,)):
+            timing[("bf16" if kind == torch.bfloat16 else "int8", S)] = \
+                _k3_timing(pools, table, _k3_qpos(K3_OFFSETS, S), m["Hq"],
+                           gen)
+        del pools
+        torch.cuda.empty_cache()
+    # small odd cases: head sizes, pages below and at the tile, fp32, B 1/3
+    for label, (B, Hq, Hkv, d, page, maxp, kind, offsets, S, window) in {
+            "d64 page32 bf16 B3": (3, 8, 2, 64, 32, 6, torch.bfloat16,
+                                   (0, 40, 150), 7, None),
+            "d256 page64 bf16 B1": (1, 8, 2, 256, 64, 4, torch.bfloat16,
+                                    (170,), 20, None),
+            "d64 page64 fp32 B3 window": (3, 8, 2, 64, 64, 6, torch.float32,
+                                          (5, 63, 250), 33, 40),
+            "d128 page32 fp32 B1": (1, 4, 4, 128, 32, 8, torch.float32,
+                                    (100,), 91, None),
+            "d256 page32 int8 B3": (3, 4, 1, 256, 32, 4, "int8",
+                                    (0, 31, 90), 5, None),
+            "d64 page64 int8 B1 fp32": (1, 8, 2, 64, 64, 3, "int8",
+                                        (60,), 64, 30)}.items():
+        P = 1 + B * maxp
+        pools = _k3_pools(2, P, Hkv, page, d, kind, gen)
+        tab = _k3_table(B, maxp, P, B + d + page, trash_row=B - 1)
+        qdt = torch.float32 if ("fp32" in label) else torch.bfloat16
+        note("small fp32" if qdt == torch.float32 else "small bf16",
+             _k3_case(label, pools, tab, _k3_qpos(offsets, S), 1,
+                      window=window, Hq=Hq, dtype=qdt, gen=gen))
+    log(f"K3 vs plain: {sum(len(r) for r in readings.values())} cases agree "
+        f"(tolerance bf16 {K3_TOL[torch.bfloat16]}, fp32 "
+        f"{K3_TOL[torch.float32]}); worst reading per class:")
+    for name, rs in readings.items():
+        log(f"  {name}: {_readings(_worst(rs))}")
+    for (kv, S), t in timing.items():
+        k1 = (f"K1 on an equal ring {t['k1_ms']:.5f} ms" if "k1_ms" in t
+              else f"K1 takes S <= 64 only")
+        log(f"K3 at 8B shapes (B 8, Hq 32, Hkv 8, d 128, page 512, {kv} "
+            f"K/V, bf16 q), S={S}, device ms per call from CUDA-graph replay over 32 "
+            f"layers: kernel {t['ms']:.5f}, plain {t['plain_ms']:.5f}, "
+            f"gathering route {t['library_ms']:.5f}, {k1}, bound "
+            f"{t['bound_ms']:.5f} ({t['bound_by']}, {t['mbytes']:.1f} MB at "
+            f"{HBM_BYTES_PER_S / 1e12} TB/s): {t['ms'] / t['bound_ms']:.2f} x "
+            f"the bound; eager kernel call from Python {t['eager_ms']:.5f}")
+    assert pa.paged_decode_attention.launches > 0
+    errs = max(_worst(rs)["max"] for rs in readings.values())
+    return {"max_abs_err": errs, **timing[("bf16", 1)], "timing": timing}
+
+
+# --------------------------------------------------------------- phase 14
+def _ms_admit(ms, i, feats, query_every, query="What am I doing?"):
+    """benchmarks/serve_bench.py's admission: a stream's whole clip at
+    t = 0 and a query every ``query_every`` frames."""
+    ms.input_frames(i, 0.0, feats)
+    for qt in range(0, len(feats), query_every):
+        ms.input_query(i, query, qt / ms.frame_fps)
+
+
+def _ms_drain(ms, max_ticks=4096):
+    """Ticks until nothing is pending; returns (results per stream, ticks)."""
+    out = [[] for _ in range(ms.N)]
+    ticks = 0
+    while ms.pending() and ticks < max_ticks:
+        for i, r in enumerate(ms.step()):
+            if r is not None:
+                out[i].append(r)
+        ticks += 1
+    if ms.pending():
+        raise AssertionError(f"multistream engine did not drain in {ticks} "
+                             f"ticks")
+    return out, ticks
+
+
+def phase_small_multistream():
+    """A small fp32 MultiStreamEngine (the shape of phase 4, 3 streams,
+    pages of 64) through K3 and through its plain version: equal
+    transcripts, or equal up to a step shown to be a tie flip; its
+    per-stream transcripts equal three single-stream engines' (the ring
+    and K1); stats() holds after a close_stream, a re-admission through
+    the prefix cache and a fork_stream."""
+    from videollm_online_tpu_torch.core.config import (LiveConfig,
+                                                       LlamaConfig)
+    from videollm_online_tpu_torch.models import live, llama
+    from videollm_online_tpu_torch.ops import paged_attention as pa
+    from videollm_online_tpu_torch.serve.engine import LiveInferEngine
+    from videollm_online_tpu_torch.serve.multistream import MultiStreamEngine
+    from videollm_online_tpu_torch.tokenizer.live_tokenizer import (
+        LiveTokenizer)
+    from videollm_online_tpu_torch.tokenizer.tiny import ByteTokenizer
+    lcfg = LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                       num_layers=2, num_heads=8, num_kv_heads=2, head_dim=64,
+                       dtype="float32")
+    cfg = LiveConfig(llama=lcfg, lora=None, vision_hidden_size=64)
+    tok = LiveTokenizer(ByteTokenizer(), cfg)
+    cfg = tok.cfg.replace(max_response_tokens=20)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = {"llama": llama.init_params(gen, cfg.llama, device="cuda"),
+              "connector": live.init_connector(gen, cfg, device="cuda")}
+    rng = np.random.RandomState(0)
+    feats = [rng.randn(24, cfg.frame_num_tokens,
+                       cfg.vision_hidden_size).astype(np.float32)
+             for _ in range(3)]
+    kw = dict(num_streams=3, kv_capacity=2048, paged=True, page_size=64,
+              spec_decode=True, device="cuda")
+
+    def run():
+        ms = MultiStreamEngine(params, tok, cfg, **kw)
+        for i in range(3):
+            _ms_admit(ms, i, feats[i], 8)
+        out, ticks = _ms_drain(ms)
+        return ms, out, ticks
+
+    _zero_launches()
+    with _HeadTap() as tap_kernel:
+        ms, kernel, ticks = run()
+    n = _read_launches()
+    saved = pa.paged_attention
+    pa.paged_attention = pa.paged_attention_reference
+    try:
+        with _HeadTap() as tap_plain:
+            _, plain, _ = run()
+    finally:
+        pa.paged_attention = saved
+    if n["K3"] == 0 or n["K1"] or not any(kernel):
+        raise AssertionError(f"launches {n}, responses {kernel}")
+    head = (f"small fp32 multistream engine (3 streams, pages of 64, spec "
+            f"decode; K3 {n['K3']} launches): {sum(map(len, kernel))} "
+            f"responses in {ticks} ticks, ")
+    if kernel == plain:
+        log(head + "equal transcripts through K3 and the plain version")
+    else:
+        log(head + "through K3 and the plain version parted by a tie flip: "
+            + _explain_flip(tap_kernel.calls, tap_plain.calls))
+    singles = []
+    for i in range(3):
+        eng = LiveInferEngine(params, tok, cfg, kv_capacity=4096,
+                              spec_decode=True, device="cuda")
+        eng.load_video(feats[i])
+        for qt in range(0, 24, 8):
+            eng.input_query_stream("What am I doing?", qt / cfg.frame_fps)
+        eng.input_video_stream(23 / cfg.frame_fps)
+        got = []
+        while True:
+            q, r = eng()
+            if r is None:
+                break
+            got.append((q, r))
+        singles.append(got)
+    if [list(t) for t in ms.transcripts] != singles:
+        raise AssertionError(f"multistream transcripts differ from the "
+                             f"single-stream engines':\n{ms.transcripts}\n"
+                             f"{singles}")
+    log("  per-stream transcripts equal three single-stream engines' (the "
+        "ring, K1)")
+    # close, re-admit through the prefix cache, fork; stats() asserts the
+    # page allocator's conservation invariants each time
+    ms.close_stream(0)
+    ms.stats()
+    _ms_admit(ms, 0, feats[0][:8], 8)
+    _ms_drain(ms)
+    ms.close_stream(2)
+    ms.fork_stream(0, 2)
+    pool = ms.stats()["pool"]
+    if pool["prefix_hits"] < 1 or ms.transcripts[2] != ms.transcripts[0]:
+        raise AssertionError(f"prefix admission or fork failed: {pool}")
+    _ms_admit(ms, 2, feats[2][:4], 8, "And now?")
+    _ms_drain(ms)
+    log(f"  after a close, a re-admission through the prefix cache and a "
+        f"fork: stats() holds, pool {ms.stats()['pool']}")
+
+
+# --------------------------------------------------------------- phase 15
+class _CountForwards:
+    """Counts llama.forward calls (one per batched forward) while entered."""
+
+    def __enter__(self):
+        from videollm_online_tpu_torch.models import llama
+        self.n, self._llama, self._saved = 0, llama, llama.forward
+
+        def counted(*a, **kw):
+            self.n += 1
+            return self._saved(*a, **kw)
+
+        llama.forward = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._llama.forward = self._saved
+
+
+def _ms_run(ms, feats, query_every):
+    """benchmarks/serve_bench.py's run: reset, every stream admitted at
+    t = 0, ticks until drained. Returns (seconds, responses, ticks,
+    forwards, launches)."""
+    ms.reset()
+    torch.cuda.synchronize()
+    _zero_launches()
+    with _CountForwards() as fc:
+        t0 = time.perf_counter()
+        for i in range(ms.N):
+            _ms_admit(ms, i, feats, query_every)
+        out, ticks = _ms_drain(ms)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    return dt, out, ticks, fc.n, _read_launches()
+
+
+def _ms_cache_bytes(cache):
+    pools = [cache.k, cache.v] + ([cache.k_scale, cache.v_scale]
+                                  if cache.quantized else [])
+    return sum(p.numel() * p.element_size() for p in pools)
+
+
+def phase_main_path_multistream(n_streams: int = 8, n_frames: int = 64):
+    """This slice's main path: the 8B int8-weight MultiStreamEngine at full
+    width and depth with benchmarks/serve_bench.py's traffic (8 streams, 64
+    frames each admitted at t = 0, a query every 8 frames, gate bias 30,
+    20-token responses, kv_capacity sized as that script sizes it, so the
+    paged pool of 5 pages of 512 a stream; the prefix cache on); then the
+    same traffic with kv_quant int8 and spec decode, and on the batched
+    ring (paged=False); then one close, admit and fork turn."""
+    from videollm_online_tpu_torch.core.config import (LiveConfig,
+                                                       LlamaConfig)
+    from videollm_online_tpu_torch.models import live, quant
+    from videollm_online_tpu_torch.serve.multistream import MultiStreamEngine
+    from videollm_online_tpu_torch.tokenizer.live_tokenizer import (
+        LiveTokenizer)
+    from videollm_online_tpu_torch.tokenizer.tiny import ByteTokenizer
+    lcfg = LlamaConfig(vocab_size=128256, hidden_size=4096,
+                       intermediate_size=14336, num_layers=32, num_heads=32,
+                       num_kv_heads=8, head_dim=128, dtype="bfloat16")
+    cfg = LiveConfig(llama=lcfg, lora=None)
+    tok = LiveTokenizer(ByteTokenizer(), cfg)
+    query_every, resp_tokens = 8, 20
+    cfg = tok.cfg.replace(frame_token_interval_threshold=0.725,
+                          max_response_tokens=resp_tokens,
+                          gate_logit_bias=30.0)
+    fnt = cfg.frame_num_tokens
+    capacity = 256 * ((n_frames * (fnt + 4) + 128 + (n_frames // 8 + 2)
+                       * (128 + 20)) // 256 + 1)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = {"llama": quant.random_quantized_llama_params(
+                  gen, cfg.llama, bits=8, device="cuda"),
+              "connector": live.init_connector(gen, cfg, device="cuda")}
+    feats = np.random.RandomState(7).randn(
+        n_frames, fnt, cfg.vision_hidden_size).astype(np.float32)
+    L = lcfg.num_layers
+    frames = n_streams * n_frames
+    results = {}
+    for name, kw in (("paged, bf16 KV", {}),
+                     ("paged, int8 KV, spec decode",
+                      dict(kv_quant="int8", spec_decode=True)),
+                     ("ring, bf16 KV", dict(paged=False))):
+        ms = MultiStreamEngine(params, tok, cfg, num_streams=n_streams,
+                               kv_capacity=capacity, device="cuda", **kw)
+        _ms_run(ms, feats[:16], query_every)                    # warm-up
+        dt, out, ticks, fwds, n = _ms_run(ms, feats, query_every)
+        st = ms.stats()
+        resp = st["response_latency"].get("response", {})
+        n_resp = sum(map(len, out))
+        if n_resp < n_streams * (n_frames // query_every) or not all(
+                "Assistant:" in r for o in out for _, r in o):
+            raise AssertionError(f"{name}: responses {out}")
+        if ms.paged and (n["K3"] != L * fwds or n["K1"]):
+            raise AssertionError(f"{name}: K3 {n['K3']} launches over {fwds} "
+                                 f"forwards (want {L} a forward), K1 {n['K1']}")
+        if not ms.paged and (n["K3"] or not n["K1"]):
+            raise AssertionError(f"{name}: launches {n}")
+        spec = ""
+        if ms.spec_decode:
+            steps, emitted = (int(x) for x in ms.spec_stats())
+            spec = (f", spec {steps} verify steps -> {emitted} tokens "
+                    f"({emitted / max(steps, 1):.3f} tokens/step)")
+        log(f"multistream main path ({name}, 8B int8 weights, {n_streams} "
+            f"streams x {n_frames} frames, kv_capacity {capacity}"
+            + (f", pool {ms.pool_pages} pages of {ms.page_size}"
+               if ms.paged else "") + f"): {frames} frames in {dt:.3f} s = "
+            f"{frames / dt:.3f} frames/s aggregate "
+            f"({frames / dt / n_streams:.3f} a stream), {n_resp} responses, "
+            f"{ticks} ticks, {fwds} forwards, launches {n}{spec}")
+        log(f"  response latency p50 {resp.get('p50_ms', 0):.1f} ms, p99 "
+            f"{resp.get('p99_ms', 0):.1f} ms ({resp.get('count', 0)} "
+            f"responses); tick p50 {st['ticks'].get('p50_ms', 0):.1f} ms, "
+            f"p99 {st['ticks'].get('p99_ms', 0):.1f} ms; KV "
+            f"{_ms_cache_bytes(ms.cache) / 2**30:.2f} GiB, parameters "
+            f"{quant.param_bytes(params) / 2**30:.2f} GiB; offsets "
+            f"{[s['offset'] for s in st['streams']]}"
+            + (f"; pool {st['pool']}" if ms.paged else ""))
+        results[name] = {"frames_per_s": frames / dt, "launches": n,
+                         "forwards": fwds, "ticks": ticks}
+        if name == "paged, bf16 KV":
+            log(f"  first response: {out[0][0]!r}")
+            for S in (1, 20, 91, 128):
+                _profile_forward(params, cfg, ms.cache, ms.attn_impl, S,
+                                 "8B int8, 8 streams, paged")
+            # one close, admit and fork turn, then stats()
+            ms.close_stream(0)
+            _ms_admit(ms, 0, feats[:16], query_every)
+            _ms_drain(ms)
+            ms.close_stream(1)
+            ms.fork_stream(0, 1)
+            pool = ms.stats()["pool"]
+            if pool["prefix_hits"] < 1:
+                raise AssertionError(f"no prefix-cache admission: {pool}")
+            log(f"  after a close, a re-admission (prefix cache) and a fork: "
+                f"pool {pool}")
+        del ms
+        torch.cuda.empty_cache()
+    return results
+
+
 PHASES = {"toolchain": phase_toolchain, "build": phase_build,
           "k1": phase_k1, "small_engine": phase_small_engine,
           "main_path": phase_main_path, "k2": phase_k2,
@@ -1633,7 +2137,9 @@ PHASES = {"toolchain": phase_toolchain, "build": phase_build,
           "main_training": phase_main_training, "fused": phase_fused,
           "small_int4_engine": phase_small_int4_engine,
           "main_path_int4": phase_main_path_int4,
-          "ab_paths": phase_ab_paths}
+          "ab_paths": phase_ab_paths, "k3": phase_k3,
+          "small_multistream": phase_small_multistream,
+          "main_path_multistream": phase_main_path_multistream}
 
 
 def main(argv=None) -> int:
@@ -1669,6 +2175,9 @@ def main(argv=None) -> int:
     phase_small_int4_engine()
     int4_path = phase_main_path_int4()
     ab = phase_ab_paths()
+    k3 = phase_k3()
+    phase_small_multistream()
+    multistream = phase_main_path_multistream()
     log(f"card: {smi}; total {time.perf_counter() - t_start:.1f} s")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     k2_source = "videollm_online_tpu_torch/csrc/flash_attention.cu"
@@ -1677,9 +2186,18 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "videollm_online_tpu_torch/csrc/decode_attention.cu",
         "replaces": "videollm_online_tpu/ops/decode_attention.py:249",
-        "launches": main_path["launches"] + int4_path["launches"]["K1"],
+        "launches": (main_path["launches"] + int4_path["launches"]["K1"]
+                     + multistream["ring, bf16 KV"]["launches"]["K1"]),
         "max_abs_err": max(k1["max_abs_err"], main_path["ring_err"]),
         **{key: k1[key] for key in keys},
+    }, {
+        "name": "paged_decode_attention",
+        "route": "cuda",
+        "source": "videollm_online_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "videollm_online_tpu/ops/paged_attention.py:175",
+        "launches": sum(r["launches"]["K3"] for r in multistream.values()),
+        "max_abs_err": k3["max_abs_err"],
+        **{key: k3[key] for key in keys},
     }]
     for name, part, label, replaces in (
             ("flash_fwd", "fwd", "K2f",

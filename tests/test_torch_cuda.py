@@ -16,7 +16,9 @@ from videollm_online_tpu_torch.models import live, llama, quant
 from videollm_online_tpu_torch.ops import decode_attention as da
 from videollm_online_tpu_torch.ops import flash_attention as fa
 from videollm_online_tpu_torch.ops import fused_mlp as fm
+from videollm_online_tpu_torch.ops import paged_attention as pa
 from videollm_online_tpu_torch.serve.engine import LiveInferEngine
+from videollm_online_tpu_torch.serve.multistream import MultiStreamEngine
 from videollm_online_tpu_torch.tokenizer.live_tokenizer import LiveTokenizer
 from videollm_online_tpu_torch.tokenizer.tiny import ByteTokenizer
 
@@ -351,3 +353,121 @@ def test_int4_forward_dispatches_the_kernels_on_card(card, monkeypatch):
         before[0] + 2, before[1] + 1)
     torch.testing.assert_close(got, want, atol=3e-2, rtol=0)
     assert got.dtype == torch.float32
+
+
+# --------------------------------------------------------------------- K3
+def _paged_inputs(S, dtype, dev, d=64, page=64, seed=8,
+                  starts=(250, 3, 130)):
+    """Three streams of 512 slots under a shuffled table; stream 1's last
+    table entry is the trash page 0, past anything it sees."""
+    rng = np.random.RandomState(seed)
+    maxp = 512 // page
+    Bp, P = len(starts), 1 + len(starts) * maxp
+    qdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    q = torch.from_numpy(rng.randn(Bp, HKV * G, S, d).astype(np.float32))
+    shape = (L, P, HKV, page, d)
+    if dtype == "int8":
+        k, v = (torch.from_numpy(rng.randint(-127, 128, shape).astype(np.int8))
+                for _ in range(2))
+        sc = {n: torch.from_numpy((rng.rand(*shape[:-1]) / 64).astype(
+            np.float32)).to(dev) for n in ("k_scale", "v_scale")}
+    else:
+        k, v = (torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(qdt)
+                for _ in range(2))
+        sc = {}
+    table = (rng.permutation(P - 1)[:Bp * maxp] + 1).reshape(Bp, maxp)
+    table[1, -1] = 0
+    q_pos = np.stack([s + np.arange(S) for s in starts]).astype(np.int32)
+    return (q.to(qdt).to(dev), k.to(dev), v.to(dev),
+            torch.from_numpy(table.astype(np.int32)).to(dev),
+            torch.from_numpy(q_pos).to(dev), sc)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "int8"])
+@pytest.mark.parametrize("d,page", [(64, 64), (128, 32), (256, 64)])
+def test_paged_kernel_matches_plain_on_card(card, dtype, d, page):
+    """Tolerance, elementwise and on the relative norm error, chip_smoke.py's
+    K3_TOL, set from its readings: bf16 queries (bf16 or int8 pools) atol
+    4e-3 and rtol 2e-2, relative norm 5e-3; fp32 atol 1e-6, rtol 1e-5,
+    relative norm 1e-6. The trash page, which no query may read, holds
+    NaN."""
+    atol, rtol, rel = ((1e-6, 1e-5, 1e-6) if dtype == "float32"
+                       else (4e-3, 2e-2, 5e-3))
+    for S, window in ((1, None), (20, 100), (91, None), (128, 50)):
+        q, k, v, table, q_pos, sc = _paged_inputs(S, dtype, card, d, page)
+        want = pa.paged_attention_reference(q, k, v, table, q_pos, LAYER,
+                                            window=window, **sc)
+        if dtype == "int8":
+            sc["k_scale"][LAYER, 0] = float("nan")
+        else:
+            k[LAYER, 0] = float("nan")
+        before = pa.paged_decode_attention.launches
+        got = pa.paged_attention(q, k, v, table, q_pos, LAYER,
+                                 window=window, **sc)
+        assert pa.paged_decode_attention.launches == before + 1
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=rtol)
+        assert float((got.float() - want.float()).norm()
+                     / want.float().norm()) <= rel
+
+
+def test_paged_kernel_empty_rows_and_refusals_on_card(card):
+    q, k, v, table, q_pos, _ = _paged_inputs(3, "float32", card)
+    q_pos[0, 0] = -1                       # a row that sees nothing
+    got = pa.paged_decode_attention(q, k, v, table, q_pos, 0)
+    assert torch.count_nonzero(got[0, :, 0]) == 0
+    torch.testing.assert_close(got, pa.paged_attention_reference(
+        q, k, v, table, q_pos, 0), atol=1e-6, rtol=1e-5)
+    with pytest.raises(ValueError):
+        pa.paged_decode_attention(q, k, v, table.long(), q_pos, 0)
+    with pytest.raises(ValueError):
+        pa.paged_decode_attention(q, k, v, table, q_pos, L)
+    with pytest.raises(TypeError):
+        pa.paged_decode_attention(q, k.to(torch.bfloat16),
+                                  v.to(torch.bfloat16), table, q_pos, 0)
+    # d outside the kernel's sizes raises on the card, through the dispatch
+    # too: nothing falls back to the plain version there
+    q48 = q[..., :48].contiguous()
+    k48, v48 = k[..., :48].contiguous(), v[..., :48].contiguous()
+    before = pa.paged_decode_attention.launches
+    with pytest.raises(ValueError):
+        pa.paged_decode_attention(q48, k48, v48, table, q_pos, 0)
+    with pytest.raises(ValueError):
+        pa.paged_attention(q48, k48, v48, table, q_pos, 0)
+    assert pa.paged_decode_attention.launches == before
+
+
+def test_multistream_paged_through_k3_equals_plain_on_card(card,
+                                                            monkeypatch):
+    """A small fp32 paged MultiStreamEngine: every paged forward launches K3
+    once a layer, and the transcripts equal those through the plain
+    version."""
+    lcfg = LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                       num_layers=2, num_heads=8, num_kv_heads=2, head_dim=64,
+                       dtype="float32")
+    cfg = LiveConfig(llama=lcfg, lora=None, vision_hidden_size=64)
+    tok = LiveTokenizer(ByteTokenizer(), cfg)
+    cfg = tok.cfg.replace(max_response_tokens=12)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params = {"llama": llama.init_params(gen, cfg.llama, device="cuda"),
+              "connector": live.init_connector(gen, cfg, device="cuda")}
+    feats = np.random.RandomState(1).randn(
+        12, cfg.frame_num_tokens, cfg.vision_hidden_size).astype(np.float32)
+
+    def run():
+        ms = MultiStreamEngine(params, tok, cfg, num_streams=2,
+                               kv_capacity=1024, page_size=64, paged=True,
+                               device="cuda")
+        for i in range(2):
+            ms.input_frames(i, 0.0, feats)
+            ms.input_query(i, "what now?", 2.0)
+        while ms.pending():
+            ms.step()
+        return ms.transcripts
+
+    pa.paged_decode_attention.launches = 0
+    got = run()
+    assert pa.paged_decode_attention.launches > 0
+    assert pa.paged_decode_attention.launches % lcfg.num_layers == 0
+    monkeypatch.setattr(pa, "paged_attention", pa.paged_attention_reference)
+    assert run() == got

@@ -36,86 +36,11 @@
 // partials of each row, all splits' loads in flight at once. Plain FMA in
 // this version: mma/wgmma and TMA pipelines are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
 #include <climits>
-#include <type_traits>
+
+#include "attention_common.cuh"
 
 namespace {
-
-constexpr int BK = 32;              // ring slots per tile (one per lane)
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int RPW = 4;              // query rows per warp
-constexpr int R = WARPS * RPW;      // query rows per CTA
-constexpr float NEG = -1e30f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f(int8_t x) { return static_cast<float>(x); }
-
-__device__ __forceinline__ void from_f(float* p, float v) { *p = v; }
-__device__ __forceinline__ void from_f(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-
-// Rounds a probability to q's dtype before P.V, as the TPU kernel does.
-template <typename QT>
-__device__ __forceinline__ float round_like(float x) {
-  if constexpr (std::is_same<QT, __nv_bfloat16>::value) return __bfloat162float(__float2bfloat16(x));
-  return x;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// One (ROWS, D) tile of T, loaded 16 bytes per thread per chunk into
-// registers and stored to fp32 shared memory later, so that the next tile's
-// loads are in flight while the current one is computed on.
-template <typename T, int D, int ROWS>
-struct Tile {
-  static constexpr int VEC = 16 / sizeof(T);
-  static constexpr int PER_ROW = D / VEC;
-  static constexpr int N = ROWS * PER_ROW / THREADS;  // chunks per thread
-  static_assert(N >= 1 && ROWS * PER_ROW % THREADS == 0, "tile shape");
-  uint4 reg[N];
-
-  __device__ __forceinline__ void load(const T* src, int valid) {
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      const int idx = threadIdx.x + k * THREADS;
-      const int r = idx / PER_ROW;
-      const int c = (idx % PER_ROW) * VEC;
-      reg[k] = r < valid ? __ldg(reinterpret_cast<const uint4*>(src + r * D + c))
-                         : make_uint4(0u, 0u, 0u, 0u);
-    }
-  }
-
-  __device__ __forceinline__ void store(float* dst, int ld) const {
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      const int idx = threadIdx.x + k * THREADS;
-      const T* e = reinterpret_cast<const T*>(&reg[k]);
-      float* o = dst + (idx / PER_ROW) * ld + (idx % PER_ROW) * VEC;
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) o[i] = to_f(e[i]);
-    }
-  }
-};
-
-template <int D>
-constexpr size_t split_smem_bytes() {
-  return (BK * (D + 1) + BK * D + R * D + R * BK + 2 * BK) * sizeof(float);
-}
 
 // grid (nsplit, B * Hkv, ceil(rows / R)); one CTA = one split of the
 // visible range x one kv head x R query rows.
@@ -216,10 +141,7 @@ k1_split_kernel(const QT* __restrict__ q, const KT* __restrict__ k_all,
 #pragma unroll
     for (int c = 0; c < CPL; ++c) acc[i][c] = 0.f;
   }
-  const float scale = 1.0f / sqrtf(static_cast<float>(D));
-
   for (int blk = start; blk < end; ++blk) {
-    const int slot0 = blk * BK;
     __syncthreads();  // every warp is done with the previous tile
     kt.store(sK, D + 1);
     vt.store(sV, D);
@@ -230,52 +152,8 @@ k1_split_kernel(const QT* __restrict__ q, const KT* __restrict__ k_all,
     __syncthreads();
     if (blk + 1 < end) prefetch(blk + 1);  // in flight during the compute
     if (!warp_active) continue;
-
-    // logits: lane j scores slot slot0 + j against this warp's RPW rows
-    float sc[RPW];
-#pragma unroll
-    for (int i = 0; i < RPW; ++i) sc[i] = 0.f;
-    const float* krow = sK + lane * (D + 1);
-    const float* qrows = sQ + warp * RPW * D;
-#pragma unroll 8
-    for (int c = 0; c < D; ++c) {
-      const float kv = krow[c];
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) sc[i] = fmaf(qrows[i * D + c], kv, sc[i]);
-    }
-    const int slot = slot0 + lane;
-#pragma unroll
-    for (int i = 0; i < RPW; ++i) {
-      float s = sc[i] * scale;
-      if (QUANT) s *= sKs[lane];
-      const bool vis = row_ok[i] && slot < C && slot <= qp[i] &&
-                       (window <= 0 || slot > qp[i] - window);
-      s = vis ? s : NEG;
-      const float m_new = fmaxf(m[i], warp_max(s));
-      const float p = vis ? expf(s - m_new) : 0.f;
-      const float alpha = expf(m[i] - m_new);
-      l[i] = l[i] * alpha + warp_sum(p);
-      m[i] = m_new;
-      sP[(warp * RPW + i) * BK + lane] = round_like<QT>(QUANT ? p * sVs[lane] : p);
-#pragma unroll
-      for (int c = 0; c < CPL; ++c) acc[i][c] *= alpha;
-    }
-    __syncwarp();
-
-    // acc += P V: lane owns columns lane + 32 * c of its warp's rows
-    const float* prows = sP + warp * RPW * BK;
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      float vr[CPL];
-#pragma unroll
-      for (int c = 0; c < CPL; ++c) vr[c] = sV[j * D + lane + 32 * c];
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) {
-        const float p = prows[i * BK + j];
-#pragma unroll
-        for (int c = 0; c < CPL; ++c) acc[i][c] = fmaf(p, vr[c], acc[i][c]);
-      }
-    }
+    tile_update<QT, QUANT, D>(sK, sV, sQ + warp * RPW * D, sP + warp * RPW * BK, sKs, sVs, lane,
+                              blk * BK, C, window, qp, row_ok, m, l, acc);
   }
 
 #pragma unroll
@@ -290,55 +168,6 @@ k1_split_kernel(const QT* __restrict__ q, const KT* __restrict__ k_all,
       part_ml[(pbase + r) * 2 + 1] = l[i];
     }
   }
-}
-
-// Max (or sum) over the block; every thread gets the result.
-template <bool MAX>
-__device__ __forceinline__ float block_reduce(float v, float* s_red) {
-  v = MAX ? warp_max(v) : warp_sum(v);
-  if (threadIdx.x % 32 == 0) s_red[threadIdx.x / 32] = v;
-  __syncthreads();
-  float t = s_red[0];
-  for (int i = 1; i < blockDim.x / 32; ++i) t = MAX ? fmaxf(t, s_red[i]) : t + s_red[i];
-  __syncthreads();
-  return t;
-}
-
-// grid (B * Hkv, rows), D threads: merges the nsplit partials of one row.
-// The split weights exp(m_s - max m) go to shared memory first, so the
-// acc loads of all splits are independent and in flight together.
-template <typename QT, int D>
-__global__ void __launch_bounds__(D)
-k1_merge_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-                QT* __restrict__ out, int rows, int nsplit) {
-  extern __shared__ float s_w[];  // nsplit
-  __shared__ float s_red[D / 32];
-  const int bh = blockIdx.x;
-  const int r = blockIdx.y;
-  const int c = threadIdx.x;
-  const size_t nbh = gridDim.x;
-  float mx = NEG;
-  for (int s = c; s < nsplit; s += D) {
-    const size_t i = (s * nbh + bh) * rows + r;
-    if (part_ml[i * 2 + 1] > 0.f) mx = fmaxf(mx, part_ml[i * 2]);
-  }
-  mx = block_reduce<true>(mx, s_red);
-  float lsum = 0.f;
-  for (int s = c; s < nsplit; s += D) {
-    const size_t i = (s * nbh + bh) * rows + r;
-    const float li = part_ml[i * 2 + 1];
-    const float w = li > 0.f ? expf(part_ml[i * 2] - mx) : 0.f;
-    s_w[s] = w;
-    lsum += li * w;
-  }
-  lsum = block_reduce<false>(lsum, s_red);  // its barrier publishes s_w
-  float a = 0.f;
-#pragma unroll 8
-  for (int s = 0; s < nsplit; ++s) {
-    const float w = s_w[s];
-    if (w != 0.f) a = fmaf(part_acc[((s * nbh + bh) * rows + r) * D + c], w, a);
-  }
-  from_f(out + (static_cast<size_t>(bh) * rows + r) * D + c, lsum > 0.f ? a / lsum : 0.f);
 }
 
 template <typename QT, typename KT, int D>
@@ -359,10 +188,7 @@ int launch(const void* q, const void* k_all, const void* v_all, const void* k_sc
       static_cast<float*>(part_ml), B, Hkv, S, rows, C, layer, window, nsplit);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  k1_merge_kernel<QT, D><<<dim3(B * Hkv, rows), D, nsplit * sizeof(float), stream>>>(
-      static_cast<const float*>(part_acc), static_cast<const float*>(part_ml),
-      static_cast<QT*>(out), rows, nsplit);
-  return static_cast<int>(cudaGetLastError());
+  return launch_merge<QT, D>(part_acc, part_ml, out, B * Hkv, rows, nsplit, stream);
 }
 
 template <typename QT, typename KT>

@@ -1,8 +1,9 @@
-"""Llama-3 decoder over a static KV ring, in PyTorch.
+"""Llama-3 decoder over a static KV ring or a paged KV pool, in PyTorch.
 
 Counterpart of ``videollm_online_tpu/models/llama.py``: inference with a KV
-cache, and the cache-free training forward with LoRA, LoRA-input dropout
-and per-layer remat (paged caches and int8 KV are later slices).
+ring (``KVCache``) or a shared page pool (``PagedKVCache``), either in the
+model dtype or as int8 codes with per-slot scales, and the cache-free
+training forward with LoRA, LoRA-input dropout and per-layer remat.
 Parameters are the JAX package's tree: ``layers`` leaves are stacked on a
 leading layer axis, and a quantized matrix is a ``{"q8" | "q4c" | "q4p",
 "scale"}`` dict (models/quant.py). A layer's MLP goes to the whole-MLP
@@ -10,9 +11,10 @@ kernel where ``ops.fused_mlp.maybe_fused`` dispatches it. The layer ``scan`` is 
 that writes each layer's new K/V into the stacked ring and calls the
 attention's ``layered`` form on it.
 
-The ring ``KVCache.k``/``v`` (L, B, Hkv, C, hd) lives on the device and is
-updated IN PLACE by ``forward`` (the JAX package relied on buffer donation
-instead). The offsets are host bookkeeping: ``offset``/``pos_base`` are
+The ring ``KVCache.k``/``v`` (L, B, Hkv, C, hd) and the pools of
+``PagedKVCache`` live on the device and are updated IN PLACE by ``forward``
+(the JAX package relied on buffer donation instead). The offsets and the
+page table are host bookkeeping: ``offset``/``pos_base``/``table`` are
 int32 CPU tensors, so appends need no device readback.
 """
 
@@ -180,32 +182,140 @@ class KVCache:
 
     Appends pack valid tokens first; bucket padding is written past the end
     and overwritten by the next append (never attended: the mask is
-    ``slot <= q_position``)."""
+    ``slot <= q_position``).
+
+    int8 mode: k/v hold int8 codes and ``k_scale``/``v_scale``
+    (L, B, Hkv, C) fp32 the per-token-per-head symmetric scales
+    (``x ~ code * scale``), quantized at append."""
     k: torch.Tensor
     v: torch.Tensor
     offset: torch.Tensor
     pos_base: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
 
     @property
     def capacity(self) -> int:
         return self.k.shape[3]
 
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
     def replace(self, **kw) -> "KVCache":
         return dataclasses.replace(self, **kw)
 
 
+def _kv_pools(shape, dtype, quant: Optional[str], device):
+    """Zeroed k, v (and for int8, fp32 scale pools of shape[:-1])."""
+    if quant is not None and quant != "int8":
+        raise ValueError(f"unsupported kv quant {quant!r}")
+    if quant is None:
+        return dict(k=torch.zeros(shape, dtype=dtype, device=device),
+                    v=torch.zeros(shape, dtype=dtype, device=device))
+    return dict(k=torch.zeros(shape, dtype=torch.int8, device=device),
+                v=torch.zeros(shape, dtype=torch.int8, device=device),
+                k_scale=torch.zeros(shape[:-1], device=device),
+                v_scale=torch.zeros(shape[:-1], device=device))
+
+
 def init_kv_cache(cfg: LlamaConfig, batch: int, capacity: int, dtype=None,
                   quant: Optional[str] = None, device=None) -> KVCache:
-    if quant is not None:
-        raise NotImplementedError("int8 KV caches are a later slice")
-    device = resolve_device(device)
-    dtype = dtype or torch_dtype(cfg.dtype)
     shape = (cfg.num_layers, batch, cfg.num_kv_heads, capacity, cfg.head_dim)
     return KVCache(
-        k=torch.zeros(shape, dtype=dtype, device=device),
-        v=torch.zeros(shape, dtype=dtype, device=device),
+        **_kv_pools(shape, dtype or torch_dtype(cfg.dtype), quant,
+                    resolve_device(device)),
         offset=torch.zeros((batch,), dtype=torch.int32),
         pos_base=torch.zeros((batch,), dtype=torch.int32))
+
+
+@dataclass
+class PagedKVCache:
+    """Paged KV: a physical page pool shared by all streams plus per-stream
+    page tables (``ops/paged_attention.py``).
+
+    k/v (L, P, Hkv, page, hd) on the device; ``table`` (B, MAXP) int32 on
+    the CPU maps stream b's logical page j to a pool page; ``offset`` /
+    ``pos_base`` have the ring's semantics. Logical slot i of stream b
+    lives at pool[l, table[b, i // page], :, i % page]. The host owns page
+    allocation (serve/multistream.py); pool page 0 is the trash page that
+    unmapped table entries point at. int8 mode adds fp32 scale pools
+    (L, P, Hkv, page), paged like the codes."""
+    k: torch.Tensor
+    v: torch.Tensor
+    table: torch.Tensor
+    offset: torch.Tensor
+    pos_base: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def page_size(self) -> int:
+        return self.k.shape[3]
+
+    @property
+    def capacity(self) -> int:  # per-stream logical capacity
+        return self.table.shape[1] * self.k.shape[3]
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+    def replace(self, **kw) -> "PagedKVCache":
+        return dataclasses.replace(self, **kw)
+
+
+def init_paged_kv_cache(cfg: LlamaConfig, batch: int, *, pool_pages: int,
+                        pages_per_stream: int, page_size: int = 512,
+                        dtype=None, quant: Optional[str] = None,
+                        device=None) -> PagedKVCache:
+    shape = (cfg.num_layers, pool_pages, cfg.num_kv_heads, page_size,
+             cfg.head_dim)
+    return PagedKVCache(
+        **_kv_pools(shape, dtype or torch_dtype(cfg.dtype), quant,
+                    resolve_device(device)),
+        table=torch.zeros((batch, pages_per_stream), dtype=torch.int32),
+        offset=torch.zeros((batch,), dtype=torch.int32),
+        pos_base=torch.zeros((batch,), dtype=torch.int32))
+
+
+def paged_slots(table: torch.Tensor, offset: torch.Tensor, page: int,
+                S: int, num_valid: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Physical (page, row) of every slot an S-token append writes, (B * S,)
+    int64 each, computed once per forward on the host: token j of stream b
+    goes to logical slot offset[b] + j, at pool page
+    table[b, slot // page], row slot % page. Padding past the stream's
+    mapped pages lands on trash page 0 through the table's zero entries.
+
+    The JAX package (``_paged_append``) clips a logical page past the
+    table to the last one, which the engine's capacity guard never lets a
+    valid token reach. Here a VALID token past the table raises instead,
+    and padding past it goes to the trash page (JAX's clip would write it
+    over the stream's last page)."""
+    B, maxp = table.shape
+    slot = offset.long()[:, None] + torch.arange(S)[None]          # (B, S)
+    lp = slot // page
+    past = lp >= maxp
+    if bool(past.any()):
+        valid = torch.arange(S)[None] < num_valid.long()[:, None]
+        if bool((past & valid).any()):
+            raise ValueError(f"paged append past the page table: offsets "
+                             f"{offset.tolist()} + {num_valid.tolist()} "
+                             f"valid tokens > {maxp} pages of {page}")
+    phys = torch.where(past, 0, torch.gather(
+        table.long(), 1, lp.clamp(max=maxp - 1)))
+    return phys.reshape(-1), (slot % page).reshape(-1)
+
+
+def paged_append(pool: torch.Tensor, layer: int, phys: torch.Tensor,
+                 row: torch.Tensor, x: torch.Tensor) -> None:
+    """Write x (B, Hkv, S[, hd]) into ``pool[layer]`` (P, Hkv, page[, hd])
+    at the pool rows ``paged_slots`` gave, in one indexed store (the pools
+    and the scale pools alike)."""
+    B, S = x.shape[0], x.shape[2]
+    pool[layer][phys, :, row] = x.transpose(1, 2).reshape(
+        (B * S,) + x.shape[1:2] + x.shape[3:]).to(pool.dtype)
 
 
 def trim_kv_cache(cache: KVCache, new_offset) -> KVCache:
@@ -214,6 +324,35 @@ def trim_kv_cache(cache: KVCache, new_offset) -> KVCache:
     off = torch.as_tensor(new_offset, dtype=torch.int32).expand(
         cache.offset.shape).clone()
     return cache.replace(offset=off)
+
+
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(head, token) symmetric int8: x (..., hd) -> codes int8 (..., hd)
+    and fp32 scales (...,) with ``x ~ codes * scale``; the JAX package's
+    arithmetic, so codes and scales are bit-identical to it."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1) / 127.0
+    safe = torch.clamp(scale, min=1e-12)
+    codes = torch.clamp(torch.round(xf / safe[..., None]), -127, 127)
+    return codes.to(torch.int8), scale
+
+
+def compact_kv_cache(cache: KVCache, keep) -> KVCache:
+    """Move each stream's newest ``keep`` slots to the front of its ring (in
+    place) and advance ``pos_base`` so absolute positions are unchanged;
+    everything older is evicted. ``keep``: int or (B,)."""
+    B = cache.k.shape[1]
+    keep = torch.minimum(
+        torch.as_tensor(keep, dtype=torch.int32).expand(B), cache.offset)
+    shift = cache.offset - keep
+    pools = [cache.k, cache.v] + ([cache.k_scale, cache.v_scale]
+                                  if cache.quantized else [])
+    for b in range(B):
+        s = int(shift[b])
+        if s:
+            for pool in pools:
+                pool[:, b] = torch.roll(pool[:, b], -s, dims=2)
+    return cache.replace(offset=keep.clone(), pos_base=cache.pos_base + shift)
 
 
 def _attention(q, k, v, q_pos, kv_valid_upto, *, num_groups,
@@ -270,10 +409,15 @@ def _index_tree(tree, i: int):
 
 def _layer(h, lp, ll, cos, sin, q_pos, kv_ctx, cfg: LlamaConfig,
            lora_scaling, attn_impl, drop_seed=None, lora_dropout=0.0):
-    """One transformer block. ``kv_ctx`` = (k_all, v_all, starts, layer):
-    this layer's K/V are written into the stacked ring at ``starts`` (one
-    host int per stream) and attention reads the ring at ``layer``.
-    ``drop_seed`` (the layer's) seeds each projection's LoRA dropout."""
+    """One transformer block. ``kv_ctx`` = (cache, starts, layer) for a
+    ring: this layer's K/V (int8 codes and scales for an int8 ring) are
+    written into the stacked ring at ``starts`` (one host int per stream)
+    and attention reads the ring at ``layer``. For a paged pool it is
+    (cache, (table, phys, row), layer): K/V go to the pool rows ``phys``,
+    ``row`` (``paged_slots``) with one indexed store per pool, and
+    attention is ``ops.paged_attention`` whatever ``attn_impl`` is, as in
+    the JAX package. ``drop_seed`` (the layer's) seeds each projection's
+    LoRA dropout."""
     B, S, _ = h.shape
     Hq, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
@@ -294,17 +438,35 @@ def _layer(h, lp, ll, cos, sin, q_pos, kv_ctx, cfg: LlamaConfig,
     k = apply_rope(k, cos, sin)
 
     if kv_ctx is not None:
-        k_all, v_all, starts, layer = kv_ctx
-        for b, start in enumerate(starts):
-            k_all[layer, b, :, start:start + S] = k[b]
-            v_all[layer, b, :, start:start + S] = v[b]
-        layered = getattr(attn_impl, "layered", None)
-        if layered is not None:
-            attn_out = layered(q, k_all, v_all, q_pos, layer,
-                               num_groups=Hq // Hkv)
+        cache, where, layer = kv_ctx
+        sc = {}
+        if cache.quantized:
+            k, k_sc = quantize_kv(k)
+            v, v_sc = quantize_kv(v)
+            stores = ((cache.k, k), (cache.v, v), (cache.k_scale, k_sc),
+                      (cache.v_scale, v_sc))
+            sc = {"k_scale": cache.k_scale, "v_scale": cache.v_scale}
         else:
-            attn_out = attn_impl(q, k_all[layer], v_all[layer], q_pos, None,
-                                 num_groups=Hq // Hkv)
+            stores = ((cache.k, k), (cache.v, v))
+        if isinstance(cache, PagedKVCache):
+            table, phys, row = where
+            for pool, x in stores:
+                paged_append(pool, layer, phys, row, x)
+            from ..ops.paged_attention import paged_attention
+            attn_out = paged_attention(q, cache.k, cache.v, table, q_pos,
+                                       layer, window=cfg.sliding_window, **sc)
+        else:
+            for pool, x in stores:
+                for b, start in enumerate(where):
+                    pool[layer, b, :, start:start + S] = x[b]
+            layered = getattr(attn_impl, "layered", None)
+            if layered is not None:
+                attn_out = layered(q, cache.k, cache.v, q_pos, layer,
+                                   num_groups=Hq // Hkv, **sc)
+            else:
+                attn_out = attn_impl(q, cache.k[layer], cache.v[layer], q_pos,
+                                     None, num_groups=Hq // Hkv,
+                                     **{n: t[layer] for n, t in sc.items()})
     else:
         attn_out = attn_impl(q, k, v, q_pos, None, num_groups=Hq // Hkv)
 
@@ -344,11 +506,12 @@ def forward(
     and ``lora_dropout`` every LoRA branch (the head's too) drops its input;
     layer i's masks are seeded by ``fold_seed(dropout_seed, i)`` and the
     head's by ``fold_seed(dropout_seed, num_layers)``. With a cache: writes
-    the (B, S) chunk into the ring at ``kv_cache.offset`` per stream
-    (``num_valid`` (B,) of the S tokens are real, the rest is bucket
-    padding) and attends over the ring. The write start is clamped into the
-    ring as ``jax.lax.dynamic_update_slice`` clamps it. Returns (logits,
-    cache) where the cache shares the ring and has ``offset + num_valid``.
+    the (B, S) chunk into the ring (or the paged pool) at
+    ``kv_cache.offset`` per stream (``num_valid`` (B,) of the S tokens are
+    real, the rest is bucket padding) and attends over it. A ring write's
+    start is clamped into the ring as ``jax.lax.dynamic_update_slice``
+    clamps it. Returns (logits, cache) where the cache shares the ring or
+    pool and has ``offset + num_valid``.
     """
     attn_impl = attn_impl or _attention
     if cfg.sliding_window is not None:
@@ -370,15 +533,19 @@ def forward(
     if kv_cache is not None:
         attn_pos = (positions - kv_cache.pos_base.to(dev)[:, None]).to(
             torch.int32).contiguous()
-        C = kv_cache.capacity
-        starts = [min(max(int(o), 0), C - S) for o in kv_cache.offset]
+        nv = (torch.full((B,), S, dtype=torch.int32) if num_valid is None
+              else torch.as_tensor(num_valid, dtype=torch.int32).cpu())
+        if isinstance(kv_cache, PagedKVCache):
+            phys, row = paged_slots(kv_cache.table, kv_cache.offset,
+                                    kv_cache.page_size, S, nv)
+            where = (kv_cache.table.to(dev), phys.to(dev), row.to(dev))
+        else:
+            C = kv_cache.capacity
+            where = [min(max(int(o), 0), C - S) for o in kv_cache.offset]
         for i in range(cfg.num_layers):
             h = _layer(h, _index_tree(params["layers"], i),
                        _index_tree(layer_lora, i), cos, sin, attn_pos,
-                       (kv_cache.k, kv_cache.v, starts, i), cfg,
-                       lora_scaling, attn_impl)
-        nv = (torch.full((B,), S, dtype=torch.int32) if num_valid is None
-              else torch.as_tensor(num_valid, dtype=torch.int32).cpu())
+                       (kv_cache, where, i), cfg, lora_scaling, attn_impl)
         new_cache = kv_cache.replace(offset=kv_cache.offset + nv)
     else:
         use_dropout = (dropout_seed is not None and lora_dropout > 0.0

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own
 by ``nvcc`` for ``sm_90a`` into a shared library under ``build/kernels/``
 at the repository root (git-ignored). The library's file name carries a
-hash of the source and flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is. Only the repository's own sources are
+hash of the source, the shared ``csrc/*.cuh`` headers and the flags, so an
+edited source or header is rebuilt and an unchanged one is loaded as it is. Only the repository's own sources are
 built. ``nvcc``'s ``-Xptxas -v`` report (registers, shared memory, spills)
 is kept beside each library as ``<library>.log``.
 """
@@ -41,7 +41,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 

@@ -1,0 +1,1081 @@
+"""Batched multi-stream serving: N concurrent video dialogues, one model.
+
+Counterpart of ``videollm_online_tpu/serve/multistream.py``
+(``MultiStreamEngine``), its blocking tick ``_step_unfused``: per tick, one
+batched forward ingests up to ``chunk_frames`` queued frames of every
+stream that has some (a 1-frame step when no stream has more than one) and
+reads every frame's gate; a second batched program answers every stream
+whose gate fired or whose query came due (greedy, or n-gram speculative
+with ``spec_decode``). Per-stream conversation state (queues, prepends,
+transcripts) lives on the host; device work is batch-N shaped.
+
+The KV cache is the paged pool (``models.llama.PagedKVCache``, attention
+through K3) or the batched ring (``KVCache``), chosen as the JAX engine
+chooses it; both may be int8 (``kv_quant``). The host owns the page
+allocator, its refcounts (``fork_stream`` aliases full pages), the prefix
+cache that admits a new dialogue by aliasing the system prompt's pages,
+and ``stream_window`` compaction (pages freed, or the ring rolled).
+
+The JAX engine's ``fused=True`` tick is one device dispatch whose
+transcripts its own tests prove equal to the blocking tick's; here
+``fused`` runs the same blocking tick. ``pipelined``, ``stream_tokens`` /
+``on_delta`` and ``vision_params`` (raw pixels) are not ported and raise.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time as _time
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..core.config import LiveConfig
+from ..core.device import resolve_device
+from ..models import generate as gen_mod
+from ..models import live, llama
+from ..tokenizer.live_tokenizer import LiveTokenizer
+from ..utils.profiling import LatencyHistogram
+
+TEXT_BUCKET = 4
+PROMPT_BUCKET = 128
+CHUNK_FRAMES = 8
+
+
+def _gate(rows: torch.Tensor, gate_id: int, threshold: float, bias: float
+          ) -> torch.Tensor:
+    """rows (..., V) logits -> next ids (...): the gate token's probability
+    is zeroed before the argmax when it is below the threshold (fp32
+    softmax, the gate bias added first)."""
+    rows = rows.float()
+    if bias:
+        rows = rows.clone()
+        rows[..., gate_id] += bias
+    probs = torch.softmax(rows, dim=-1)
+    below = probs[..., gate_id] < threshold
+    probs[..., gate_id] = torch.where(
+        below, torch.zeros((), dtype=probs.dtype, device=probs.device),
+        probs[..., gate_id])
+    return torch.argmax(probs, dim=-1)
+
+
+def _roll_valid_first(embeds: torch.Tensor, n, bucket: int) -> torch.Tensor:
+    """Per row b, roll (T, D) left by ``bucket - n[b]``: right-aligned valid
+    rows of the leading bucket move to the front (the JAX package's
+    vmapped ``jnp.roll``)."""
+    B, T = embeds.shape[:2]
+    shift = bucket - torch.as_tensor(np.asarray(n), dtype=torch.long)
+    idx = (torch.arange(T)[None] + shift[:, None]) % T
+    idx = idx.to(embeds.device)
+    return torch.gather(embeds, 1,
+                        idx[..., None].expand(-1, -1, embeds.shape[2]))
+
+
+def _check_same_tree(old, new, path="params"):
+    """swap_params guard: the same tree with the same leaf shapes and
+    dtypes."""
+    if isinstance(old, dict):
+        if not isinstance(new, dict) or old.keys() != new.keys():
+            raise ValueError(f"{path}: tree structure differs")
+        for k in old:
+            _check_same_tree(old[k], new[k], f"{path}.{k}")
+    elif (not isinstance(new, torch.Tensor) or old.shape != new.shape
+          or old.dtype != new.dtype):
+        raise ValueError(f"{path}: shape or dtype differs")
+
+
+class MultiStreamEngine:
+    """The JAX engine's constructor signature; ``fused`` is accepted and
+    changes nothing (one blocking tick), ``device`` picks the card (the
+    default) or ``"cpu"``."""
+
+    def __init__(self, params, tokenizer: LiveTokenizer,
+                 cfg: Optional[LiveConfig] = None, *, num_streams: int = 8,
+                 kv_capacity: int = 8192, frame_fps: Optional[float] = None,
+                 max_new_tokens: Optional[int] = None, attn_impl=None,
+                 chunk_frames: int = CHUNK_FRAMES,
+                 stream_window: Optional[int] = None,
+                 fused: bool = True, pipelined: bool = False,
+                 kv_quant: Optional[str] = None,
+                 spec_decode: bool = False,
+                 spec_draft: Optional[int] = None,
+                 spec_draft_mode: str = "ngram",
+                 stream_tokens: Optional[int] = None,
+                 on_delta=None,
+                 paged=None, page_size: int = 512,
+                 pool_pages: Optional[int] = None,
+                 prefix_cache: bool = True,
+                 vision_params=None,
+                 max_lag_frames: Optional[int] = None,
+                 device=None):
+        refused = {"pipelined": pipelined,
+                   "stream_tokens": stream_tokens is not None,
+                   "on_delta": on_delta is not None,
+                   "vision_params": vision_params is not None}
+        asked = [k for k, on in refused.items() if on]
+        if asked:
+            raise NotImplementedError(
+                f"not ported: {', '.join(asked)} (the port serves the "
+                f"blocking tick over pre-extracted features)")
+        if kv_quant not in (None, "int8"):
+            raise ValueError(f"kv_quant {kv_quant!r}")
+        if spec_draft_mode not in ("ngram", "zero"):
+            raise ValueError(f"spec_draft_mode {spec_draft_mode!r}")
+        if max_lag_frames is not None and max_lag_frames < 1:
+            raise ValueError(f"max_lag_frames {max_lag_frames} < 1")
+        self.device = resolve_device(device)
+        self.kv_quant = kv_quant
+        self.spec_decode = spec_decode
+        # K = response budget - 1, capped at 19: one verify forward can emit
+        # a whole predicted response
+        self.spec_draft = int(
+            spec_draft
+            or max(1, min((max_new_tokens
+                           or (cfg or tokenizer.cfg).max_response_tokens)
+                          - 1, 19)))
+        self.spec_draft_mode = spec_draft_mode
+        # paged=None: paged iff the capacity holds 2 pages beyond any window
+        if paged is None:
+            paged = kv_capacity >= 2 * page_size + (stream_window or 0)
+        self.paged = paged
+        self.prefix_cache = bool(prefix_cache) and self.paged
+        self.page_size = page_size
+        self._maxp = -(-kv_capacity // page_size)
+        self.pool_pages = (pool_pages if pool_pages is not None
+                           else num_streams * self._maxp + 1)
+        self.params = params
+        self.tokenizer = tokenizer
+        self.cfg = cfg or tokenizer.cfg
+        # each stream compacts on its own: windowed attention + pages freed
+        # (paged) or the ring rolled (ring), as the single-stream contract
+        self.stream_window = stream_window
+        if stream_window is not None:
+            need = (stream_window + TEXT_BUCKET
+                    + chunk_frames * (self.cfg.frame_num_tokens + 1)
+                    + PROMPT_BUCKET
+                    + (max_new_tokens or self.cfg.max_response_tokens))
+            if kv_capacity < need:
+                raise ValueError(f"kv_capacity {kv_capacity} too small for "
+                                 f"stream_window {stream_window}: needs >= "
+                                 f"{need}")
+            self.cfg = self.cfg.replace(llama=dataclasses.replace(
+                self.cfg.llama, sliding_window=stream_window))
+        # a stream whose frame queue exceeds this sheds its OLDEST frames at
+        # the next tick; None = never drop
+        self.max_lag_frames = max_lag_frames
+        self.N = num_streams
+        self.kv_capacity = kv_capacity
+        self.frame_fps = frame_fps or self.cfg.frame_fps
+        self.fnt = self.cfg.frame_num_tokens
+        self.hidden = self.cfg.llama.hidden_size
+        self.max_new = max_new_tokens or self.cfg.max_response_tokens
+        self.chunk_frames = max(1, chunk_frames)
+        if attn_impl is None:
+            from ..ops.auto import auto_attention
+            attn_impl = auto_attention
+        self.attn_impl = attn_impl
+        lora = params.get("lora")
+        self._lora_scaling = (self.cfg.lora.scaling if (
+            self.cfg.lora is not None and lora is not None) else 1.0)
+        iv = self.cfg.frame_token_interval_id
+        self._gate_id = iv if iv is not None else self.cfg.eos_token_id
+
+        tok = tokenizer
+        self._start_ids = list(tok.apply_chat_template(
+            [{"role": "system", "content": self.cfg.system_prompt}],
+            tokenize=True, add_stream_prompt=True))
+        self._stream_prompt_ids = list(tok.encode("\n["))
+        self._gen_prompt_ids = list(tok.encode("]\nAssistant:"))
+        self.reset()
+
+    # ---------------------------------------------------- device programs
+    def _fwd(self, embeds, num_valid, gather_pos=None, return_hidden=False):
+        logits, self.cache = llama.forward(
+            self.params["llama"], cfg=self.cfg.llama, inputs_embeds=embeds,
+            kv_cache=self.cache,
+            num_valid=torch.as_tensor(np.asarray(num_valid), dtype=torch.int32),
+            lora=self.params.get("lora"), lora_scaling=self._lora_scaling,
+            attn_impl=self.attn_impl, logit_gather_positions=gather_pos,
+            return_hidden=return_hidden)
+        return logits
+
+    def _embed(self, ids) -> torch.Tensor:
+        return llama.embed_tokens(
+            self.params["llama"], torch.as_tensor(np.asarray(ids)),
+            self.cfg.llama)
+
+    def _gate_ids(self, logits) -> np.ndarray:
+        cfg = self.cfg
+        return _gate(logits, self._gate_id,
+                     float(cfg.frame_token_interval_threshold),
+                     cfg.gate_logit_bias).cpu().numpy()
+
+    def _frame_step(self, text_ids, n_text, frames, active):
+        """text_ids (N, TEXT_BUCKET) right-aligned; frames (N, fnt, D);
+        active (N,) bool. Appends [prepend, frame] of every active stream
+        and reads its gate. Returns (fire, next_id)."""
+        t_emb = self._embed(text_ids)
+        embeds = _roll_valid_first(
+            torch.cat([t_emb, frames.to(t_emb.dtype)], dim=1), n_text,
+            TEXT_BUCKET)
+        num_valid = np.where(active, n_text + self.fnt, 0)
+        gather = torch.as_tensor(np.maximum(num_valid - 1, 0))
+        next_id = self._gate_ids(self._fwd(embeds, num_valid, gather)[:, 0])
+        return active & (next_id != self._gate_id), next_id
+
+    def _chunk_step(self, text_ids, n_text, frames, n_frames, active):
+        """Batched catch-up ingest: per active stream [prepend] f0 , f1 ...
+        (up to K frames) in ONE forward, the gate read at every frame's
+        last token, and each stream's offset rewound to the end of its
+        first fired frame. frames (N, K, fnt, D), n_frames (N,) in [0, K].
+        Returns (consumed, fire, next_id)."""
+        N, K, fnt = self.N, frames.shape[1], self.fnt
+        iv = self.cfg.frame_token_interval_id
+        itv = 1 if iv is not None else 0
+        per = fnt + itv
+        t_emb = self._embed(text_ids)
+        f_emb = frames.to(t_emb.dtype)
+        D = t_emb.shape[-1]
+        if itv:
+            iv_emb = self._embed([[iv]])[0]                      # (1, D)
+            unit = torch.cat([iv_emb[None, None].expand(N, K, 1, D), f_emb],
+                             dim=2)
+            body = torch.cat([f_emb[:, 0], unit[:, 1:].reshape(N, -1, D)],
+                             dim=1)
+        else:
+            body = f_emb.reshape(N, -1, D)
+        embeds = _roll_valid_first(torch.cat([t_emb, body], dim=1), n_text,
+                                   TEXT_BUCKET)
+        valid = np.where(active, n_text + n_frames * fnt
+                         + np.maximum(n_frames - 1, 0) * itv, 0)
+        ends = torch.as_tensor(n_text[:, None] + fnt - 1
+                               + np.arange(K)[None] * per)
+        base = self.cache.offset.numpy().astype(np.int64)
+        next_ids = self._gate_ids(self._fwd(embeds, valid, ends))   # (N, K)
+        fires = ((next_ids != self._gate_id)
+                 & (np.arange(K)[None] < n_frames[:, None]) & active[:, None])
+        any_fire = fires.any(axis=1)
+        consumed = np.where(any_fire, fires.argmax(axis=1) + 1, n_frames)
+        consumed = np.where(active, consumed, 0)
+        tokens = np.where(active, n_text + consumed * fnt
+                          + np.maximum(consumed - 1, 0) * itv, 0)
+        self.cache = self.cache.replace(offset=torch.as_tensor(
+            base + tokens, dtype=torch.int32))
+        last = np.clip(consumed - 1, 0, K - 1)
+        return consumed, any_fire, next_ids[np.arange(N), last]
+
+    def _prompt_embeds(self, prompt_ids, num_valid):
+        return _roll_valid_first(self._embed(prompt_ids), num_valid,
+                                 prompt_ids.shape[1])
+
+    def _respond_core(self, prompt_ids, num_valid, active):
+        """Batched greedy decode of the active streams: the prompt forward,
+        then one 1-token forward per step for every stream not yet done
+        (done streams append nothing). Returns (out (N, max_new), lengths)."""
+        N, max_new, eos = self.N, self.max_new, self.cfg.eos_token_id
+        nv = np.where(active, num_valid, 0)
+        logits = self._fwd(self._prompt_embeds(prompt_ids, num_valid), nv,
+                           torch.as_tensor(np.maximum(nv - 1, 0)))
+        first = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
+        out = np.zeros((N, max_new), np.int64)
+        out[:, 0] = first
+        done = ~active | (first == eos)
+        lengths = np.where(active, 1, 0)
+        i = 1
+        while i < max_new and not done.all():
+            logits = self._fwd(self._embed(out[:, i - 1:i]),
+                               (~done).astype(np.int32),
+                               torch.zeros((N,), dtype=torch.long))
+            nxt = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
+            nxt = np.where(done, eos, nxt)
+            out[:, i] = nxt
+            lengths = np.where(done, lengths, i + 1)
+            done = done | (nxt == eos)
+            i += 1
+        return out, lengths
+
+    def _hist_append(self, i: int, ids, n: int):
+        self._hist[i], self._hcount[i] = gen_mod.hist_append_ids(
+            self._hist[i], self._hcount[i], torch.as_tensor(np.asarray(ids)),
+            int(n))
+
+    def _respond_core_spec(self, prompt_ids, num_valid, active):
+        """Batched n-gram speculative decode: the greedy core's exact token
+        streams, up to ``spec_draft + 1`` tokens per stream per verify
+        forward. Every stream's history ring takes its prompt and its
+        emitted tokens; ``_sstats`` accumulates [verify steps, emitted] over
+        the streams."""
+        N, max_new, eos, K = (self.N, self.max_new, self.cfg.eos_token_id,
+                              self.spec_draft)
+        P = prompt_ids.shape[1]
+        nv = np.where(active, num_valid, 0)
+        for i in np.flatnonzero(nv):
+            self._hist_append(i, np.roll(prompt_ids[i], -(P - nv[i])), nv[i])
+        logits = self._fwd(self._prompt_embeds(prompt_ids, num_valid), nv,
+                           torch.as_tensor(np.maximum(nv - 1, 0)))
+        first = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
+        out = np.zeros((N, max_new), np.int64)
+        out[:, 0] = first
+        done = ~active | (first == eos)
+        lengths = np.where(active, 1, 0)
+        for i in np.flatnonzero(active):
+            self._hist_append(i, first[i:i + 1], 1)
+        nact = int(active.sum())
+        self._sstats += torch.tensor([nact, nact], dtype=torch.int32)
+        i_n = np.where(active, 1, 0)
+        kk = np.arange(K + 1)
+        gpos = torch.arange(K + 1)[None].expand(N, K + 1)
+        while not done.all():
+            prev = out[np.arange(N), np.clip(i_n - 1, 0, max_new - 1)]
+            drafts = np.zeros((N, K), np.int64)
+            if self.spec_draft_mode == "ngram":
+                for i in np.flatnonzero(~done):
+                    drafts[i] = gen_mod._ngram_draft(
+                        self._hist[i], self._hcount[i], K).numpy()
+            toks = np.concatenate([prev[:, None], drafts], axis=1)
+            off0 = self.cache.offset
+            feed = np.where(done, 0, K + 1)
+            logits = self._fwd(self._embed(toks), feed, gpos)
+            preds = torch.argmax(logits, dim=-1).cpu().numpy()   # (N, K+1)
+            mism = preds[:, :K] != drafts
+            emit = np.where(mism, kk[None, :K], K).min(axis=1) + 1
+            is_eos = (preds == eos) & (kk[None] < emit[:, None])
+            e_idx = np.where(is_eos, kk[None], K + 1).min(axis=1)
+            hit_eos = e_idx <= K
+            emit = np.where(hit_eos, e_idx + 1, emit)
+            emit = np.minimum(emit, max_new - i_n)
+            emit = np.where(done, 0, emit)
+            for i in np.flatnonzero(emit):
+                out[i, i_n[i]:i_n[i] + emit[i]] = preds[i, :emit[i]]
+                self._hist_append(i, preds[i], emit[i])
+            # keep `emit` KV entries per stream: the newest emitted token's
+            # KV stays out of the cache, as in the greedy core
+            self.cache = self.cache.replace(offset=off0 + torch.as_tensor(
+                emit, dtype=torch.int32))
+            lengths = np.where(done, lengths, i_n + emit)
+            self._sstats += torch.tensor(
+                [int((~done).sum()), int(emit.sum())], dtype=torch.int32)
+            done = done | hit_eos | (i_n + emit >= max_new)
+            i_n = i_n + emit
+        return out, lengths
+
+    def _respond(self, prompt_ids, num_valid, active):
+        """Greedy or speculative batched respond. Returns (out, lengths)."""
+        if self.spec_decode:
+            return self._respond_core_spec(prompt_ids, num_valid, active)
+        return self._respond_core(prompt_ids, num_valid, active)
+
+    def _prefill(self, ids, nv, active):
+        num_valid = np.where(active, nv, 0)
+        # the prompt's logits are unused: skip the lm_head
+        self._fwd(self._prompt_embeds(ids, nv), num_valid,
+                  torch.as_tensor(np.maximum(num_valid - 1, 0)),
+                  return_hidden=True)
+
+    def _pools(self):
+        c = self.cache
+        return [c.k, c.v] + ([c.k_scale, c.v_scale] if c.quantized else [])
+
+    def _copy_page(self, p_new: int, p_old: int):
+        """One page (every layer, every pool) copied in place."""
+        for pool in self._pools():
+            pool[:, p_new] = pool[:, p_old]
+
+    def _copy_page_multi(self, p_src: int, dsts: List[int]):
+        """One source page copied into each of ``dsts``, in place."""
+        idx = torch.as_tensor(dsts, device=self.device)
+        for pool in self._pools():
+            pool.index_copy_(1, idx, pool[:, p_src:p_src + 1].expand(
+                (-1, len(dsts)) + pool.shape[2:]).contiguous())
+
+    def _mask_set_offsets(self, mask, vals):
+        m = torch.as_tensor(mask)
+        self.cache = self.cache.replace(
+            offset=torch.where(m, torch.as_tensor(vals, dtype=torch.int32),
+                               self.cache.offset),
+            pos_base=torch.where(m, 0, self.cache.pos_base).to(torch.int32))
+
+    def _sync_offsets(self):
+        self._host_offsets[:] = self.cache.offset.numpy()
+
+    # ---------------------------------------------------------------- state
+    def reset(self):
+        if self.paged:
+            self.cache = llama.init_paged_kv_cache(
+                self.cfg.llama, batch=self.N, pool_pages=self.pool_pages,
+                pages_per_stream=self._maxp, page_size=self.page_size,
+                quant=self.kv_quant, device=self.device)
+            # host-owned page allocator: pool page 0 is the TRASH page
+            # (unmapped table entries point there, so padding written past
+            # a stream's last page never lands on a foreign page); pages
+            # are handed out lazily in _ensure_pages. _page_refs counts the
+            # owners of each page (fork_stream and the prefix cache alias
+            # full pages); a page is free again when its last owner drops it.
+            self._free_pages = list(range(self.pool_pages - 1, 0, -1))
+            self._table_host = np.zeros((self.N, self._maxp), np.int32)
+            self._pages_alloc = [0] * self.N
+            self._pos_base_host = np.zeros((self.N,), np.int64)
+            self._page_refs = np.zeros((self.pool_pages,), np.int32)
+        else:
+            self.cache = llama.init_kv_cache(
+                self.cfg.llama, batch=self.N, capacity=self.kv_capacity,
+                quant=self.kv_quant, device=self.device)
+        # prefix cache: start-ids tuple -> {pages, tail_page, length}
+        self._prefix_entries: Dict[tuple, Dict[str, Any]] = {}
+        self._prefix_hits = 0
+        self.frame_queues = [collections.deque() for _ in range(self.N)]
+        self.query_queues = [collections.deque() for _ in range(self.N)]
+        self.prepends: List[List[int]] = [[] for _ in range(self.N)]
+        self._needs_prefill = [True] * self.N
+        self.transcripts: List[List[Tuple]] = [[] for _ in range(self.N)]
+        self._host_offsets = np.zeros((self.N,), np.int64)
+        self._resp_out = [collections.deque() for _ in range(self.N)]
+        # spec_decode: per-stream token-history rings, their counts and the
+        # accumulated [verify_steps, emitted]
+        self._hist = torch.zeros((self.N, gen_mod.SPEC_HIST),
+                                 dtype=torch.int32)
+        self._hcount = torch.zeros((self.N,), dtype=torch.int32)
+        self._sstats = torch.zeros((2,), dtype=torch.int32)
+        self._tick_hist = LatencyHistogram(max_samples=4096)
+        self._dropped = [0] * self.N
+        # response latency: wall clock from the arrival of a response's
+        # trigger (the frame's input_frames / the query's input_query call)
+        # to the response surfacing; keys ("f" | "q", video_time)
+        self._resp_hist = LatencyHistogram(max_samples=4096)
+        self._arrival: List[collections.OrderedDict] = [
+            collections.OrderedDict() for _ in range(self.N)]
+
+    def _set_table(self):
+        self.cache = self.cache.replace(
+            table=torch.from_numpy(self._table_host.copy()))
+
+    # ------------------------------------------------------------------ I/O
+    def input_frames(self, stream: int, video_time: float,
+                     features: np.ndarray):
+        """Enqueue pre-extracted features ((T, fnt, vision_hidden) or
+        (T, vision_hidden)) for one stream, timestamped from ``video_time``
+        on the fps grid; they are projected on the device at once."""
+        feats = np.asarray(features)
+        if feats.dtype == np.uint8:
+            raise NotImplementedError("raw pixels need the vision slice")
+        if feats.ndim == 2:
+            feats = feats[:, None, :]
+        embeds = None
+        if len(feats):
+            x = torch.from_numpy(np.ascontiguousarray(feats)).to(self.device)
+            embeds = live.visual_embed(self.params, x, self.cfg).reshape(
+                -1, self.fnt, self.hidden)
+        now = _time.perf_counter()
+        for i in range(len(feats)):
+            t = video_time + i / self.frame_fps
+            self.frame_queues[stream].append((t, (embeds, i)))
+            self._note_arrival(stream, ("f", t), now)
+
+    def input_query(self, stream: int, query: str, video_time: float):
+        self.query_queues[stream].append((video_time, query))
+        self._note_arrival(stream, ("q", video_time), _time.perf_counter())
+
+    def _note_arrival(self, i: int, key, now: float):
+        d = self._arrival[i]
+        d[key] = now
+        if len(d) > 8192:          # bound host memory on long streams
+            d.popitem(last=False)
+
+    def _record_response_latency(self, i: int, kind: str, t):
+        arr = self._arrival[i].pop((kind, t), None)
+        if arr is not None:
+            dt = _time.perf_counter() - arr
+            self._resp_hist.add("response", dt)
+            self._resp_hist.add(f"response_s{i}", dt)
+
+    def spec_stats(self) -> np.ndarray:
+        """[verify_steps, emitted_tokens] accumulated across all streams'
+        spec_decode responses. Mean accepted drafts per step =
+        tokens / steps - 1."""
+        return self._sstats.numpy().copy()
+
+    def maybe_backoff_spec(self, *, min_tokens_per_step: float = 1.15,
+                           min_steps: int = 64) -> bool:
+        """Turn spec decode off when the measured acceptance across all
+        streams makes drafting a net loss. Returns True when it did."""
+        if not self.spec_decode:
+            return False
+        steps, emitted = (int(x) for x in self.spec_stats())
+        if steps < min_steps or emitted >= min_tokens_per_step * steps:
+            return False
+        self.spec_decode = False
+        return True
+
+    def swap_params(self, params):
+        """Swap the model weights for every stream (same tree, shapes and
+        dtypes). The prefix cache's KV was computed under the old weights
+        and is dropped."""
+        _check_same_tree(self.params, params)
+        self._clear_prefix_cache()
+        self.params = params
+
+    def _shed_lag(self):
+        """Drop each lagging stream's OLDEST queued frames down to
+        ``max_lag_frames``."""
+        lag = self.max_lag_frames
+        if lag is None:
+            return
+        for i in range(self.N):
+            q = self.frame_queues[i]
+            while len(q) > lag:
+                q.popleft()
+                self._dropped[i] += 1
+
+    def stats(self) -> Dict[str, Any]:
+        """Serving snapshot from host state alone: per-stream queue and cache
+        occupancy and drops, pool accounting (paged) with the allocator's
+        conservation invariants asserted, tick and response latency
+        percentiles."""
+        out = {
+            "streams": [{
+                "offset": int(self._host_offsets[i]),
+                "queued_frames": len(self.frame_queues[i]),
+                "queued_queries": len(self.query_queues[i]),
+                "pending_responses": len(self._resp_out[i]),
+                "transcript_len": len(self.transcripts[i]),
+                "dropped_frames": self._dropped[i],
+            } for i in range(self.N)],
+            "ticks": self._tick_hist.summary().get("tick", {}),
+            "response_latency": self._resp_hist.summary(),
+        }
+        if self.paged:
+            tmpl_refs = self._template_refs()
+            # unique physical pages with a ref (an aliased page counts once)
+            in_use = int(np.count_nonzero(self._page_refs[1:]))
+            # pages whose only refs are template refs
+            prefix_owned = int(np.count_nonzero(
+                (self._page_refs > 0) & (self._page_refs == tmpl_refs)))
+            # (1) a page is free XOR referenced; (2) every ref is owned by
+            # exactly one table entry or one template entry
+            free_set = set(self._free_pages)
+            assert len(free_set) == len(self._free_pages), \
+                "free list holds duplicates"
+            assert in_use + len(free_set) == self.pool_pages - 1, (
+                f"page leak: {in_use} in use + {len(free_set)} free "
+                f"!= {self.pool_pages - 1} pool pages")
+            for p in free_set:
+                assert self._page_refs[p] == 0, \
+                    f"page {p} free with refcount {self._page_refs[p]}"
+            assert int(self._page_refs.sum()) == \
+                sum(self._pages_alloc) + int(tmpl_refs.sum()), (
+                "dangling refs: refcounts != table entries + template refs")
+            out["pool"] = {
+                "pages_total": self.pool_pages - 1,
+                "pages_free": len(self._free_pages),
+                "pages_in_use": in_use,
+                "pages_per_stream": list(self._pages_alloc),
+                "page_size": self.page_size,
+                "prefix_entries": len(self._prefix_entries),
+                "prefix_hits": self._prefix_hits,
+                "prefix_owned_pages": prefix_owned,
+                "prefix_tail_pages": sum(
+                    1 for e in self._prefix_entries.values()
+                    if e["tail_page"] is not None),
+            }
+        return out
+
+    def _template_refs(self) -> np.ndarray:
+        """Per-page count of refs held by prefix templates (one per full
+        page of an entry and one on its copied tail)."""
+        refs = np.zeros((self.pool_pages,), np.int32)
+        for e in self._prefix_entries.values():
+            for p in e["pages"]:
+                refs[p] += 1
+            if e["tail_page"] is not None:
+                refs[e["tail_page"]] += 1
+        return refs
+
+    def _gather_chunks(self, bursts, active, K: int) -> torch.Tensor:
+        """(N, K, fnt, D) chunk operand, zero past each burst: one slice of
+        the source for a contiguous run of one clip's frames, else one row
+        per frame."""
+        frames = torch.zeros((self.N, K, self.fnt, self.hidden),
+                             dtype=self._frame_dtype(bursts),
+                             device=self.device)
+        for i in range(self.N):
+            if not active[i]:
+                continue
+            refs = [r for _, r in bursts[i]]
+            src, i0 = refs[0]
+            if all(s is src and j == i0 + n for n, (s, j) in enumerate(refs)):
+                frames[i, :len(refs)] = src[i0:i0 + len(refs)]
+            else:
+                frames[i, :len(refs)] = torch.stack([s[j] for s, j in refs])
+        return frames
+
+    def _frame_dtype(self, bursts):
+        for b in bursts:
+            if b:
+                return b[0][1][0].dtype
+        return torch.float32
+
+    # -------------------------------------------------------- page allocator
+    def _ensure_pages(self, idxs, budget: int) -> bool:
+        """Map enough pool pages that each stream in ``idxs`` can append
+        ``budget`` more tokens. Returns False when the pool runs dry."""
+        if not self.paged:
+            return True
+        changed = False
+        for i in idxs:
+            need = min(self._maxp,
+                       -(-(int(self._host_offsets[i]) + budget)
+                         // self.page_size))
+            while self._pages_alloc[i] < need:
+                if not self._free_pages:
+                    if changed:
+                        self._set_table()
+                    return False
+                p = self._free_pages.pop()
+                self._page_refs[p] = 1
+                self._table_host[i, self._pages_alloc[i]] = p
+                self._pages_alloc[i] += 1
+                changed = True
+        if changed:
+            self._set_table()
+        return True
+
+    def _compact_paged(self):
+        """Page-granular window compaction: free every page wholly outside
+        the attention window (the window mask defines the semantics, so
+        transcripts equal the ring's slot-granular compaction). No device
+        data moves: only the table, offsets and pos_base change."""
+        w = self.stream_window
+        if w is None:
+            return
+        changed = False
+        for i in range(self.N):
+            off = int(self._host_offsets[i])
+            d = (off - w) // self.page_size if off > w else 0
+            d = min(d, self._pages_alloc[i])
+            if d <= 0:
+                continue
+            for j in range(d):
+                self._unref_page(int(self._table_host[i, j]))
+            na = self._pages_alloc[i]
+            self._table_host[i, :na - d] = self._table_host[i, d:na]
+            self._table_host[i, na - d:] = 0
+            self._pages_alloc[i] = na - d
+            self._host_offsets[i] -= d * self.page_size
+            self._pos_base_host[i] += d * self.page_size
+            changed = True
+        if changed:
+            self._set_table()
+            self.cache = self.cache.replace(
+                offset=torch.from_numpy(self._host_offsets.astype(np.int32)),
+                pos_base=torch.from_numpy(
+                    self._pos_base_host.astype(np.int32)))
+
+    def _paged_admit(self, idxs, budget: int) -> bool:
+        """Capacity pipeline for one dispatch in paged mode: the per-stream
+        logical guard, page-granular compaction, page allocation, and the
+        prefix cache's eviction under pool pressure. Returns False when the
+        dispatch cannot proceed."""
+        if not self.paged:
+            return True
+        over = [i for i in idxs
+                if int(self._host_offsets[i]) + budget > self.kv_capacity]
+        if over or not self._ensure_pages(idxs, budget):
+            self._compact_paged()
+        over = [i for i in idxs
+                if int(self._host_offsets[i]) + budget > self.kv_capacity]
+        if not over and not self._ensure_pages(idxs, budget) \
+                and self._prefix_entries:
+            # frees every page whose sole owner is a template; no stream
+            # table references any of them
+            self._clear_prefix_cache()
+        return not over and self._ensure_pages(idxs, budget)
+
+    # ------------------------------------------------------------------ tick
+    def _prefill_starts(self):
+        """System-prompt prefill for the streams that still need it, batched.
+        With ``prefix_cache`` the first admission prefills and snapshots its
+        KV pages as a template; later admissions alias the template's full
+        pages (refcounted) and copy its one partial tail page instead of
+        running the prefill forward."""
+        todo = [i for i in range(self.N) if self._needs_prefill[i]
+                and self.frame_queues[i]]
+        if not todo:
+            return
+        key = tuple(self._start_ids)
+        if self.prefix_cache:
+            ent = self._prefix_entries.get(key)
+            if ent is not None and self._admit_from_prefix(todo, ent):
+                self._prefix_hits += len(todo)
+                return
+        P = -(-len(self._start_ids) // PROMPT_BUCKET) * PROMPT_BUCKET
+        ids = np.zeros((self.N, P), np.int32)
+        nv = np.zeros((self.N,), np.int32)
+        for i in todo:
+            s = self._start_ids
+            ids[i, P - len(s):] = s
+            nv[i] = len(s)
+            self._needs_prefill[i] = False
+            self.prepends[i] = []
+            self._host_offsets[i] += len(s)
+        active = np.zeros((self.N,), bool)
+        active[todo] = True
+        # host offsets already include the prefill tokens: budget 0
+        if not self._paged_admit(todo, 0):
+            raise RuntimeError("paged KV pool exhausted during prefill; "
+                               "raise pool_pages")
+        self._prefill(ids, nv, active)
+        self._sync_offsets()
+        if self.prefix_cache and key not in self._prefix_entries:
+            self._build_prefix_template(todo[0], key)
+
+    def _build_prefix_template(self, donor: int, key: tuple) -> None:
+        """Snapshot the just-prefilled ``donor``'s pages as the prefix
+        template: full pages aliased, the partial tail page copied into a
+        template-owned page now, before the donor's next append writes into
+        it. Skipped when the pool has no spare page."""
+        S = len(self._start_ids)
+        full, r = divmod(S, self.page_size)
+        tail = None
+        if r:
+            if not self._free_pages:
+                return
+            tail = self._free_pages.pop()
+            self._page_refs[tail] = 1
+            self._copy_page(tail, int(self._table_host[donor, full]))
+        pages = [int(self._table_host[donor, j]) for j in range(full)]
+        for p in pages:
+            self._page_refs[p] += 1
+        self._prefix_entries[key] = {
+            "pages": pages, "tail_page": tail, "length": S}
+
+    def _admit_from_prefix(self, todo, ent) -> bool:
+        """Admit ``todo`` fresh slots by aliasing the cached prefix pages
+        (refcounts bumped) and giving each a private copy of the template's
+        tail page. Returns False, for a normal prefill, when the pool cannot
+        cover the tail pages."""
+        S = ent["length"]
+        if ent["tail_page"] is not None \
+                and len(self._free_pages) < len(todo):
+            self._compact_paged()
+            if len(self._free_pages) < len(todo):
+                return False
+        dsts = []
+        for i in todo:
+            for j, p in enumerate(ent["pages"]):
+                self._page_refs[p] += 1
+                self._table_host[i, j] = p
+            alloc = len(ent["pages"])
+            if ent["tail_page"] is not None:
+                p_new = self._free_pages.pop()
+                self._page_refs[p_new] = 1
+                self._table_host[i, alloc] = p_new
+                dsts.append(p_new)
+                alloc += 1
+            self._pages_alloc[i] = alloc
+            self._host_offsets[i] = S
+            self._pos_base_host[i] = 0
+            self._needs_prefill[i] = False
+            self.prepends[i] = []
+        self._set_table()
+        if dsts:
+            self._copy_page_multi(ent["tail_page"], dsts)
+        mask = np.zeros((self.N,), bool)
+        mask[todo] = True
+        self._mask_set_offsets(mask, np.full((self.N,), S, np.int32))
+        return True
+
+    def _clear_prefix_cache(self):
+        for ent in self._prefix_entries.values():
+            for p in ent["pages"]:
+                self._unref_page(p)
+            if ent["tail_page"] is not None:
+                self._unref_page(ent["tail_page"])
+        self._prefix_entries = {}
+
+    def step(self) -> List[Optional[Tuple[Optional[str], str]]]:
+        """One scheduler tick: ingest up to ``chunk_frames`` queued frames
+        per stream in one batched forward (gated at every frame), then
+        answer every stream whose gate fired or whose query came due in a
+        second batched program. Returns per stream (query, response) or
+        None; responses beyond one per stream per call surface on later
+        calls (FIFO)."""
+        self._shed_lag()
+        t0 = _time.perf_counter()
+        try:
+            return self._step_unfused()
+        finally:
+            self._tick_hist.add("tick", _time.perf_counter() - t0)
+
+    def _step_unfused(self) -> List[Optional[Tuple[Optional[str], str]]]:
+        self._prefill_starts()
+        K = self.chunk_frames
+        N = self.N
+        text_ids = np.zeros((N, TEXT_BUCKET), np.int32)
+        n_text = np.zeros((N,), np.int32)
+        bursts: List[List[Tuple[float, Any]]] = [[] for _ in range(N)]
+        active = np.zeros((N,), bool)
+        frame_times = [None] * N
+        for i in range(N):
+            if not self.frame_queues[i] or self._needs_prefill[i]:
+                continue
+            # a queued query earlier than the next frame answers first
+            qq = self.query_queues[i]
+            if qq and self.frame_queues[i][0][0] > qq[0][0]:
+                continue
+            qt = qq[0][0] if qq else None
+            for t, emb in self.frame_queues[i]:
+                if len(bursts[i]) >= K or (qt is not None and t > qt):
+                    break
+                bursts[i].append((t, emb))
+            if not bursts[i]:
+                continue
+            pre = self.prepends[i][-TEXT_BUCKET:]
+            if pre:
+                text_ids[i, TEXT_BUCKET - len(pre):] = pre
+            n_text[i] = len(pre)
+            self.prepends[i] = []
+            active[i] = True
+
+        max_burst = max((len(b) for b in bursts), default=0)
+        itv = 1 if self.cfg.frame_token_interval_id is not None else 0
+        if active.any():
+            # capacity guard: the chunk write is a full static-size slab per
+            # stream, plus a prompt bucket and the response budget
+            write_len = (TEXT_BUCKET + self.fnt if max_burst <= 1 else
+                         TEXT_BUCKET + K * self.fnt + (K - 1) * itv)
+            budget = write_len + PROMPT_BUCKET + self.max_new
+            if self.paged:
+                idxs = [i for i in range(N) if active[i]]
+                if not self._paged_admit(idxs, budget):
+                    raise RuntimeError(
+                        f"streams {idxs}: paged KV pool/logical capacity "
+                        f"exceeded (offsets "
+                        f"{[int(self._host_offsets[i]) for i in idxs]}, "
+                        f"budget {budget}); raise kv_capacity/pool_pages or "
+                        f"set stream_window")
+            over = [] if self.paged else [
+                i for i in range(N) if active[i]
+                and int(self._host_offsets[i]) + budget > self.kv_capacity]
+            if over and self.stream_window is not None:
+                # compact every stream past its window (streams at or under
+                # the window are untouched: keep = min(window, offset))
+                self.cache = llama.compact_kv_cache(self.cache,
+                                                    self.stream_window)
+                self._host_offsets = np.minimum(self._host_offsets,
+                                                self.stream_window)
+                over = [i for i in over
+                        if int(self._host_offsets[i]) + budget
+                        > self.kv_capacity]
+            for i in over:
+                raise RuntimeError(
+                    f"stream {i}: KV ring capacity {self.kv_capacity} "
+                    f"would be exceeded (offset "
+                    f"{int(self._host_offsets[i])}); raise kv_capacity or "
+                    f"set stream_window")
+
+        fire = np.zeros((N,), bool)
+        next_id = np.zeros((N,), np.int64)
+        consumed = np.zeros((N,), np.int64)
+        if active.any():
+            if max_burst <= 1:
+                frames = torch.zeros((N, self.fnt, self.hidden),
+                                     dtype=self._frame_dtype(bursts),
+                                     device=self.device)
+                for i in np.flatnonzero(active):
+                    src, j = bursts[i][0][1]
+                    frames[i] = src[j]
+                fire, next_id = self._frame_step(text_ids, n_text, frames,
+                                                 active)
+                consumed = active.astype(np.int64)
+            else:
+                n_frames = np.array([len(b) for b in bursts], np.int64)
+                frames = self._gather_chunks(bursts, active, K)
+                consumed, fire, next_id = self._chunk_step(
+                    text_ids, n_text, frames, n_frames, active)
+            self._sync_offsets()
+
+        # pop consumed frames; record each stream's last processed time
+        for i in range(N):
+            c = int(consumed[i])
+            for _ in range(c):
+                self.frame_queues[i].popleft()
+            if c:
+                frame_times[i] = bursts[i][c - 1][0]
+
+        # bookkeeping + response scheduling
+        respond_mask = np.zeros((N,), bool)
+        respond_query: List[Optional[Tuple[float, str]]] = [None] * N
+        for i in range(N):
+            if active[i] and consumed[i] and not fire[i]:
+                if self.cfg.frame_token_interval_id is not None:
+                    self.prepends[i] = [int(next_id[i])]
+            if fire[i]:
+                # a query at the fired frame's timestamp outranks the gate
+                qq = self.query_queues[i]
+                if qq and frame_times[i] is not None \
+                        and frame_times[i] >= qq[0][0]:
+                    respond_query[i] = qq.popleft()
+                respond_mask[i] = True
+                self.prepends[i] = []
+            # answer a query once the stream has caught up to it: the frame
+            # just processed reaches the query time, or the next queued
+            # frame is strictly later. A fired stream's query waits a tick.
+            qq = self.query_queues[i]
+            if not fire[i] and qq and not self._needs_prefill[i] and (
+                    (frame_times[i] is not None and frame_times[i] >= qq[0][0])
+                    or (self.frame_queues[i]
+                        and self.frame_queues[i][0][0] > qq[0][0])):
+                respond_query[i] = qq.popleft()
+                respond_mask[i] = True
+
+        results: List[Optional[Tuple[Optional[str], str]]] = [None] * N
+        if respond_mask.any():
+            prompts: Dict[int, List[int]] = {}
+            for i in range(N):
+                if not respond_mask[i]:
+                    continue
+                if respond_query[i] is not None:
+                    prompts[i] = list(self.tokenizer.apply_chat_template(
+                        [{"role": "user", "content": respond_query[i][1]}],
+                        tokenize=True, add_stream_query_prompt=True,
+                        add_generation_prompt=True))
+                    self.prepends[i] = []
+                else:
+                    prompts[i] = self._gen_prompt_ids
+            longest = max(len(p) for p in prompts.values())
+            P = -(-max(longest, 1) // PROMPT_BUCKET) * PROMPT_BUCKET
+            ids = np.zeros((N, P), np.int64)
+            nv = np.zeros((N,), np.int64)
+            for i, prompt in prompts.items():
+                ids[i, P - len(prompt):] = prompt
+                nv[i] = len(prompt)
+            out, lengths = self._respond(ids, nv, respond_mask)
+            self._sync_offsets()
+            for i in range(N):
+                if not respond_mask[i]:
+                    continue
+                toks = out[i, :lengths[i]]
+                t = (respond_query[i][0] if respond_query[i] is not None
+                     else frame_times[i])
+                if toks.size and toks[-1] == self.cfg.eos_token_id:
+                    self.prepends[i] = ([int(toks[-1])]
+                                        + self._stream_prompt_ids)
+                elif toks.size:
+                    self.prepends[i] = [int(toks[-1])]
+                resp = self.tokenizer.decode(toks.astype(np.int32),
+                                             skip_special_tokens=True)
+                q_str = (f"(Video Time = {t}s) User: {respond_query[i][1]}"
+                         if respond_query[i] is not None else None)
+                results[i] = (q_str, f"(Video Time = {t}s) Assistant:{resp}")
+                self._record_response_latency(
+                    i, "q" if respond_query[i] is not None else "f", t)
+                self.transcripts[i].append(results[i])
+        # surface queued entries FIFO; this tick's result queues behind them
+        for i in range(N):
+            if self._resp_out[i]:
+                if results[i] is not None:
+                    self._resp_out[i].append(results[i])
+                results[i] = self._resp_out[i].popleft()
+        return results
+
+    def flush(self) -> List[List[Tuple[Optional[str], str]]]:
+        """Drain every queued response; returns them per stream."""
+        out = [list(self._resp_out[i]) for i in range(self.N)]
+        for i in range(self.N):
+            self._resp_out[i].clear()
+        return out
+
+    def pending(self) -> bool:
+        return (any(q for q in self.frame_queues)
+                or any(q for q in self.query_queues)
+                or any(q for q in self._resp_out))
+
+    def close_stream(self, i: int) -> List[Tuple[Optional[str], str]]:
+        """End stream ``i``'s dialogue and return its transcript. The slot
+        serves a NEW dialogue at once (the next ``input_frames(i, ...)``
+        prefills the system prompt again, or admits it from the prefix
+        cache); in paged mode its pages return to the pool now. Sibling
+        streams are untouched."""
+        out = self.transcripts[i]
+        self.transcripts[i] = []
+        self.frame_queues[i].clear()
+        self.query_queues[i].clear()
+        self.prepends[i] = []
+        self._resp_out[i].clear()
+        self._needs_prefill[i] = True
+        self._host_offsets[i] = 0
+        if self.paged:
+            for j in range(self._pages_alloc[i]):
+                self._unref_page(int(self._table_host[i, j]))
+            self._table_host[i] = 0
+            self._pages_alloc[i] = 0
+            self._pos_base_host[i] = 0
+            self._set_table()
+        off = self.cache.offset.clone()
+        pb = self.cache.pos_base.clone()
+        off[i] = 0
+        pb[i] = 0
+        self.cache = self.cache.replace(offset=off, pos_base=pb)
+        # spec-decode history and drop stats are per dialogue
+        self._hist[i] = 0
+        self._hcount[i] = 0
+        self._dropped[i] = 0
+        self._arrival[i].clear()
+        return out
+
+    def _unref_page(self, p: int):
+        self._page_refs[p] -= 1
+        assert self._page_refs[p] >= 0, f"page {p} over-freed"
+        if self._page_refs[p] == 0:
+            self._free_pages.append(p)
+
+    def fork_stream(self, src: int, dst: int):
+        """Fork dialogue ``src`` into the fresh or closed slot ``dst``
+        (paged mode only): ``dst`` continues from the same context. Full
+        pages are shared through the table (refcounted, no data moves) and
+        only the partial tail page is copied: appends write at slots >=
+        offset, in the private tail page or later, so a shared page is
+        never written."""
+        if not self.paged:
+            raise ValueError("fork_stream requires the paged KV layout")
+        if src == dst:
+            raise ValueError("fork_stream: src == dst")
+        if (self._pages_alloc[dst] or self.frame_queues[dst]
+                or self.query_queues[dst] or self._resp_out[dst]
+                or int(self._host_offsets[dst])):
+            raise ValueError("fork target must be a fresh or closed slot")
+        off = int(self._host_offsets[src])
+        full, r = divmod(off, self.page_size)
+        # allocate the tail page before any refcount changes: raising after
+        # aliasing would leak the bumped refs
+        if r > 0 and not self._free_pages:
+            raise RuntimeError("paged KV pool exhausted in fork_stream")
+        for j in range(full):
+            p = int(self._table_host[src, j])
+            self._page_refs[p] += 1
+            self._table_host[dst, j] = p
+        alloc = full
+        if r > 0:
+            p_new = self._free_pages.pop()
+            self._page_refs[p_new] = 1
+            self._copy_page(p_new, int(self._table_host[src, full]))
+            self._table_host[dst, full] = p_new
+            alloc = full + 1
+        self._pages_alloc[dst] = alloc
+        self._host_offsets[dst] = off
+        self._pos_base_host[dst] = self._pos_base_host[src]
+        self._dropped[dst] = 0
+        offs = self.cache.offset.clone()
+        pbs = self.cache.pos_base.clone()
+        offs[dst] = offs[src]
+        pbs[dst] = pbs[src]
+        self._set_table()
+        self.cache = self.cache.replace(offset=offs, pos_base=pbs)
+        # conversation state rides along; queues stay empty
+        self._needs_prefill[dst] = self._needs_prefill[src]
+        self.prepends[dst] = list(self.prepends[src])
+        self.transcripts[dst] = list(self.transcripts[src])
+        self._hist[dst] = self._hist[src]
+        self._hcount[dst] = self._hcount[src]
