@@ -144,6 +144,10 @@ def test_engine_transcripts_kernel_equal_plain_on_card(card):
     ("bfloat16", (1, 4, 2, 300, 300, 256), {"window": 128}),
     ("float32", (1, 4, 2, 200, 456, 128), {"q_offset": 256}),
     ("bfloat16", (1, 4, 1, 384, 384, 64), {"kv_valid": 300}),
+    ("bfloat16", (1, 8, 2, 1000, 1000, 128), {}),
+    ("bfloat16", (2, 4, 2, 256, 456, 128), {"q_offset": 200}),
+    ("bfloat16", (2, 8, 2, 384, 384, 64), {}),
+    ("bfloat16", (1, 4, 2, 512, 512, 128), {"window": 100, "kv_valid": 400}),
 ])
 def test_flash_kernels_match_plain_on_card(card, dtype, shape, kw):
     """K2's forward, dK/dV and dQ kernels against their plain versions, on
@@ -190,6 +194,27 @@ def test_flash_kernels_raise_on_what_they_do_not_take(card):
         fa.flash_fwd(q.transpose(2, 3), k, k, 0.1)
     with pytest.raises(ValueError, match="kv_valid"):
         fa.flash_fwd(q, k, k, 0.1, kv_valid=129)
+    # TMA needs 16-byte aligned tensors: a contiguous view one element in
+    misaligned = torch.zeros(q.numel() + 1, dtype=q.dtype,
+                             device=card)[1:].view(q.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_fwd(misaligned, k, k, 0.1)
+    # 2^31 rows would overflow the 32-bit TMA coordinates (zero strides,
+    # no memory behind the shape)
+    huge = torch.zeros((1, 1, 1, 64), dtype=q.dtype, device=card)
+    with pytest.raises(ValueError, match="2\\^31"):
+        fa.flash_fwd(huge.expand(2, 32, 2 ** 25, 64),
+                     huge.expand(2, 8, 2 ** 25, 64),
+                     huge.expand(2, 8, 2 ** 25, 64), 0.1)
+    # the library refuses a design that does not take (dtype, d)
+    out, lse = torch.empty_like(q), torch.empty(q.shape[:3], device=card)
+    # B, Hq, Hkv, T, S, d, kv_len, q_offset, causal, window, scale
+    shape = (1, 4, 2, 128, 128, 128, 128, 0, 1, 0, 0.1)
+    stream = torch.cuda.current_stream(card).cuda_stream
+    fwd = fa._kernels()[0]
+    for is_bf16, design in ((1, 0), (0, 1)):  # bf16 d 128 on FMA, fp32 on wgmma
+        assert fwd(q.data_ptr(), k.data_ptr(), k.data_ptr(), out.data_ptr(),
+                   lse.data_ptr(), *shape, is_bf16, design, stream) != 0
 
 
 def test_fp32_train_step_through_flash_matches_plain_on_card(card):

@@ -140,3 +140,82 @@ def test_route_follows_the_jax_dispatch_rule(T, S, d, int8, want):
     q, k = _fake((1, 32, T, d)), _fake((1, 8, S, d))
     assert auto.route(q, k, object() if int8 else None) == want
     assert auto.route(_fake((1, 32, T, d), cuda=False), k) == "plain"
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 64, "tensor cores"),
+    (torch.bfloat16, 128, "tensor cores"),
+    (torch.bfloat16, 256, "fma"),
+    (torch.float32, 64, "fma"),
+    (torch.float32, 128, "fma"),
+    (torch.float32, 256, "fma"),
+])
+def test_kernel_design_by_dtype_and_head_size(dtype, d, want):
+    """bf16 with d <= 128 runs on the tensor cores (wgmma for the forward
+    and dK/dV, mma.sync for dQ); fp32 and bf16 d = 256 on FMA. The code
+    passed to the library is the design's index in DESIGNS."""
+    assert fa.kernel_design(dtype, d) == want
+    assert fa.DESIGNS.index(want) == (1 if want == "tensor cores" else 0)
+
+
+# (T, S, q_offset, window, kv_len): the training shape cut down, ragged T,
+# q_offset not a multiple of a tile, windows, kv_valid, a row that sees
+# nothing (window 8 past kv_valid 40)
+SCHEDULE_CASES = [
+    (512, 512, 0, None, 512),
+    (1000, 1000, 0, None, 1000),
+    (256, 456, 200, None, 456),
+    (200, 456, 256, None, 456),
+    (384, 384, 0, 100, 300),
+    (640, 640, 0, 256, 640),
+    (1024, 1024, 0, None, 900),
+    (128, 128, 0, 8, 40),
+]
+
+
+@pytest.mark.parametrize("kernel", ["fwd", "dkdv"])
+@pytest.mark.parametrize("case", SCHEDULE_CASES)
+def test_schedule_computes_every_visible_pair_and_no_dead_block(kernel,
+                                                                case):
+    """The tensor-core kernels' schedule (the tile ranges each CTA walks,
+    the blocks each dK/dV consumer skips) computes every visible (row,
+    col) pair, and every block it computes holds a visible pair: a
+    forward CTA's 128 x 128 tile, a dK/dV consumer's 64 x 64 block."""
+    T, S, off, window, kv_len = case
+    done = fa.computed_pairs(kernel, T, S, off, True, window, kv_len)
+    vis = fa.visible_mask(T, S, off, True, window, kv_len, "cpu")
+    assert not bool((vis & ~done).any())
+    bm, bn = fa.FWD_TILE if kernel == "fwd" else (64, 64)
+    for r0 in range(0, T, bm):
+        for c0 in range(0, S, bn):
+            if bool(done[r0:r0 + bm, c0:c0 + bn].any()):
+                assert bool(vis[r0:r0 + bm, c0:c0 + bn].any()), (r0, c0)
+
+
+@pytest.mark.parametrize("case", SCHEDULE_CASES)
+def test_tile_ranges_are_the_tiles_with_a_visible_pair(case):
+    """kv_tile_range (per 128-row q tile) and q_tile_range (per 128-row k
+    tile, 64-row q tiles) return exactly the tiles that hold a visible
+    pair; an empty range where none does."""
+    T, S, off, window, kv_len = case
+    vis = fa.visible_mask(T, S, off, True, window, kv_len, "cpu")
+    (fbm, fbn), (dbm, dbn) = fa.FWD_TILE, fa.DKDV_TILE
+    for q0 in range(0, T, fbm):
+        want = [c // fbn for c in range(0, S, fbn)
+                if bool(vis[q0:q0 + fbm, c:c + fbn].any())]
+        first, last = fa.kv_tile_range(q0, T, kv_len, off, True, window)
+        assert list(range(first, last + 1)) == want, q0
+    for k0 in range(0, S, dbn):
+        want = [r // dbm for r in range(0, T, dbm)
+                if bool(vis[r:r + dbm, k0:k0 + dbn].any())]
+        first, last = fa.q_tile_range(k0, T, kv_len, off, True, window)
+        assert list(range(first, last + 1)) == want, k0
+
+
+def test_check_refuses_rows_past_32_bit_coordinates():
+    """B * heads * rows at 2^31 or more would overflow the kernels' 32-bit
+    TMA coordinates: refused before any launch (meta tensors, no memory)."""
+    q = torch.empty((2, 32, 2 ** 25, 64), device="meta")
+    k = torch.empty((2, 8, 2 ** 25, 64), device="meta")
+    with pytest.raises(ValueError, match="2\\^31"):
+        fa._check(q, k, k, 0, None, None)

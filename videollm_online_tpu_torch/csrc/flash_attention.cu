@@ -1,8 +1,9 @@
 // K2: flash attention, forward and backward, for Hopper (sm_90a).
 //
 // Replaces the three TPU kernels of videollm_online_tpu/ops/flash_attention.py:
-// _flash_fwd (_fwd_kernel), and the two kernels of _flash_bwd (_dkdv_kernel
-// and _dq_kernel).
+// _flash_fwd (_fwd_kernel) with the forward kernels here, and the two kernels
+// of _flash_bwd with the dK/dV kernels (_dkdv_kernel) and the dQ kernels
+// (_dq_kernel).
 //
 // What it computes. q (B, Hq, T, d) attends k/v (B, Hkv, S, d); the G =
 // Hq / Hkv query heads of a kv head share its K/V. Slot `col` is visible to
@@ -11,10 +12,10 @@
 // softmax are fp32; probabilities are rounded to the input dtype before every
 // product with V or dO, and dS before every product with Q or K, as the TPU
 // kernels round them. The forward writes out (input dtype) and the row
-// log-sum-exp lse (fp32). A row that sees no slot outputs 0 with lse -1e30
-// (on the TPU such a row's value depends on its block size). The backward
-// recomputes P = exp(S - lse) and uses delta = rowsum(dO * O), which the
-// wrapper computes.
+// log-sum-exp lse (fp32, natural log). A row that sees no slot outputs 0
+// with lse -1e30 (on the TPU such a row's value depends on its block size).
+// The backward recomputes P = exp(S - lse) and uses delta = rowsum(dO * O),
+// which the wrapper computes.
 //
 // Layout on the card. The TPU grid runs its kv axis (forward, dQ) or its q
 // axis (dK/dV) in order and carries an accumulator in VMEM from step to step;
@@ -28,26 +29,38 @@
 //            the input dtype at (B, Hkv, S, d): no per-query-head fp32
 //            intermediate (the TPU writes one and sums it in XLA), no atomics.
 //   dQ:      one CTA per (q tile, q head, b); loop over the visible kv tiles.
-// Causal q tiles run last-first (blockIdx.x 0 is the longest row range) and
-// k tiles first-first, so the longest CTAs start in the first wave.
 //
-// Two implementations, picked by the input: bf16 with d <= 128 (the
-// training path) runs on the tensor cores with mma.sync m16n8k16 (bf16 in,
-// fp32 accumulate), 4 warps per CTA, each warp owning 16 rows of a 64 x 64
-// tile; P and dS go from the accumulators to the next product's A operand in
-// registers. fp32 (which bf16 tensor cores cannot hold to fp32 accuracy) and
-// bf16 with d = 256 (whose accumulators do not fit those registers) run on
-// the CUDA cores with fp32 FMA: 256 threads as 16 x 16, tiles N x N with
-// N = 64 (d <= 128) or 32 (d = 256) staged as fp32 with a row stride of
-// d + 1, each thread holding (N/16) x (N/16) of S and (N/16) rows x (d/16)
-// columns of each accumulator.
+// Bound. At the training shapes (B 1, Hq 32, Hkv 8, T = S = 4096, d 128,
+// causal, bf16) every kernel is bound by operations: the forward does ~137
+// GFLOP against ~84 MB moved (0.139 ms at 989 TFLOP/s), dK/dV ~275 GFLOP,
+// dQ ~206; the card needs ~295 operations a byte before the tensor cores
+// and not HBM are the limit, and attention does thousands. So each design
+// is about keeping the tensor cores fed.
 //
-// Bound. At the training shapes attention is bound by operations: a causal
-// forward at B 1, Hq 32, T 4096, d 128 is ~137 GFLOP against ~84 MB moved.
-// mma.sync from registers and shared memory, without TMA, wgmma or a load
-// pipeline, reaches a fraction of the tensor cores' rate; wgmma/TMA are
-// later work.
+// Three designs, picked by the caller for (dtype, d):
+//  * bf16, d in {64, 128}, forward and dK/dV (the training path): wgmma
+//    on tiles that TMA loads ahead through a ring of mbarrier-guarded slots
+//    (hop:: below). Only wgmma reaches Hopper's tensor-core rate; TMA moves
+//    a tile with one thread and no registers, and the ring keeps the next
+//    tiles' loads in flight behind the current tile's products. The
+//    128-byte swizzle serves both operand majors, so no tile is transposed
+//    in memory. Logits are prescaled by scale * log2(e) for exp2. Tiles
+//    fully inside the visible region skip the mask; the dK/dV kernel skips
+//    a block with no visible pair. CTAs run longest first over the whole
+//    grid, so the causal tail is short.
+//  * bf16, d in {64, 128}, dQ: mma.sync m16n8k16 (bf16 in, fp32 accumulate),
+//    4 warps, 64 x 64 tiles staged synchronously, each warp owning 16 rows;
+//    dS goes from the accumulators to the next product's A operand in
+//    registers.
+//  * fp32 (which bf16 tensor cores cannot hold to fp32 accuracy) and bf16
+//    with d = 256 (whose accumulators do not fit those registers): the CUDA
+//    cores with fp32 FMA: 256 threads as 16 x 16, tiles N x N with N = 64
+//    (d <= 128) or 32 (d = 256) staged as fp32 with a row stride of d + 1,
+//    each thread holding (N/16) x (N/16) of S and (N/16) rows x (d/16)
+//    columns of each accumulator.
 
+#include <cuda.h>  // CUtensorMap and its enums; the library links no libcuda
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -111,38 +124,40 @@ __device__ __forceinline__ bool visible(const Shape& s, int row, int col) {
   return true;
 }
 
-// The kv tiles [first, last] that some row of the q tile at q0 can see.
-template <int N>
-__device__ __forceinline__ void kv_tiles(const Shape& s, int q0, int& first, int& last) {
-  last = (s.kv_len + N - 1) / N - 1;
-  if (s.causal) last = min(last, (min(q0 + N, s.T) - 1 + s.q_offset) / N);
+// The kv tiles [first, last] of BN rows that some row of the q tile
+// [q0, q0 + BM) can see (the forward's and dQ's loop).
+__device__ __forceinline__ void kv_tile_range(const Shape& s, int q0, int BM, int BN, int& first,
+                                              int& last) {
+  last = (s.kv_len + BN - 1) / BN - 1;
+  if (s.causal) last = min(last, (min(q0 + BM, s.T) - 1 + s.q_offset) / BN);
   first = 0;
   if (s.window > 0) {
     const int lo = q0 + s.q_offset - s.window + 1;
-    first = lo > 0 ? lo / N : 0;
+    first = lo > 0 ? lo / BN : 0;
   }
 }
 
-// The q tiles [first, last] with some row that sees a column of the k tile at k0.
-template <int N>
-__device__ __forceinline__ void q_tiles(const Shape& s, int k0, int& first, int& last) {
+// The q tiles [first, last] of BM rows with some row that sees a column of
+// the k tile [k0, k0 + BN) (the dK/dV loop); last < first if none.
+__device__ __forceinline__ void q_tile_range(const Shape& s, int k0, int BM, int BN, int& first,
+                                             int& last) {
   first = 0;
-  last = (s.T + N - 1) / N - 1;
+  last = (s.T + BM - 1) / BM - 1;
   if (k0 >= s.kv_len) {
     last = -1;
     return;
   }
   if (s.causal) {
     const int lo = k0 - s.q_offset;
-    first = lo > 0 ? lo / N : 0;
+    first = lo > 0 ? lo / BM : 0;
   }
   if (s.window > 0) {
-    const int hi = k0 + N - 1 - s.q_offset + s.window - 1;
+    const int hi = min(k0 + BN, s.kv_len) - 1 - s.q_offset + s.window - 1;
     if (hi < 0) {
       last = -1;
       return;
     }
-    last = min(last, hi / N);
+    last = min(last, hi / BM);
   }
 }
 
@@ -217,7 +232,7 @@ __global__ void __launch_bounds__(THREADS)
   }
 
   int first, last;
-  kv_tiles<N>(s, q0, first, last);
+  kv_tile_range(s, q0, N, N, first, last);
   for (int kt = first; kt <= last; ++kt) {
     const int k0 = kt * N;
     __syncthreads();  // the last tile's K/V/P reads are done
@@ -312,7 +327,7 @@ __global__ void __launch_bounds__(THREADS)
     for (int c = 0; c < C; ++c) dka[a][c] = dva[a][c] = 0.f;
 
   int first, last;
-  q_tiles<N>(s, k0, first, last);
+  q_tile_range(s, k0, N, N, first, last);
   for (int g = 0; g < G; ++g) {
     const size_t qrow = (static_cast<size_t>(b) * s.Hq + hk * G + g) * s.T;
     for (int qt = first; qt <= last; ++qt) {
@@ -412,7 +427,7 @@ __global__ void __launch_bounds__(THREADS)
     for (int c = 0; c < C; ++c) dqa[a][c] = 0.f;
 
   int first, last;
-  kv_tiles<N>(s, q0, first, last);
+  kv_tile_range(s, q0, N, N, first, last);
   for (int kt = first; kt <= last; ++kt) {
     const int k0 = kt * N;
     __syncthreads();  // the last tile's K/dS reads are done
@@ -565,111 +580,6 @@ __device__ __forceinline__ int frag_col(int c0, int j, int t, int e) {
 
 template <int D>
 __global__ void __launch_bounds__(MMA_THREADS)
-    k2_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ out,
-                      float* __restrict__ lse, Shape s) {
-  constexpr int LS = D + 8, DT = D / 8, KS = D / 16;
-  extern __shared__ __align__(16) unsigned char k2_smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(k2_smem);
-  bf16* Ks = Qs + MN * LS;
-  bf16* Vt = Ks + MN * LS;  // D x LTT
-
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int wr = (threadIdx.x / 32) * 16;  // the warp's first row in the tile
-  const int q0 = ((s.T + MN - 1) / MN - 1 - static_cast<int>(blockIdx.x)) * MN;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const size_t qrow = (static_cast<size_t>(b) * s.Hq + h) * s.T;
-  const size_t krow = (static_cast<size_t>(b) * s.Hkv + h / (s.Hq / s.Hkv)) * s.S;
-  const int r0 = q0 + wr + g;  // this thread's rows: r0 and r0 + 8
-
-  stage_bf16<D>(Qs, nullptr, q + qrow * D, q0, s.T);
-  __syncthreads();
-  uint32_t qa[KS][4];
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) load_a(qa[kk], Qs, LS, wr, kk * 16, g, t);
-
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, o[DT][4];
-#pragma unroll
-  for (int n = 0; n < DT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-
-  int first, last;
-  kv_tiles<MN>(s, q0, first, last);
-  for (int kt = first; kt <= last; ++kt) {
-    const int k0 = kt * MN;
-    __syncthreads();  // the last tile's K/V reads are done
-    stage_bf16<D>(Ks, nullptr, k + krow * D, k0, s.S);
-    stage_bf16<D>(nullptr, Vt, v + krow * D, k0, s.S);
-    __syncthreads();
-
-    float sc[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk)
-#pragma unroll
-      for (int j = 0; j < NT; ++j) mma_rows(sc[j], qa[kk], Ks, LS, j * 8, kk * 16, g, t);
-
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = visible(s, frag_row(r0, e), frag_col(k0, j, t, e)) ? sc[j][e] * s.scale
-                                                                            : -INFINITY;
-        sc[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    float m_new[2], alpha[2], ps[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      m_new[r] = fmaxf(m[r], quad_max(mx[r]));
-      alpha[r] = m_new[r] == -INFINITY ? 1.f : expf(m[r] - m_new[r]);
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = sc[j][e] == -INFINITY ? 0.f : expf(sc[j][e] - m_new[e >> 1]);
-        ps[e >> 1] += p;
-        sc[j][e] = p;
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l[r] = l[r] * alpha[r] + quad_sum(ps[r]);
-      m[r] = m_new[r];
-    }
-#pragma unroll
-    for (int n = 0; n < DT; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
-#pragma unroll
-    for (int kk = 0; kk < MN / 16; ++kk) {
-      uint32_t pa[4];
-      c_to_a(pa, sc[2 * kk], sc[2 * kk + 1]);  // P rounded to bf16
-#pragma unroll
-      for (int n = 0; n < DT; ++n) mma_rows(o[n], pa, Vt, LTT, n * 8, kk * 16, g, t);
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r0 + 8 * r;
-    if (row >= s.T) continue;
-    bf16* dst = out + (qrow + row) * D;
-#pragma unroll
-    for (int n = 0; n < DT; ++n)
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-        store(dst + n * 8 + 2 * t + e, l[r] == 0.f ? 0.f : o[n][2 * r + e] / l[r]);
-    if (t == 0) lse[qrow + row] = l[r] == 0.f ? NEG : m[r] + logf(l[r]);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
     k2_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
@@ -705,7 +615,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
   for (int n = 0; n < DT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
   int first, last;
-  kv_tiles<MN>(s, q0, first, last);
+  kv_tile_range(s, q0, MN, MN, first, last);
   for (int kt = first; kt <= last; ++kt) {
     const int k0 = kt * MN;
     __syncthreads();  // the last tile's K/V reads are done
@@ -757,129 +667,695 @@ __global__ void __launch_bounds__(MMA_THREADS)
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16, d in {64, 128}: the forward (K2f) and dK/dV (K2b) kernels for Hopper.
+// Each CTA has two consumer warpgroups of 64 rows that run wgmma on tiles
+// which TMA loads ahead of them into a ring of STAGES slots in shared
+// memory: an mbarrier per slot that the copy fills, one that the consumers'
+// 8 warps empty. One thread issues every load. In K2f it is the one thread
+// of a producer warpgroup (warp specialisation; setmaxnreg hands the
+// producer's registers to the consumers, whose code fits in the 168 that 12
+// warps leave). K2b's consumers need more (dK and dV alone hold 128 fp32 a
+// thread): ptxas allocated them 168 with any ninth warp, setmaxnreg or not,
+// spilled and serialized the wgmma, so K2b runs 8 warps (255 registers) and
+// its thread 0 refills a slot at the start of the item after the slot's last
+// one, once its own warp has released it. Every tile is loaded by TMA with
+// the 128-byte swizzle, as panels of 64 columns (128 bytes) by the tile's
+// rows; each map views its tensor as (d, rows, B * heads), so a box past a
+// head's last row reads TMA's zero fill, never the next head's rows. wgmma
+// reads the panels through descriptors: K-major where d is the reduction
+// (Q K^T, K Q^T, V dO^T) and MN-major where the rows are (P V, P^T dO,
+// dS^T Q), so no operand is ever transposed in memory. P and dS go from the
+// fp32 accumulators to bf16 A fragments in registers (the accumulator
+// layout of two 8-column groups is the A layout of one 16-deep step).
+
+namespace hop {
+
+constexpr int WG = 128;                // threads in a warpgroup
+constexpr int STAGES = 2;              // slots in the load ring
+constexpr int PANEL = 64;              // bf16 columns in a 128-byte swizzled row
+constexpr int CONSUMER_WARPS = 8;      // arrivals that empty a slot
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Waits until the phase of the given parity has completed. A wait that
+// outlasts any real load (2^32 polls) traps, so a lost arrival fails the
+// launch instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done, polls = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (++polls == 0) __trap();
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                       int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_1d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0)
+      : "memory");
+}
+
+// Rows [row0, row0 + rows) of head bh, all D columns, as D / 64 swizzled
+// panels of rows x 64 at dst.
 template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
-    k2_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                       const float* __restrict__ lse, const float* __restrict__ delta,
-                       bf16* __restrict__ dk, bf16* __restrict__ dv, Shape s) {
-  constexpr int LS = D + 8, DT = D / 8, KS = D / 16, HALF = NT / 2;
-  extern __shared__ __align__(16) unsigned char k2_smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(k2_smem);
-  bf16* Vs = Ks + MN * LS;
-  bf16* Qs = Vs + MN * LS;
-  bf16* dOs = Qs + MN * LS;
-  bf16* Qt = dOs + MN * LS;   // D x LTT
-  bf16* dOt = Qt + D * LTT;   // D x LTT
-  float* Ls = reinterpret_cast<float*>(dOt + D * LTT);
-  float* Dls = Ls + MN;
+__device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int rows, int row0, int bh) {
+#pragma unroll
+  for (int p = 0; p < D / PANEL; ++p) tma_3d(dst + p * rows * PANEL, map, bar, p * PANEL, row0, bh);
+}
 
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int wr = (threadIdx.x / 32) * 16;  // the warp's first k row in the tile
-  const int k0 = blockIdx.x * MN;
-  const int hk = blockIdx.y, b = blockIdx.z;
-  const int G = s.Hq / s.Hkv;
-  const size_t krow = (static_cast<size_t>(b) * s.Hkv + hk) * s.S;
-  const int kr0 = k0 + wr + g;  // this thread's k rows: kr0 and kr0 + 8
+// A wgmma shared-memory descriptor with the 128-byte swizzle: start address,
+// leading and stride byte offsets, each in 16-byte units. K-major: the
+// stride offset steps 8 rows (1024 bytes); the leading offset is unused.
+// MN-major: the leading offset steps from one 64-column panel to the next,
+// the stride offset 8 rows of the reduction.
+__device__ __forceinline__ uint64_t desc(const bf16* p, uint32_t lead, uint32_t stride) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lead >> 4) << 16) | (static_cast<uint64_t>(stride >> 4) << 32) |
+         (1ull << 62);
+}
 
-  stage_bf16<D>(Ks, nullptr, k + krow * D, k0, s.S);
-  stage_bf16<D>(Vs, nullptr, v + krow * D, k0, s.S);
+// The offset, in the descriptor's 16-byte units, of 16-deep step kk of a
+// K-major tile of `rows` rows: panel kk / 4, then 32 bytes a step in it.
+__host__ __device__ constexpr uint64_t kstep(int kk, int rows) {
+  return static_cast<uint64_t>((kk / 4) * rows * PANEL * 2 + (kk % 4) * 32) >> 4;
+}
 
-  float dka[DT][4], dva[DT][4];
-#pragma unroll
-  for (int n = 0; n < DT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+// The offset of 16-deep step kk of an MN-major tile: 16 rows of 128 bytes.
+__host__ __device__ constexpr uint64_t mnstep(int kk) { return static_cast<uint64_t>(kk) * 128; }
 
-  int first, last;
-  q_tiles<MN>(s, k0, first, last);
-  for (int gi = 0; gi < G; ++gi) {
-    const size_t qrow = (static_cast<size_t>(b) * s.Hq + hk * G + gi) * s.T;
-    for (int qt = first; qt <= last; ++qt) {
-      const int q0 = qt * MN;
-      __syncthreads();  // the last tile's Q/dO reads are done
-      stage_bf16<D>(Qs, Qt, q + qrow * D, q0, s.T);
-      stage_bf16<D>(dOs, dOt, dout + qrow * D, q0, s.T);
-      load_rows<MN>(Ls, lse + qrow, q0, s.T);
-      load_rows<MN>(Dls, delta + qrow, q0, s.T);
-      __syncthreads();
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 
-      // S^T = K Q^T and dP^T = V dO^T, one half of the q columns at a time
-      // (not unrolled: both halves live at once would spill)
-#pragma unroll 1
-      for (int half = 0; half < 2; ++half) {
-        float st[HALF][4], dpt[HALF][4];
+// Pins each accumulator register at this point, so the compiler moves no
+// read or write of it across a wgmma wait.
+template <int R>
+__device__ __forceinline__ void pin(float (&d)[R]) {
 #pragma unroll
-        for (int j = 0; j < HALF; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < KS; ++kk) {
-          uint32_t a[4];
-          load_a(a, Ks, LS, wr, kk * 16, g, t);
-#pragma unroll
-          for (int j = 0; j < HALF; ++j)
-            mma_rows(st[j], a, Qs, LS, (half * HALF + j) * 8, kk * 16, g, t);
-          load_a(a, Vs, LS, wr, kk * 16, g, t);
-#pragma unroll
-          for (int j = 0; j < HALF; ++j)
-            mma_rows(dpt[j], a, dOs, LS, (half * HALF + j) * 8, kk * 16, g, t);
-        }
-#pragma unroll
-        for (int j = 0; j < HALF; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int c = frag_col(half * HALF * 8, j, t, e);  // q column in the tile
-            const float p = visible(s, q0 + c, frag_row(kr0, e))
-                                ? expf(st[j][e] * s.scale - Ls[c])
-                                : 0.f;
-            st[j][e] = p;
-            dpt[j][e] = p * (dpt[j][e] - Dls[c]) * s.scale;  // dS^T
-          }
-        // dV += P^T dO and dK += dS^T Q over this half's 32 q rows
-#pragma unroll
-        for (int kk = 0; kk < HALF / 2; ++kk) {
-          const int c = half * HALF * 8 + kk * 16;
-          uint32_t pa[4], da[4];
-          c_to_a(pa, st[2 * kk], st[2 * kk + 1]);
-          c_to_a(da, dpt[2 * kk], dpt[2 * kk + 1]);
-#pragma unroll
-          for (int n = 0; n < DT; ++n) {
-            mma_rows(dva[n], pa, dOt, LTT, n * 8, c, g, t);
-            mma_rows(dka[n], da, Qt, LTT, n * 8, c, g, t);
-          }
-        }
-      }
-    }
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<64> {
+  // d = A * B (+ d if acc): A 64 x 16 and B 16 x 64 in shared memory, both
+  // K-major, at descriptors a + da and b + db (the sums taken inside the asm,
+  // so only the base descriptors stay in registers)
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t da, uint64_t b,
+                                            uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\n.reg .b64 wa, wb;\nsetp.ne.b32 p, %36, 0;\n"
+        "add.s64 wa, %32, %33;\nadd.s64 wb, %34, %35;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, wa, wb, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(da), "l"(b), "l"(db), "r"(acc));
   }
+  // d += A * B: A 64 x 16 in registers, B 16 x 64 in shared memory, MN-major,
+  // at descriptor b + db
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                            uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\n.reg .b64 wb;\nsetp.ne.b32 p, %38, 0;\nadd.s64 wb, %36, %37;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, wb, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "l"(db), "r"(1));
+  }
+};
 
+template <>
+struct Wgmma<128> {
+  // d = A * B (+ d if acc): A 64 x 16 and B 16 x 128 in shared memory, both
+  // K-major, at descriptors a + da and b + db (the sums taken inside the asm,
+  // so only the base descriptors stay in registers)
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t da, uint64_t b,
+                                            uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\n.reg .b64 wa, wb;\nsetp.ne.b32 p, %68, 0;\n"
+        "add.s64 wa, %64, %65;\nadd.s64 wb, %66, %67;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, wa, wb, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(da), "l"(b), "l"(db), "r"(acc));
+  }
+  // d += A * B: A 64 x 16 in registers, B 16 x 128 in shared memory, MN-major,
+  // at descriptor b + db
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                            uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\n.reg .b64 wb;\nsetp.ne.b32 p, %70, 0;\nadd.s64 wb, %68, %69;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, wb, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "l"(db), "r"(1));
+  }
+};
+
+// The A fragment of one 16-deep step from the accumulators of the two
+// 8-column groups at c (c[0..3] and c[4..7]), rounded to bf16.
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float* c) {
+  a[0] = pack_bf16(c[0], c[1]);
+  a[1] = pack_bf16(c[2], c[3]);
+  a[2] = pack_bf16(c[4], c[5]);
+  a[3] = pack_bf16(c[6], c[7]);
+}
+
+// How much of the block rows [r0, r0 + nr) x columns [c0, c0 + nc) is
+// visible: 0 none (skipped), 2 all (no mask), 1 some (masked per element).
+__device__ __forceinline__ int block_visibility(const Shape& s, int r0, int nr, int c0, int nc) {
+  const int c_hi = c0 + nc - 1;
+  const int p_lo = r0 + s.q_offset, p_hi = min(r0 + nr, s.T) - 1 + s.q_offset;
+  if (c0 >= s.kv_len || r0 >= s.T) return 0;
+  if (s.causal && c0 > p_hi) return 0;
+  if (s.window > 0 && min(c_hi, s.kv_len - 1) <= p_lo - s.window) return 0;
+  const bool all = c_hi < s.kv_len && r0 + nr <= s.T && (!s.causal || c_hi <= p_lo) &&
+                   (s.window <= 0 || c0 > p_hi - s.window);
+  return all ? 2 : 1;
+}
+
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// K2f: one CTA per (q tile of 128 rows, q head, b), q tiles longest first
+// over the whole grid (blockIdx.x / (B * Hq) is the tile's rank); each
+// consumer owns 64 q rows and walks the kv tiles of 128 rows: S = Q K^T
+// (K-major Q and K), the online softmax, O += P V (P in registers, V
+// MN-major). K and V have slots of their own, so K's refill starts as soon
+// as S is read.
+template <int D>
+struct Fwd {
+  static constexpr int THREADS = 3 * WG;  // the producer warpgroup, then two consumers
+  static constexpr int BM = 128, BN = 128;
+  static constexpr int Q_BYTES = BM * D * 2, KV_BYTES = BN * D * 2;
+  static constexpr int K_OFF = Q_BYTES, V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr int SMEM = BAR_OFF + (1 + 4 * STAGES) * 8 + 1024;  // + alignment slack
+};
+
+// One tile's online softmax for this thread's two rows: masks the logits
+// sc where the block is not all visible, moves the row max m (log2 units)
+// and this thread's share of the row sum l, turns sc into P and returns in
+// alpha the factor by which the rows' earlier output must be scaled.
+template <int R>
+__device__ __forceinline__ void softmax_tile(float (&sc)[R], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], const Shape& s, int vis, int r0,
+                                             int k0, int t, float sl2) {
+  if (vis != 2) {
+#pragma unroll
+    for (int j = 0; j < R / 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (!visible(s, r0 + (e >> 1) * 8, k0 + j * 8 + 2 * t + (e & 1))) sc[j * 4 + e] = -INFINITY;
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < R / 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sc[j * 4 + e]);
+  float ms[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = kr0 + 8 * r;
-    if (row >= s.S) continue;
-#pragma unroll
-    for (int n = 0; n < DT; ++n)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        store(dk + (krow + row) * D + n * 8 + 2 * t + e, dka[n][2 * r + e]);
-        store(dv + (krow + row) * D + n * 8 + 2 * t + e, dva[n][2 * r + e]);
-      }
+    const float mn = fmaxf(m[r], quad_max(mx[r]) * sl2);
+    ms[r] = mn == -INFINITY ? 0.f : mn;
+    alpha[r] = exp2f(m[r] - ms[r]);
+    m[r] = mn;
+    l[r] *= alpha[r];
   }
+#pragma unroll
+  for (int j = 0; j < R / 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = exp2f(fmaf(sc[j * 4 + e], sl2, -ms[e >> 1]));
+      l[e >> 1] += p;  // this thread's columns; the quad's sum is taken at the end
+      sc[j * 4 + e] = p;
+    }
 }
 
 template <int D>
-constexpr size_t fwd_mma_smem() {
-  return (2 * MN * (D + 8) + D * LTT) * sizeof(bf16);
+__global__ void __launch_bounds__(Fwd<D>::THREADS, 1)
+    k2_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                        const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ out,
+                        float* __restrict__ lse, Shape s) {
+  using L = Fwd<D>;
+  constexpr int NS = L::BN / 8;  // 8-column groups of S
+  extern __shared__ unsigned char k2_raw[];
+  unsigned char* base = align_1024(k2_raw);
+  bf16* Qs = reinterpret_cast<bf16*>(base);
+  bf16* Ks = reinterpret_cast<bf16*>(base + L::K_OFF);
+  bf16* Vs = reinterpret_cast<bf16*>(base + L::V_OFF);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(base + L::BAR_OFF);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + STAGES;
+  uint64_t* k_empty = v_full + STAGES;
+  uint64_t* v_empty = k_empty + STAGES;
+
+  const int heads = s.B * s.Hq;
+  const int hb = blockIdx.x % heads;
+  const int h = hb % s.Hq, b = hb / s.Hq;
+  const int q0 = ((s.T + L::BM - 1) / L::BM - 1 - static_cast<int>(blockIdx.x) / heads) * L::BM;
+  int first, last;
+  kv_tile_range(s, q0, L::BM, L::BN, first, last);
+  const int n = last - first + 1;  // kv tiles in the loop
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&k_full[i], 1);
+      mbar_init(&v_full[i], 1);
+      mbar_init(&k_empty[i], CONSUMER_WARPS);
+      mbar_init(&v_empty[i], CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the warpgroup index, broadcast from lane 0 so the compiler sees it is
+  // uniform across each warp
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / WG, 0);
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      const int kvh = b * s.Hkv + h / (s.Hq / s.Hkv);
+      mbar_expect_tx(q_full, L::Q_BYTES);
+      tma_tile<D>(Qs, &qmap, q_full, L::BM, q0, hb);
+      for (int i = 0; i < n; ++i) {
+        const int st = i % STAGES, k0 = (first + i) * L::BN;
+        const uint32_t free = ((i / STAGES) & 1) ^ 1;  // the slot's last use released
+        mbar_wait(&k_empty[st], free);
+        mbar_expect_tx(&k_full[st], L::KV_BYTES);
+        tma_tile<D>(Ks + st * L::BN * D, &kmap, &k_full[st], L::BN, k0, kvh);
+        mbar_wait(&v_empty[st], free);
+        mbar_expect_tx(&v_full[st], L::KV_BYTES);
+        tma_tile<D>(Vs + st * L::BN * D, &vmap, &v_full[st], L::BN, k0, kvh);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int cw = wg - 1, tid = threadIdx.x % WG, lane = tid % 32, g = lane / 4, t = lane % 4;
+    const int qw0 = q0 + cw * 64;              // this consumer's first q row
+    const int r0 = qw0 + (tid / 32) * 16 + g;  // this thread's rows: r0 and r0 + 8
+    const float sl2 = s.scale * LOG2E;         // logits in log2 units
+    const uint64_t qd = desc(Qs + cw * 64 * PANEL, 16, 1024);
+    float o[D / 2], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    mbar_wait(q_full, 0);
+    for (int i = 0; i < n; ++i) {
+      const int st = i % STAGES, k0 = (first + i) * L::BN;
+      const uint32_t ph = (i / STAGES) & 1;
+      float sc[NS * 4];
+      const uint64_t kd = desc(Ks + st * L::BN * D, 16, 1024);
+      mbar_wait(&k_full[st], ph);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<L::BN>::ss(sc, qd, kstep(kk, L::BM), kd, kstep(kk, L::BN), kk);
+      wg_commit();
+      wg_wait<0>();
+      pin(sc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&k_empty[st]);  // K is read: its slot may refill
+      softmax_tile(sc, m, l, alpha, s, block_visibility(s, qw0, 64, k0, L::BN), r0, k0, t,
+                   sl2);
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) {
+        o[4 * c] *= alpha[0];
+        o[4 * c + 1] *= alpha[0];
+        o[4 * c + 2] *= alpha[1];
+        o[4 * c + 3] *= alpha[1];
+      }
+      uint32_t pa[NS / 2][4];
+#pragma unroll
+      for (int kk = 0; kk < NS / 2; ++kk) pack_a(pa[kk], sc + 8 * kk);  // P rounded to bf16
+      const uint64_t vd = desc(Vs + st * L::BN * D, L::BN * PANEL * 2, 1024);
+      mbar_wait(&v_full[st], ph);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < NS / 2; ++kk) Wgmma<D>::rs(o, pa[kk], vd, mnstep(kk));
+      wg_commit();
+      wg_wait<0>();
+      pin(o);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&v_empty[st]);
+    }
+    const size_t qrow = static_cast<size_t>(hb) * s.T;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 8 * r;
+      const float lr = quad_sum(l[r]);
+      if (row >= s.T) continue;
+      const float inv = lr == 0.f ? 0.f : 1.f / lr;
+      bf16* dst = out + (qrow + row) * D + 2 * t;
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c)
+        *reinterpret_cast<__nv_bfloat162*>(dst + c * 8) =
+            __floats2bfloat162_rn(o[4 * c + 2 * r] * inv, o[4 * c + 2 * r + 1] * inv);
+      if (t == 0) lse[qrow + row] = lr == 0.f ? NEG : m[r] * LN2 + logf(lr);
+    }
+  }
 }
+
+// K2b: one CTA per (k tile of 128 rows, kv head, b), k tiles longest first
+// over the whole grid; each consumer owns 64 k rows, holds K and V for them
+// (loaded once) and its dK and dV in fp32 registers across the loop over
+// the group's G query heads and the q tiles of 64 rows that see the k tile.
+// Thread 0 streams Q, dO, lse and delta per q tile. For each tile:
+// S^T = K Q^T and dP^T = V dO^T (K-major Q and dO), P^T = exp(S^T - lse),
+// dS^T = P^T (dP^T - delta) scale, then dV += P^T dO and dK += dS^T Q with
+// P^T and dS^T as bf16 register A operands and dO, Q as MN-major B. P^T
+// is computed while dP^T's wgmma runs.
+template <int D>
+struct Dkdv {
+  static constexpr int THREADS = 2 * WG;   // two warpgroups; thread 0 also issues the loads
+  static constexpr int BM = 64, BN = 128;  // q rows a step, k rows a CTA
+  static constexpr int KV_BYTES = BN * D * 2, Q_BYTES = BM * D * 2;
+  static constexpr int STAGE = 2 * Q_BYTES + 1024;  // Q, dO, lse, delta (and alignment)
+  static constexpr int STAGE_TX = 2 * Q_BYTES + 2 * BM * 4;
+  static constexpr int V_OFF = KV_BYTES, RING_OFF = 2 * KV_BYTES;
+  static constexpr int BAR_OFF = RING_OFF + STAGES * STAGE;
+  static constexpr int SMEM = BAR_OFF + (1 + 2 * STAGES) * 8 + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(Dkdv<D>::THREADS, 1)
+    k2_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                         const __grid_constant__ CUtensorMap kmap,
+                         const __grid_constant__ CUtensorMap vmap,
+                         const __grid_constant__ CUtensorMap domap,
+                         const __grid_constant__ CUtensorMap lsemap,
+                         const __grid_constant__ CUtensorMap deltamap, bf16* __restrict__ dk,
+                         bf16* __restrict__ dv, Shape s) {
+  using L = Dkdv<D>;
+  extern __shared__ unsigned char k2_raw[];
+  unsigned char* base = align_1024(k2_raw);
+  bf16* Ks = reinterpret_cast<bf16*>(base);
+  bf16* Vs = reinterpret_cast<bf16*>(base + L::V_OFF);
+  unsigned char* ring = base + L::RING_OFF;  // per slot: Q, dO, lse, delta
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(base + L::BAR_OFF);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + STAGES;
+
+  const int heads = s.B * s.Hkv;
+  const int hb = blockIdx.x % heads;  // b * Hkv + kv head
+  const int k0 = static_cast<int>(blockIdx.x) / heads * L::BN;
+  const int G = s.Hq / s.Hkv;
+  int first, last;
+  q_tile_range(s, k0, L::BM, L::BN, first, last);
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Item i of the loop: query head gi = i / nq of the group, q tile
+  // first + i % nq. Thread 0 issues every load; it refills a slot at the
+  // start of item i, after its own warp released the slot's item i - 1.
+  const int nq = max(last - first + 1, 0), items = G * nq;
+  auto load_item = [&](int i) {
+    const int st = i % STAGES, qt = first + i % nq;
+    const int qh = (hb / s.Hkv) * s.Hq + (hb % s.Hkv) * G + i / nq;  // b * Hq + q head
+    unsigned char* slot = ring + st * L::STAGE;
+    bf16* q = reinterpret_cast<bf16*>(slot);
+    if (i >= STAGES) mbar_wait(&empty[st], ((i / STAGES) & 1) ^ 1);
+    mbar_expect_tx(&full[st], L::STAGE_TX);
+    tma_tile<D>(q, &qmap, &full[st], L::BM, qt * L::BM, qh);
+    tma_tile<D>(q + L::BM * D, &domap, &full[st], L::BM, qt * L::BM, qh);
+    tma_1d(slot + 2 * L::Q_BYTES, &lsemap, &full[st], qh * s.T + qt * L::BM);
+    tma_1d(slot + 2 * L::Q_BYTES + 512, &deltamap, &full[st], qh * s.T + qt * L::BM);
+  };
+  const bool loader = threadIdx.x == 0;
+  if (loader) {
+    mbar_expect_tx(kv_full, 2 * L::KV_BYTES);
+    tma_tile<D>(Ks, &kmap, kv_full, L::BN, k0, hb);
+    tma_tile<D>(Vs, &vmap, kv_full, L::BN, k0, hb);
+    for (int i = 0; i < min(items, STAGES); ++i) load_item(i);
+  }
+  __syncwarp();
+
+  const int cw = threadIdx.x / WG, tid = threadIdx.x % WG, lane = tid % 32, g = lane / 4,
+            t = lane % 4;
+  const int kw0 = k0 + cw * 64;              // this consumer's first k row
+  const int r0 = kw0 + (tid / 32) * 16 + g;  // this thread's k rows: r0 and r0 + 8
+  const float sl2 = s.scale * LOG2E;
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+  const uint64_t kd = desc(Ks + cw * 64 * PANEL, 16, 1024);
+  const uint64_t vd = desc(Vs + cw * 64 * PANEL, 16, 1024);
+  mbar_wait(kv_full, 0);
+  for (int i = 0; i < items; ++i) {
+    if (loader && i >= 1 && i + STAGES - 1 < items) load_item(i + STAGES - 1);
+    __syncwarp();
+    const int qt = first + i % nq;
+    const int st = i % STAGES;
+    const int q0 = qt * L::BM;
+    const unsigned char* slot = ring + st * L::STAGE;
+    const bf16* qs = reinterpret_cast<const bf16*>(slot);
+    const bf16* dos = qs + L::BM * D;
+    const float* ls = reinterpret_cast<const float*>(slot + 2 * L::Q_BYTES);
+    const float* dls = ls + 128;
+    const int vis = block_visibility(s, q0, L::BM, kw0, 64);
+    mbar_wait(&full[st], (i / STAGES) & 1);
+    if (vis != 0) {
+      float sc[32], dp[32];  // S^T and dP^T: k rows x 64 q columns
+      const uint64_t qd = desc(qs, 16, 1024), dod = desc(dos, 16, 1024);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<64>::ss(sc, kd, kstep(kk, L::BN), qd, kstep(kk, L::BM), kk);
+      wg_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<64>::ss(dp, vd, kstep(kk, L::BN), dod, kstep(kk, L::BM), kk);
+      wg_commit();
+      wg_wait<1>();  // S^T is in; P^T is computed while dP^T runs
+      pin(sc);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 lv = *reinterpret_cast<const float2*>(ls + j * 8 + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = j * 8 + 2 * t + (e & 1);  // q column in the tile
+          const bool on = vis == 2 || visible(s, q0 + c, r0 + (e >> 1) * 8);
+          const float lse2 = ((e & 1) ? lv.y : lv.x) * LOG2E;
+          sc[j * 4 + e] = on ? exp2f(fmaf(sc[j * 4 + e], sl2, -lse2)) : 0.f;
+        }
+      }
+      wg_wait<0>();
+      pin(dp);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 dl = *reinterpret_cast<const float2*>(dls + j * 8 + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)  // dS^T
+          dp[j * 4 + e] = sc[j * 4 + e] * (dp[j * 4 + e] - ((e & 1) ? dl.y : dl.x)) * s.scale;
+      }
+      uint32_t pa[4][4], da[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        pack_a(pa[kk], sc + 8 * kk);  // P^T rounded to bf16
+        pack_a(da[kk], dp + 8 * kk);  // dS^T rounded to bf16
+      }
+      const uint64_t dom = desc(dos, L::BM * PANEL * 2, 1024);
+      const uint64_t qm = desc(qs, L::BM * PANEL * 2, 1024);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) Wgmma<D>::rs(dva, pa[kk], dom, mnstep(kk));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) Wgmma<D>::rs(dka, da[kk], qm, mnstep(kk));
+      wg_commit();
+      wg_wait<0>();
+      pin(dva);
+      pin(dka);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+  }
+  const size_t krow = static_cast<size_t>(hb) * s.S;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    if (row >= s.S) continue;
+    bf16* dkp = dk + (krow + row) * D + 2 * t;
+    bf16* dvp = dv + (krow + row) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(dkp + n * 8) =
+          __floats2bfloat162_rn(dka[4 * n + 2 * r], dka[4 * n + 2 * r + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dvp + n * 8) =
+          __floats2bfloat162_rn(dva[4 * n + 2 * r], dva[4 * n + 2 * r + 1]);
+    }
+  }
+}
+
+// Encodes TMA maps through the driver's cuTensorMapEncodeTiled, found at
+// run time with cudaGetDriverEntryPoint so the library links no libcuda.
+PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// A (d, rows, heads) bf16 view of a contiguous (heads, rows, d) tensor,
+// boxes of 64 columns x box_rows rows of one head, 128-byte swizzle.
+int map_rows(CUtensorMap* m, const void* ptr, int d, int rows, int heads, int box_rows) {
+  const auto fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(heads)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
+                                 static_cast<cuuint64_t>(rows) * d * 2};
+  const cuuint32_t box[3] = {PANEL, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? 0
+             : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A flat fp32 view of n values, boxes of 64; past n reads zeros.
+int map_flat(CUtensorMap* m, const void* ptr, size_t n) {
+  const auto fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[1] = {static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[1] = {0};
+  const cuuint32_t box[1] = {64};
+  const cuuint32_t elem[1] = {1};
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<void*>(ptr), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? 0
+             : static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace hop
+
+template <int D>
+int launch_fwd_wgmma(const void* q, const void* k, const void* v, void* out, void* lse, Shape s,
+                     cudaStream_t st) {
+  using L = hop::Fwd<D>;
+  CUtensorMap qm, km, vm;
+  int e;
+  if ((e = hop::map_rows(&qm, q, D, s.T, s.B * s.Hq, L::BM)) ||
+      (e = hop::map_rows(&km, k, D, s.S, s.B * s.Hkv, L::BN)) ||
+      (e = hop::map_rows(&vm, v, D, s.S, s.B * s.Hkv, L::BN)))
+    return e;
+  cudaError_t err = cudaFuncSetAttribute(hop::k2_fwd_wgmma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+  if (err != cudaSuccess) return err;
+  const int grid = (s.T + L::BM - 1) / L::BM * s.Hq * s.B;
+  hop::k2_fwd_wgmma_kernel<D><<<grid, L::THREADS, L::SMEM, st>>>(
+      qm, km, vm, static_cast<bf16*>(out), static_cast<float*>(lse), s);
+  return cudaGetLastError();
+}
+
+template <int D>
+int launch_dkdv_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                      const void* lse, const void* delta, void* dk, void* dv, Shape s,
+                      cudaStream_t st) {
+  using L = hop::Dkdv<D>;
+  CUtensorMap qm, km, vm, dom, lm, dm;
+  const size_t rows = static_cast<size_t>(s.B) * s.Hq * s.T;
+  int e;
+  if ((e = hop::map_rows(&qm, q, D, s.T, s.B * s.Hq, L::BM)) ||
+      (e = hop::map_rows(&dom, dout, D, s.T, s.B * s.Hq, L::BM)) ||
+      (e = hop::map_rows(&km, k, D, s.S, s.B * s.Hkv, L::BN)) ||
+      (e = hop::map_rows(&vm, v, D, s.S, s.B * s.Hkv, L::BN)) ||
+      (e = hop::map_flat(&lm, lse, rows)) || (e = hop::map_flat(&dm, delta, rows)))
+    return e;
+  cudaError_t err = cudaFuncSetAttribute(hop::k2_dkdv_wgmma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+  if (err != cudaSuccess) return err;
+  const int grid = (s.S + L::BN - 1) / L::BN * s.Hkv * s.B;
+  hop::k2_dkdv_wgmma_kernel<D><<<grid, L::THREADS, L::SMEM, st>>>(
+      qm, km, vm, dom, lm, dm, static_cast<bf16*>(dk), static_cast<bf16*>(dv), s);
+  return cudaGetLastError();
+}
+
 template <int D>
 constexpr size_t dq_mma_smem() {
   return (4 * MN * (D + 8) + D * LTT) * sizeof(bf16);
 }
-template <int D>
-constexpr size_t dkdv_mma_smem() {
-  return (4 * MN * (D + 8) + 2 * D * LTT) * sizeof(bf16) + 2 * MN * sizeof(float);
-}
-
 template <int D>
 constexpr size_t fwd_smem() {
   return (3 * Tile<D>::N * Tile<D>::LD + Tile<D>::N * Tile<D>::LP) * sizeof(float);
@@ -940,36 +1416,6 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
 }
 
 template <int D>
-int launch_fwd_mma(const void* q, const void* k, const void* v, void* out, void* lse, Shape s,
-                   cudaStream_t st) {
-  constexpr size_t smem = fwd_mma_smem<D>();
-  cudaError_t e = cudaFuncSetAttribute(k2_fwd_mma_kernel<D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((s.T + MN - 1) / MN, s.Hq, s.B);
-  k2_fwd_mma_kernel<D><<<grid, MMA_THREADS, smem, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), static_cast<float*>(lse), s);
-  return cudaGetLastError();
-}
-
-template <int D>
-int launch_dkdv_mma(const void* q, const void* k, const void* v, const void* dout,
-                    const void* lse, const void* delta, void* dk, void* dv, Shape s,
-                    cudaStream_t st) {
-  constexpr size_t smem = dkdv_mma_smem<D>();
-  cudaError_t e = cudaFuncSetAttribute(k2_dkdv_mma_kernel<D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((s.S + MN - 1) / MN, s.Hkv, s.B);
-  k2_dkdv_mma_kernel<D><<<grid, MMA_THREADS, smem, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), s);
-  return cudaGetLastError();
-}
-
-template <int D>
 int launch_dq_mma(const void* q, const void* k, const void* v, const void* dout,
                   const void* lse, const void* delta, void* dq, Shape s, cudaStream_t st) {
   constexpr size_t smem = dq_mma_smem<D>();
@@ -991,20 +1437,23 @@ Shape make_shape(int B, int Hq, int Hkv, int T, int S, int kv_len, int q_offset,
 
 }  // namespace
 
-// Picks the kernel for (dtype, d): bf16 with d <= 128 runs on the tensor
-// cores; fp32 (which the bf16 tensor cores cannot hold to fp32 accuracy)
-// and bf16 with d = 256 (whose accumulators do not fit the mma kernels'
-// registers) take the FMA kernels.
-#define K2_DISPATCH(LAUNCH, ...)                                                       \
+// Runs the kernel of the design the caller names for (dtype, d). design 1,
+// the tensor cores, takes bf16 with d in {64, 128}: K2f and K2b on wgmma
+// with TMA (hop::), K2q on mma.sync. design 0, FMA, takes fp32 (which the
+// bf16 tensor cores cannot hold to fp32 accuracy) with d in {64, 128, 256}
+// and bf16 with d = 256 (whose accumulators do not fit the tensor-core
+// kernels' registers). Any other combination is refused.
+#define K2_DISPATCH(TC, FMA, ...)                                                      \
   do {                                                                                 \
-    if (is_bf16) {                                                                     \
-      if (d == 64) return LAUNCH##_mma<64>(__VA_ARGS__);                               \
-      if (d == 128) return LAUNCH##_mma<128>(__VA_ARGS__);                             \
-      if (d == 256) return LAUNCH<__nv_bfloat16, 256>(__VA_ARGS__);                    \
-    } else {                                                                           \
-      if (d == 64) return LAUNCH<float, 64>(__VA_ARGS__);                              \
-      if (d == 128) return LAUNCH<float, 128>(__VA_ARGS__);                            \
-      if (d == 256) return LAUNCH<float, 256>(__VA_ARGS__);                            \
+    if (design == 1 && is_bf16) {                                                      \
+      if (d == 64) return TC<64>(__VA_ARGS__);                                         \
+      if (d == 128) return TC<128>(__VA_ARGS__);                                       \
+    } else if (design == 0 && is_bf16) {                                               \
+      if (d == 256) return FMA<__nv_bfloat16, 256>(__VA_ARGS__);                       \
+    } else if (design == 0) {                                                          \
+      if (d == 64) return FMA<float, 64>(__VA_ARGS__);                                 \
+      if (d == 128) return FMA<float, 128>(__VA_ARGS__);                               \
+      if (d == 256) return FMA<float, 256>(__VA_ARGS__);                               \
     }                                                                                  \
     return static_cast<int>(cudaErrorInvalidValue);                                    \
   } while (0)
@@ -1012,24 +1461,26 @@ Shape make_shape(int B, int Hq, int Hkv, int T, int S, int kv_len, int q_offset,
 extern "C" int k2_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                             int B, int Hq, int Hkv, int T, int S, int d, int kv_len,
                             int q_offset, int causal, int window, float scale, int is_bf16,
-                            void* stream) {
+                            int design, void* stream) {
   const Shape s = make_shape(B, Hq, Hkv, T, S, kv_len, q_offset, causal, window, scale);
-  K2_DISPATCH(launch_fwd, q, k, v, out, lse, s, static_cast<cudaStream_t>(stream));
+  K2_DISPATCH(launch_fwd_wgmma, launch_fwd, q, k, v, out, lse, s,
+              static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int k2_flash_dkdv(const void* q, const void* k, const void* v, const void* dout,
                              const void* lse, const void* delta, void* dk, void* dv, int B,
                              int Hq, int Hkv, int T, int S, int d, int kv_len, int q_offset,
-                             int causal, int window, float scale, int is_bf16, void* stream) {
+                             int causal, int window, float scale, int is_bf16, int design,
+                             void* stream) {
   const Shape s = make_shape(B, Hq, Hkv, T, S, kv_len, q_offset, causal, window, scale);
-  K2_DISPATCH(launch_dkdv, q, k, v, dout, lse, delta, dk, dv, s,
+  K2_DISPATCH(launch_dkdv_wgmma, launch_dkdv, q, k, v, dout, lse, delta, dk, dv, s,
               static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int k2_flash_dq(const void* q, const void* k, const void* v, const void* dout,
                            const void* lse, const void* delta, void* dq, int B, int Hq, int Hkv,
                            int T, int S, int d, int kv_len, int q_offset, int causal,
-                           int window, float scale, int is_bf16, void* stream) {
+                           int window, float scale, int is_bf16, int design, void* stream) {
   const Shape s = make_shape(B, Hq, Hkv, T, S, kv_len, q_offset, causal, window, scale);
-  K2_DISPATCH(launch_dq, q, k, v, dout, lse, delta, dq, s, static_cast<cudaStream_t>(stream));
+  K2_DISPATCH(launch_dq_mma, launch_dq, q, k, v, dout, lse, delta, dq, s, static_cast<cudaStream_t>(stream));
 }

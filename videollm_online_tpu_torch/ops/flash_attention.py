@@ -10,6 +10,15 @@ dQ kernel. On a CUDA tensor each wrapper (``flash_fwd``, ``flash_dkdv``,
 or raises; on a CPU tensor it takes the plain PyTorch version beside it,
 which is also what the kernels are held against on the card.
 
+``kernel_design`` names the implementation each (dtype, d) runs and is
+passed to the library, which refuses any other pairing: bf16 with d <= 128
+runs on the tensor cores (the forward and dK/dV kernels on ``wgmma`` over
+tiles that TMA loads ahead through a ring of mbarrier-guarded slots, dQ on
+``mma.sync``), fp32 and bf16 with d = 256 on fp32 FMA. ``kv_tile_range`` and ``q_tile_range`` are
+the tensor-core kernels' schedule as the CUDA source computes it;
+``computed_pairs`` marks the (row, col) pairs whose products they compute,
+for the tests and for counting the work done in whole tiles.
+
 Layouts are the JAX package's: q (B, Hq, T, d), k/v (B, Hkv, S, d) with
 Hq % Hkv == 0, lse and delta (B, Hq, T) fp32. Slot ``col`` is visible to
 query ``row`` iff col < kv_valid and, when causal, col <= row + q_offset
@@ -31,6 +40,98 @@ from . import _build
 HEAD_DIMS = (64, 128, 256)
 NEG_INF = -1e30
 _DTYPES = (torch.bfloat16, torch.float32)
+DESIGNS = ("fma", "tensor cores")   # the library's design codes 0 and 1
+# (q rows, kv rows) of a tile: the forward CTA's q tile against its kv
+# tiles, and the dK/dV kernel's streamed q tile against its CTA's k tile
+FWD_TILE = (128, 128)
+DKDV_TILE = (64, 128)
+# TMA coordinates and the kernels' row indices are 32-bit
+MAX_ROWS = 2 ** 31 - 1
+
+
+def kernel_design(dtype: torch.dtype, d: int) -> str:
+    """The implementation the kernels run for (dtype, d): "tensor cores"
+    for bf16 with d in {64, 128}, "fma" for fp32 and for bf16 with
+    d = 256 (whose accumulators do not fit the tensor-core kernels'
+    registers)."""
+    if dtype == torch.bfloat16 and d in (64, 128):
+        return "tensor cores"
+    return "fma"
+
+
+def kv_tile_range(q0: int, T: int, kv_len: int, q_offset: int,
+                  causal: bool, window: Optional[int]) -> Tuple[int, int]:
+    """The kv tiles [first, last] that some row of the q tile at q0 sees
+    (the forward's loop)."""
+    bm, bn = FWD_TILE
+    last = (kv_len + bn - 1) // bn - 1
+    if causal:
+        last = min(last, (min(q0 + bm, T) - 1 + q_offset) // bn)
+    first = 0
+    if window is not None:
+        first = max(q0 + q_offset - window + 1, 0) // bn
+    return first, last
+
+
+def q_tile_range(k0: int, T: int, kv_len: int, q_offset: int, causal: bool,
+                 window: Optional[int]) -> Tuple[int, int]:
+    """The q tiles [first, last] with some row that sees a column of the
+    k tile at k0 (the dK/dV loop); last < first if none does."""
+    bm, bn = DKDV_TILE
+    if k0 >= kv_len:
+        return 0, -1
+    first, last = 0, (T + bm - 1) // bm - 1
+    if causal:
+        first = max(k0 - q_offset, 0) // bm
+    if window is not None:
+        hi = min(k0 + bn, kv_len) - 1 - q_offset + window - 1
+        if hi < 0:
+            return 0, -1
+        last = min(last, hi // bm)
+    return first, last
+
+
+def _block_visibility(r0: int, nr: int, c0: int, nc: int, T: int,
+                      kv_len: int, q_offset: int, causal: bool,
+                      window: Optional[int]) -> int:
+    """0 if no (row, col) of rows [r0, r0 + nr) x cols [c0, c0 + nc) is
+    visible (the kernels skip the block), 2 if all are (no mask), else 1."""
+    c_hi = c0 + nc - 1
+    p_lo, p_hi = r0 + q_offset, min(r0 + nr, T) - 1 + q_offset
+    if c0 >= kv_len or r0 >= T or (causal and c0 > p_hi):
+        return 0
+    if window is not None and min(c_hi, kv_len - 1) <= p_lo - window:
+        return 0
+    full = (c_hi < kv_len and r0 + nr <= T and (not causal or c_hi <= p_lo)
+            and (window is None or c0 > p_hi - window))
+    return 2 if full else 1
+
+
+def computed_pairs(kernel: str, T: int, S: int, q_offset: int, causal: bool,
+                   window: Optional[int], kv_len: int) -> torch.Tensor:
+    """(T, S) bool: the (row, col) pairs of one head whose products the
+    tensor-core kernel ("fwd" or "dkdv") computes, as its schedule walks
+    them. The forward computes its whole q tile against every kv tile of
+    its loop (a consumer masks a block it does not see); the dK/dV kernel
+    skips each consumer's 64-column block where no pair of it is
+    visible."""
+    done = torch.zeros(T, S, dtype=torch.bool)
+    if kernel == "fwd":
+        bm, bn = FWD_TILE
+        for q0 in range(0, T, bm):
+            first, last = kv_tile_range(q0, T, kv_len, q_offset, causal, window)
+            done[q0:q0 + bm, first * bn:(last + 1) * bn] = True
+        return done
+    vis = functools.partial(_block_visibility, T=T, kv_len=kv_len,
+                            q_offset=q_offset, causal=causal, window=window)
+    bm, bn = DKDV_TILE
+    for k0 in range(0, S, bn):
+        first, last = q_tile_range(k0, T, kv_len, q_offset, causal, window)
+        for c0 in (k0, k0 + bn // 2):
+            for q0 in range(first * bm, (last + 1) * bm, bm):
+                if vis(q0, bm, c0, bn // 2):
+                    done[q0:q0 + bm, c0:c0 + bn // 2] = True
+    return done
 
 
 def visible_mask(T: int, S: int, q_offset: int, causal: bool,
@@ -122,7 +223,8 @@ def _kernels():
     """The three C entry points of csrc/flash_attention.cu, built at first
     use."""
     lib = _build.load("flash_attention")
-    tail = [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    tail = [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_void_p]
     fns = (lib.k2_flash_fwd, lib.k2_flash_dkdv, lib.k2_flash_dq)
     for fn, n_ptr in zip(fns, (5, 8, 7)):
         fn.restype = ctypes.c_int
@@ -138,6 +240,10 @@ def _check(q, k, v, q_offset, window, kv_valid, rows=()):
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
     Hkv, S = k.shape[1], k.shape[2]
+    if max(B * Hq * T, B * Hkv * S) > MAX_ROWS:
+        raise ValueError(f"B * heads * rows must stay below 2^31 (32-bit "
+                         f"TMA coordinates), got q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}")
     tensors = (q, k, v) + tuple(rows)
     if not all(t.is_cuda and t.device == q.device for t in tensors):
         raise ValueError("flash attention: every tensor must be on q's CUDA "
@@ -182,6 +288,7 @@ def _tail(dims, q_offset, causal, window, scale, q):
     return (B, Hq, Hkv, T, S, d, kv_len, int(q_offset), 1 if causal else 0,
             0 if window is None else int(window), float(scale),
             1 if q.dtype == torch.bfloat16 else 0,
+            DESIGNS.index(kernel_design(q.dtype, d)),
             torch.cuda.current_stream(q.device).cuda_stream)
 
 
