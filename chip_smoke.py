@@ -8,14 +8,19 @@ any failure raises and exits non-zero:
      versions;
   2. build every kernel under videollm_online_tpu_torch/csrc (one nvcc per
      source, all started together), and for each kernel of
-     flash_attention.cu print its registers and spill bytes from nvcc's
-     -Xptxas -v log and its HGMMA instructions in the library's SASS
-     (cuobjdump; "not measured" without one), failing if a wgmma kernel
-     spills or has no HGMMA;
+     flash_attention.cu, decode_attention.cu and paged_attention.cu print
+     its registers and spill bytes from nvcc's -Xptxas -v log and its
+     HGMMA (wgmma) and HMMA (mma.sync) instructions in the library's SASS
+     (cuobjdump; "not measured" without one), failing if a wgmma kernel or
+     a tensor-core decode kernel spills or has no such instruction;
   3. K1 (ring decode attention) against its plain PyTorch version at the 8B
-     shapes (bf16, window, int8 K/V, fp32), with its time at S = 1, 20 and
-     64 beside the plain version's, scaled_dot_product_attention's (a
-     yardstick the port never calls) and the bandwidth bound;
+     shapes (bf16, window, int8 K/V, fp32; S 1 / 7 / 14 / 20 / 21 / 64, so
+     rows that are not a multiple of 16, window edges inside a tile) and
+     at d 64 over two ragged streams, every case run with the wrapper's
+     split count and with one split, each twice with equal bits; with its
+     time at S = 1, 20 and 64 beside the plain version's,
+     scaled_dot_product_attention's (a yardstick the port never calls) and
+     the bound;
   4. a small fp32 engine twice, once through K1 and once through the plain
      attention: the transcripts must be equal;
   5. the serving main path: the 8B int8 LiveInferEngine with random
@@ -60,12 +65,16 @@ any failure raises and exits non-zero:
  13. K3 (paged decode attention) against its plain PyTorch version at the
      8B shapes (8 streams, Hq 32, Hkv 8, d 128, pages of 512, a pool of 41
      pages under a shuffled table with a trash-page entry, ragged q_pos
-     crossing pages, S 1 / 20 / 91 / 128, bf16 and int8 pools, window off
-     and on; what no query may read is overwritten with NaN for the kernel
-     call) and on small odd cases (d 64 and 256, pages of 32 and 64, fp32,
-     1 and 3 streams), with its time at S = 1, 20, 91 and 128 over bf16
-     pools and at S = 20 over int8 pools beside the plain version's, the gathering route's (index_select of the pages, then
-     scaled_dot_product_attention), K1's on an equal ring and the bound;
+     crossing pages, S 1 / 7 / 20 / 21 / 91 / 128, bf16 and int8 pools,
+     window off and on; what no query may read, past a stream's last
+     visible slot or below its window, is overwritten with NaN for the
+     kernel calls) and on small odd cases (d 64, 128 and 256, pages of 32,
+     64 and 128, fp32, 1 to 3 streams), every case with the wrapper's split
+     count and with one split, each twice with equal bits; with its time at
+     S = 1, 20, 91 and 128 over bf16 pools and at S = 20 over int8 pools
+     beside the plain version's, the gathering route's
+     (index_select of the pages, then scaled_dot_product_attention), K1's
+     on an equal ring and the bound;
  14. a small fp32 MultiStreamEngine (3 streams, pages of 64) through K3 and
      through its plain version: transcripts equal (or parted at a step
      shown to be a tie flip), equal to three single-stream engines', and
@@ -82,7 +91,10 @@ any failure raises and exits non-zero:
 ``--phases a,b`` runs the named phases alone and prints no summary;
 ``--phases train_seeds`` (in no default run) prints the 2-layer step's loss
 through K2, the plain attention and the plain attention in fp32 at several
-seeds, the spread that phase 8's loss bound must hold. The
+seeds, the spread that phase 8's loss bound must hold;
+``--phases tc_configs`` (in no default run either) holds and times each
+configuration of K1's and K3's tensor-core kernel at the main paths' chunk
+lengths, the A/B behind the wrapper's choice. The
 launch counts are set to 0 just before each main path and read just after
 it. The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -214,21 +226,20 @@ def _cuobjdump():
     return next((str(p) for p in candidates if p.exists()), None)
 
 
-def _k2_kernel_report():
-    """Per kernel of flash_attention.cu: registers and spill bytes from
-    nvcc's -Xptxas -v log, and the HGMMA instructions in the library's
-    SASS (cuobjdump -sass), or "not measured" without cuobjdump."""
+def _ptxas_report(source):
+    """Per kernel of csrc/<source>.cu, by mangled name: registers and spill
+    bytes from nvcc's -Xptxas -v log; and ptxas's notes on wgmma
+    (serialized, fences injected) as (mangled name, note)."""
     import re
     from videollm_online_tpu_torch.ops import _build
     report, name, notes = {}, None, []
-    for line in _build.build_log("flash_attention").splitlines():
+    for line in _build.build_log(source).splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         w = re.search(r"\((C75\d\d)\) ([^']*)'(\S+)'", line)
-        if w:  # ptxas's notes on wgmma (serialized, fences injected)
-            notes.append(f"{_kernel_label(w.group(3))}: {w.group(1)} "
-                         f"{w.group(2).strip()}")
+        if w:
+            notes.append((w.group(3), f"{w.group(1)} {w.group(2).strip()}"))
         elif m:
-            name = _kernel_label(m.group(1))
+            name = m.group(1)
             report[name] = {}
         elif name and "spill stores" in line:
             st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
@@ -236,30 +247,100 @@ def _k2_kernel_report():
         elif name and "Used" in line and "registers" in line:
             report[name]["registers"] = int(
                 re.search(r"Used (\d+) registers", line).group(1))
+    return report, notes
+
+
+def _sass_count(source, op):
+    """Per kernel (mangled name), the SASS instructions of csrc/<source>.cu
+    whose line holds ``op`` (cuobjdump -sass), or None without
+    cuobjdump."""
+    import re
+    from videollm_online_tpu_torch.ops import _build
     tool = _cuobjdump()
-    hgmma = {}
-    if tool:
-        sass = subprocess.run(
-            [tool, "-sass", str(_build.library_path("flash_attention"))],
-            capture_output=True, text=True, check=True).stdout
-        fn = None
-        for line in sass.splitlines():
-            m = re.search(r"Function : (\S+)", line)
-            if m:
-                fn = _kernel_label(m.group(1))
-                hgmma[fn] = 0
-            elif fn and "HGMMA" in line:
-                hgmma[fn] += 1
-    for name, r in report.items():
-        r["HGMMA"] = hgmma.get(name, 0) if tool else "not measured"
-        log(f"  flash_attention.cu {name}: {r}")
-    for note in notes:
-        log(f"  ptxas note, {note}")
+    if not tool:
+        return None
+    sass = subprocess.run([tool, "-sass", str(_build.library_path(source))],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn and op in line:
+            counts[fn] += 1
+    return counts
+
+
+def _demangled(names):
+    """Short readable labels of mangled kernel names (cu++filt, else the
+    mangled name cut)."""
+    import shutil
+    tool = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
+    try:
+        out = subprocess.run([tool], input="\n".join(names),
+                             capture_output=True, text=True,
+                             check=True).stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        return {n: n[:80] for n in names}
+    labels = {}
+    for n, d in zip(names, out):
+        for cut in ("(anonymous namespace)::", "<unnamed>::", "(int)"):
+            d = d.replace(cut, "")
+        d = d.split("(")[0].replace("void ", "").replace("__nv_bfloat16", "bf16")
+        labels[n] = d.replace("signed char", "int8").replace("float", "f32")
+    return labels
+
+
+def _k2_kernel_report():
+    """Per kernel of flash_attention.cu: registers and spill bytes, and the
+    HGMMA instructions in the library's SASS ("not measured" without
+    cuobjdump); fails if a wgmma kernel spills or has no HGMMA."""
+    raw, notes = _ptxas_report("flash_attention")
+    hgmma = _sass_count("flash_attention", "HGMMA")
+    report = {}
+    for mangled, r in raw.items():
+        r["HGMMA"] = ("not measured" if hgmma is None
+                      else hgmma.get(mangled, 0))
+        report[_kernel_label(mangled)] = r
+        log(f"  flash_attention.cu {_kernel_label(mangled)}: {r}")
+    for mangled, note in notes:
+        log(f"  ptxas note, {_kernel_label(mangled)}: {note}")
     for name in ("k2_fwd_wgmma_kernel<64>", "k2_fwd_wgmma_kernel<128>",
                  "k2_dkdv_wgmma_kernel<64>", "k2_dkdv_wgmma_kernel<128>"):
         r = report[name]
-        if r["spill bytes"] or (tool and not r["HGMMA"]):
+        if r["spill bytes"] or (hgmma is not None and not r["HGMMA"]):
             raise AssertionError(f"{name}: {r} (want HGMMA and no spills)")
+
+
+def _decode_kernel_report(source):
+    """Per kernel of decode_attention.cu (K1) or paged_attention.cu (K3):
+    registers, spill bytes and tensor-core instructions (HGMMA for wgmma,
+    HMMA for mma.sync, in SASS; "not measured" without cuobjdump), and
+    ptxas's wgmma notes; fails if a tensor-core kernel (decode_tc_kernel)
+    spills, has neither, or has its wgmma serialized."""
+    raw, notes = _ptxas_report(source)
+    counts = {op: _sass_count(source, op) for op in ("HGMMA", "HMMA")}
+    labels = _demangled(sorted(raw))
+    for mangled in sorted(raw, key=labels.get):
+        r = raw[mangled]
+        for op, c in counts.items():
+            r[op] = "not measured" if c is None else c.get(mangled, 0)
+        log(f"  {source}.cu {labels[mangled]}: {r}")
+        measured = counts["HMMA"] is not None
+        if "decode_tc_kernel" in mangled and (
+                r["spill bytes"] or (measured and not r["HGMMA"] + r["HMMA"])):
+            raise AssertionError(f"{labels[mangled]}: {r} (want tensor-core "
+                                 f"instructions and no spills)")
+    note_labels = _demangled(sorted({n for n, _ in notes}))
+    if not notes:
+        log(f"  ptxas: no wgmma notes for {source}.cu (none serialized)")
+    for mangled, note in notes:
+        log(f"  ptxas note, {source}.cu {note_labels[mangled]}: {note}")
+    serialized = [note_labels[n] for n, note in notes
+                  if "decode_tc_kernel" in n and "serializ" in note.lower()]
+    if serialized:
+        raise AssertionError(f"wgmma serialized in {serialized}")
 
 
 def phase_build():
@@ -272,6 +353,8 @@ def phase_build():
     for name in names:
         if name == "flash_attention":
             _k2_kernel_report()
+        elif name in ("decode_attention", "paged_attention"):
+            _decode_kernel_report(name)
         else:
             for line in _build.build_log(name).splitlines():
                 if "registers" in line or "spill" in line:
@@ -283,17 +366,50 @@ def phase_build():
 def _k1_case(k_all, v_all, layer, offset, S, *, window=None, ks=None,
              vs=None, dtype=torch.bfloat16, gen=None):
     from videollm_online_tpu_torch.ops import decode_attention as da
-    B, Hq, d = 1, 32, k_all.shape[-1]
+    B, Hq, d = k_all.shape[1], 32, k_all.shape[-1]
     q = torch.randn((B, Hq, S, d), generator=gen, device="cuda").to(dtype)
-    q_pos = (offset + torch.arange(S, device="cuda", dtype=torch.int32))[None]
-    got = da.ring_decode_attention_layered(q, k_all, v_all, q_pos, layer,
-                                           window=window, k_scale=ks,
-                                           v_scale=vs)
+    # stream b's queries at offset + 37 b ...: ragged streams when B > 1
+    q_pos = (offset + torch.arange(S, device="cuda", dtype=torch.int32)[None]
+             + 37 * torch.arange(B, device="cuda", dtype=torch.int32)[:, None])
     want = da.ring_decode_attention_layered_reference(
         q, k_all, v_all, q_pos, layer, window=window, k_scale=ks, v_scale=vs)
-    torch.cuda.synchronize()
-    return _close(f"K1 layer {layer} offset {offset} S {S} window {window} "
-                  f"int8 {ks is not None} {dtype}", got, want, K1_TOL[dtype])
+    return _repeatable(
+        f"K1 layer {layer} offset {offset} S {S} window {window} int8 "
+        f"{ks is not None} {dtype} d {d} B {B}",
+        lambda: da.ring_decode_attention_layered(
+            q, k_all, v_all, q_pos, layer, window=window, k_scale=ks,
+            v_scale=vs), want, K1_TOL[dtype], da)
+
+
+def _repeatable(name, kern, want, tol, da):
+    """Holds kern() to want at tol with the wrapper's split count and with
+    one split (ops/decode_attention.py num_splits; the tensor-core kernel
+    then writes its output directly, no merge), each called twice on the
+    same input, which must give equal bits; returns the worst readings."""
+    readings = []
+    num_splits = da.num_splits
+    try:
+        for one_split in (False, True):
+            if one_split:
+                da.num_splits = lambda *args: 1
+            got = kern()
+            again = kern()
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"{name}: two calls on one input differ "
+                                     f"(one split {one_split})")
+            readings.append(_close(f"{name} one split {one_split}", got,
+                                   want, tol))
+    finally:
+        da.num_splits = num_splits
+    return _worst(readings)
+
+
+def _schedule(da, design, B, Hkv, rows, slots):
+    """The launch's (slices, row blocks, splits), as the wrapper sizes it."""
+    slices, _, nblk = da.row_blocks(design, rows)
+    return slices, nblk, da.num_splits(design, da._sm_count(
+        torch.device("cuda")), B, Hkv, rows, slots)
 
 
 def _k1_timing(k_all, v_all, offset, S, gen):
@@ -325,6 +441,8 @@ def _k1_timing(k_all, v_all, offset, S, gen):
     times = {"ms": graph_ms(kern, L), "plain_ms": graph_ms(plain, L),
              "library_ms": graph_ms(lib, L),
              "eager_ms": cuda_ms(kern, iters=10 * L)}
+    times["schedule"] = _schedule(da, da.kernel_design(q.dtype, d), B, Hkv,
+                                  Hq // Hkv * S, C)
     elt = 2
     bytes_ = (2 * B * Hq * S * d * elt + 2 * B * Hkv * n * d * elt
               + B * S * 4)
@@ -353,12 +471,15 @@ def phase_k1():
     cases = {"bf16": [], "window": [], "int8": [], "fp32": []}
     for layer in (0, 31):
         for offset in (1, 511, 512, 3000, 15000):
-            for S in (1, 14, 20, 64):
+            for S in (1, 7, 14, 20, 21, 64):
                 cases["bf16"].append(_k1_case(k_all, v_all, layer, offset, S,
                                               gen=gen))
     for offset, S in ((3000, 1), (15000, 1), (15000, 20), (15000, 64)):
         cases["window"].append(_k1_case(k_all, v_all, 31, offset, S,
                                         window=4096, gen=gen))
+    for offset, S in ((3000, 21), (3000, 7)):
+        cases["window"].append(_k1_case(k_all, v_all, 0, offset, S,
+                                        window=1000, gen=gen))
     timing = {S: _k1_timing(k_all, v_all, 3000, S, gen)
               for S in (1, 20, 64)}
     k8 = torch.randint(-127, 128, shape, generator=gen, device="cuda",
@@ -367,10 +488,27 @@ def phase_k1():
                        dtype=torch.int8)
     ks = torch.rand(shape[:-1], generator=gen, device="cuda") / 64
     vs = torch.rand(shape[:-1], generator=gen, device="cuda") / 64
-    for offset, S in ((3000, 1), (3000, 20), (15000, 14)):
+    for offset, S, window in ((3000, 1, None), (3000, 20, None),
+                              (15000, 14, None), (3000, 21, 1000),
+                              (15000, 7, None)):
         cases["int8"].append(_k1_case(k8, v8, 31, offset, S, ks=ks, vs=vs,
-                                      gen=gen))
+                                      window=window, gen=gen))
     del k8, v8, ks, vs
+    # d 64, two ragged streams (offsets 700 and 737), bf16 and int8 K/V
+    cases["d64"] = []
+    shape64 = (2, 2, Hkv, 4096, 64)
+    k64, v64 = (torch.randn(shape64, generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    k6, v6 = (torch.randint(-127, 128, shape64, generator=gen, device="cuda",
+                            dtype=torch.int8) for _ in range(2))
+    ks6, vs6 = (torch.rand(shape64[:-1], generator=gen, device="cuda") / 64
+                for _ in range(2))
+    for S, window in ((1, None), (21, 300), (64, None), (7, 100)):
+        cases["d64"].append(_k1_case(k64, v64, 1, 700, S, window=window,
+                                     gen=gen))
+        cases["d64"].append(_k1_case(k6, v6, 1, 700, S, window=window,
+                                     ks=ks6, vs=vs6, gen=gen))
+    del k64, v64, k6, v6, ks6, vs6
     k32, v32 = k_all.float(), v_all.float()
     del k_all, v_all
     cases["fp32"].append(_k1_case(k32, v32, 31, 3000, 20,
@@ -386,10 +524,13 @@ def phase_k1():
     for S, t in timing.items():
         log(f"K1 at 8B shapes, offset 3000, S={S}, bf16, device time per "
             f"call from CUDA-graph replay over the 32 layers: kernel "
-            f"{t['ms']:.5f} ms, plain {t['plain_ms']:.5f} ms, sdpa "
-            f"{t['library_ms']:.5f} ms, bound {t['bound_ms']:.5f} ms "
-            f"({t['bound_by']}, {HBM_BYTES_PER_S / 1e12} TB/s); eager "
-            f"kernel call from Python {t['eager_ms']:.5f} ms")
+            f"{t['ms']:.5f} ms ({t['bound_ms'] / t['ms']:.1%} of the "
+            f"bound; slices, row blocks, splits {t['schedule']}), "
+            f"plain {t['plain_ms']:.5f} ms, sdpa {t['library_ms']:.5f} ms, "
+            f"bound {t['bound_ms']:.5f} ms ({t['bound_by']}, "
+            f"{HBM_BYTES_PER_S / 1e12} TB/s, {BF16_FLOPS_PER_S / 1e12:.0f} "
+            f"TFLOP/s); eager kernel call from Python {t['eager_ms']:.5f} "
+            f"ms")
     assert da.ring_decode_attention_layered.launches > 0
     return {"max_abs_err": max(errs.values()), **timing[1]}
 
@@ -647,9 +788,13 @@ def phase_small_engine():
 
 
 # ---------------------------------------------------------------- phase 5
-# kernel classes by name: K1, cuBLAS matmuls, and the dtype-casting copies
-# (chiefly quantized_matmul's per-call int8 -> bf16 weight conversion)
-KERNEL_CLASSES = (("K1", ("k1_",)), ("K3", ("k3_",)),
+# kernel classes by name, the first class that matches (K1's and K3's
+# split kernels by their pool type, and the merge of their split partials,
+# decode_merge_kernel, on its own): K1, K3, K4, K5, cuBLAS matmuls, and the
+# dtype-casting copies (chiefly quantized_matmul's per-call int8 -> bf16
+# weight conversion)
+KERNEL_CLASSES = (("K1", ("ringpool",)), ("K3", ("pagedpool",)),
+                  ("K1/K3 merge", ("decode_merge_kernel",)),
                   ("K4", ("fused_mlp_", "swiglu_merge")),
                   ("K5", ("matmul_int4c_",)),
                   ("matmul", ("nvjet", "gemm", "cutlass", "xmma")),
@@ -737,6 +882,7 @@ def phase_main_path(n_frames: int = 64):
                                                        LlamaConfig)
     from videollm_online_tpu_torch.models import generate as gen_mod
     from videollm_online_tpu_torch.models import live, llama, quant
+    from videollm_online_tpu_torch.ops import decode_attention as da
     from videollm_online_tpu_torch.ops.decode_attention import (
         ring_decode_attention_layered as k1)
     from videollm_online_tpu_torch.serve.engine import LiveInferEngine
@@ -829,11 +975,15 @@ def phase_main_path(n_frames: int = 64):
             forwards = int(st[0])
         torch.cuda.synchronize()
         n_tok = int(length[0])
+        S = 1 if mode == "greedy" else engine.spec_draft + 1
+        _, _, nsplit = _schedule(da, da.kernel_design(torch.bfloat16, 128),
+                                 1, lcfg.num_kv_heads, 4 * S, cache.capacity)
         log(f"{mode} decode (8B int8, offset {int(cache.offset[0])}): "
             f"{n_tok} tokens in {forwards} forwards, "
             f"{(time.perf_counter() - t0) * 1e3 / n_tok:.3f} ms/token, K1 "
-            f"launches per forward {k1.launches / forwards:.2f} (each one "
-            f"split kernel + one merge kernel)")
+            f"launches per forward {k1.launches / forwards:.2f} (at S {S} a "
+            f"launch is the split kernel over {nsplit} splits"
+            + (" + decode_merge_kernel)" if nsplit > 1 else ")"))
     logits, _ = llama.forward(params["llama"], cfg=cfg.llama,
                               inputs_embeds=prompt[:, :1], kv_cache=cache,
                               attn_impl=engine.attn_impl)
@@ -1859,28 +2009,36 @@ def _k3_table(B, maxp, P, seed, trash_row):
     return torch.from_numpy(table).cuda()
 
 
-def _k3_poison(pools, layer, table, last_slot, value):
+def _k3_poison(pools, layer, table, first_slot, last_slot, value):
     """Writes ``value`` over what no query of the case may read: the trash
-    page and every slot past each stream's last visible slot."""
+    page, and every slot of each stream past its last visible slot or below
+    its first (a window's lower edge)."""
     page = pools[0].shape[3]
     for pool in pools:
         if pool is None:
             continue
         v = value if pool.dtype.is_floating_point else 0
         pool[layer, 0] = v
-        for b, last in enumerate(last_slot):
+        for b, (first, last) in enumerate(zip(first_slot, last_slot)):
             for j, phys in enumerate(table[b].tolist()):
+                if not phys:
+                    continue
                 lo = max(last + 1 - j * page, 0)
-                if phys and lo < page:
+                if lo < page:
                     pool[layer, phys, :, lo:] = v
+                hi = min(first - j * page, page)
+                if hi > 0:
+                    pool[layer, phys, :, :hi] = v
 
 
 def _k3_case(label, pools, table, q_pos, layer, *, window=None, Hq,
              dtype, gen):
-    """K3 against the plain version on one input; the plain version reads
+    """K3 against the plain version on one input (_repeatable: split and
+    not, each twice with equal bits); the plain version reads
     the pools as they are, the kernel reads them with NaN written over the
-    trash page and past each stream's last visible slot (which it must
-    never read), and they are restored to 0 after."""
+    trash page, past each stream's last visible slot and below its first
+    (which it must never read), and they are restored to 0 after."""
+    from videollm_online_tpu_torch.ops import decode_attention as da
     from videollm_online_tpu_torch.ops import paged_attention as pa
     pk, pv, ks, vs = pools
     B, S = q_pos.shape
@@ -1890,12 +2048,15 @@ def _k3_case(label, pools, table, q_pos, layer, *, window=None, Hq,
                                         window=window, k_scale=ks,
                                         v_scale=vs)
     last = q_pos.max(dim=1).values.tolist()
-    _k3_poison(pools, layer, table, last, float("nan"))
-    got = pa.paged_decode_attention(q, pk, pv, table, q_pos, layer,
-                                    window=window, k_scale=ks, v_scale=vs)
-    torch.cuda.synchronize()
-    _k3_poison(pools, layer, table, last, 0.0)
-    return _close(f"K3 {label}", got, want, K3_TOL[dtype])
+    first = ((q_pos.min(dim=1).values - window + 1).clamp(min=0).tolist()
+             if window else [0] * B)
+    _k3_poison(pools, layer, table, first, last, float("nan"))
+    try:
+        return _repeatable(f"K3 {label}", lambda: pa.paged_decode_attention(
+            q, pk, pv, table, q_pos, layer, window=window, k_scale=ks,
+            v_scale=vs), want, K3_TOL[dtype], da)
+    finally:
+        _k3_poison(pools, layer, table, first, last, 0.0)
 
 
 def _k3_qpos(offsets, S):
@@ -1947,6 +2108,8 @@ def _k3_timing(pools, table, q_pos, Hq, gen):
 
     t = {"ms": graph_ms(kern, L), "plain_ms": cuda_ms(plain, 3, 1),
          "library_ms": graph_ms(route, L), "eager_ms": cuda_ms(kern, 4 * L)}
+    t["schedule"] = _schedule(da, da.kernel_design(qdt, d), B, Hkv,
+                              Hq // Hkv * S, maxp * page)
     if S <= da.MAX_CHUNK:
         ring = {n: torch.stack([gathered(x, l) for l in range(L)])
                 for n, x in (("k", pk), ("v", pv), *sc.items())}
@@ -1981,7 +2144,7 @@ def phase_k3():
     for kind in (torch.bfloat16, "int8"):
         L = 32
         pools = _k3_pools(L, m["P"], m["Hkv"], m["page"], m["d"], kind, gen)
-        for S in (1, 20, 91, 128):
+        for S in (1, 7, 20, 21, 91, 128):
             q_pos = _k3_qpos(K3_OFFSETS, S)
             for window in (None, 700):
                 for layer in (0, L - 1):
@@ -2010,7 +2173,14 @@ def phase_k3():
             "d256 page32 int8 B3": (3, 4, 1, 256, 32, 4, "int8",
                                     (0, 31, 90), 5, None),
             "d64 page64 int8 B1 fp32": (1, 8, 2, 64, 64, 3, "int8",
-                                        (60,), 64, 30)}.items():
+                                        (60,), 64, 30),
+            "d128 page32 bf16 B3 window": (3, 8, 2, 128, 32, 8,
+                                           torch.bfloat16, (0, 90, 170),
+                                           21, 50),
+            "d64 page32 int8 B2 window": (2, 4, 1, 64, 32, 6, "int8",
+                                          (33, 100), 7, 40),
+            "d128 page128 int8 B3": (3, 8, 2, 128, 128, 3, "int8",
+                                     (250, 129, 0), 91, None)}.items():
         P = 1 + B * maxp
         pools = _k3_pools(2, P, Hkv, page, d, kind, gen)
         tab = _k3_table(B, maxp, P, B + d + page, trash_row=B - 1)
@@ -2028,7 +2198,8 @@ def phase_k3():
               else f"K1 takes S <= 64 only")
         log(f"K3 at 8B shapes (B 8, Hq 32, Hkv 8, d 128, page 512, {kv} "
             f"K/V, bf16 q), S={S}, device ms per call from CUDA-graph replay over 32 "
-            f"layers: kernel {t['ms']:.5f}, plain {t['plain_ms']:.5f}, "
+            f"layers: kernel {t['ms']:.5f} (slices, row blocks, splits "
+            f"{t['schedule']}), plain {t['plain_ms']:.5f}, "
             f"gathering route {t['library_ms']:.5f}, {k1}, bound "
             f"{t['bound_ms']:.5f} ({t['bound_by']}, {t['mbytes']:.1f} MB at "
             f"{HBM_BYTES_PER_S / 1e12} TB/s): {t['ms'] / t['bound_ms']:.2f} x "
@@ -2036,6 +2207,73 @@ def phase_k3():
     assert pa.paged_decode_attention.launches > 0
     errs = max(_worst(rs)["max"] for rs in readings.values())
     return {"max_abs_err": errs, **timing[("bf16", 1)], "timing": timing}
+
+
+def phase_tc_configs():
+    """The tensor-core design's configurations A/B at the main paths'
+    shapes (--phases tc_configs; in no default run). Each configuration
+    (slices of each K/V tile per row block, ops/decode_attention.py
+    TC_ROWS_PER_CTA: 1 = two wgmma warpgroups of 64 rows, more = 4
+    mma.sync warps sharing fewer rows) runs on the same input, with the
+    splits the wrapper sizes for it, held to the plain version at
+    K1_TOL / K3_TOL and timed by CUDA-graph replay over 32 layers; '*'
+    marks the wrapper's own choice. K1 on the 8B ring at offset 3000, K3
+    on phase 13's 8-stream pool of 512-slot pages, bf16."""
+    from videollm_online_tpu_torch.ops import decode_attention as da
+    from videollm_online_tpu_torch.ops import paged_attention as pa
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    own = da.row_blocks
+
+    def forced(slices):
+        per = da.TC_ROWS_PER_CTA[slices]
+        return lambda design, rows: (
+            (slices, per, -(-rows // per)) if design == "tensor cores"
+            else own(design, rows))
+
+    def compare(label, B, Hkv, slots, rows, want, call, tol):
+        chosen = own("tensor cores", rows)[0]
+        out = []
+        try:
+            for slices in da.TC_ROWS_PER_CTA:
+                da.row_blocks = forced(slices)
+                _close(f"{label} slices {slices}", call(0), want, tol)
+                nsplit = _schedule(da, "tensor cores", B, Hkv, rows, slots)[2]
+                out.append(f"{slices}{'*' if slices == chosen else ''}: "
+                           f"{graph_ms(call, 32):.5f} ms ({nsplit} splits)")
+        finally:
+            da.row_blocks = own
+        log(f"  {label}, {rows} rows a kv head: " + ", ".join(out))
+
+    L, Hq, Hkv, C, d = 32, 32, 8, 16384, 128
+    k_all, v_all = (torch.randn((L, 1, Hkv, C, d), generator=gen,
+                                device="cuda").to(torch.bfloat16)
+                    for _ in range(2))
+    log("tensor-core configurations by slices (ms per call):")
+    for S in (1, 4, 5, 7, 8, 20, 64):
+        q = torch.randn((1, Hq, S, d), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        q_pos = (3000 + torch.arange(S, device="cuda",
+                                     dtype=torch.int32))[None]
+        compare(f"K1 S {S}", 1, Hkv, C, Hq // Hkv * S,
+                da.ring_decode_attention_layered_reference(
+                    q, k_all, v_all, q_pos, 0),
+                lambda i: da.ring_decode_attention_layered(
+                    q, k_all, v_all, q_pos, i % L), K1_TOL[torch.bfloat16])
+    del k_all, v_all
+    m = K3_MAIN
+    pk, pv, _, _ = _k3_pools(L, m["P"], m["Hkv"], m["page"], m["d"],
+                             torch.bfloat16, gen)
+    table = _k3_table(m["B"], m["maxp"], m["P"], 0, trash_row=0)
+    for S in (1, 4, 7, 20, 91, 128):
+        q = torch.randn((m["B"], m["Hq"], S, m["d"]), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        q_pos = _k3_qpos(K3_OFFSETS, S)
+        compare(f"K3 S {S}", m["B"], m["Hkv"], m["maxp"] * m["page"],
+                m["Hq"] // m["Hkv"] * S,
+                pa.paged_attention_reference(q, pk, pv, table, q_pos, 0),
+                lambda i: pa.paged_decode_attention(q, pk, pv, table, q_pos,
+                                                    i % L),
+                K3_TOL[torch.bfloat16])
 
 
 # --------------------------------------------------------------- phase 14
@@ -2309,6 +2547,7 @@ PHASES = {"toolchain": phase_toolchain, "build": phase_build,
           "small_int4_engine": phase_small_int4_engine,
           "main_path_int4": phase_main_path_int4,
           "ab_paths": phase_ab_paths, "k3": phase_k3,
+          "tc_configs": phase_tc_configs,
           "small_multistream": phase_small_multistream,
           "main_path_multistream": phase_main_path_multistream}
 

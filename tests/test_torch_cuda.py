@@ -36,11 +36,11 @@ def card():
     return torch.device("cuda")
 
 
-def _inputs(S, dtype, dev, seed=5, starts=(700, 37)):
+def _inputs(S, dtype, dev, seed=5, starts=(700, 37), d=D):
     rng = np.random.RandomState(seed)
     qdt = torch.float32 if dtype == "float32" else torch.bfloat16
-    q = torch.from_numpy(rng.randn(B, HKV * G, S, D).astype(np.float32))
-    shape = (L, B, HKV, C, D)
+    q = torch.from_numpy(rng.randn(B, HKV * G, S, d).astype(np.float32))
+    shape = (L, B, HKV, C, d)
     if dtype == "int8":
         k, v = (torch.from_numpy(rng.randint(-127, 128, shape).astype(np.int8))
                 for _ in range(2))
@@ -64,8 +64,12 @@ def test_kernel_matches_plain_on_card(card, dtype):
     rtol 1e-5, relative norm 5e-6."""
     atol, rtol, rel = ((1e-6, 1e-5, 5e-6) if dtype == "float32"
                        else (2e-3, 2e-2, 5e-3))
-    for S, window in ((1, None), (14, None), (20, 96), (64, None)):
-        q, k, v, q_pos, sc = _inputs(S, dtype, card)
+    # rows (G * S) not a multiple of 16 at S 7 and 21; windows whose edge
+    # and first visible slot fall inside a 64-slot tile; d 64 and 128
+    for S, window, d in ((1, None, D), (14, None, D), (20, 96, D),
+                         (64, None, D), (7, None, D), (21, 100, D),
+                         (1, 33, 128), (21, None, 128), (64, 300, 128)):
+        q, k, v, q_pos, sc = _inputs(S, dtype, card, d=d)
         before = da.ring_decode_attention_layered.launches
         got = da.ring_decode_attention_layered(q, k, v, q_pos, LAYER,
                                                window=window, **sc)
@@ -85,6 +89,57 @@ def test_single_layer_form_and_empty_rows_on_card(card):
     want = da.ring_decode_attention_reference(q, k[0], v[0], q_pos)
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
     assert not got[1].any()
+
+
+@pytest.mark.parametrize("kv", ["bfloat16", "int8"])
+def test_tensor_core_decode_kernels_repeat_bits_on_card(card, kv, monkeypatch):
+    """K1 and K3 on the tensor cores (bf16 q): the same input twice gives
+    equal bits, with the wrapper's split count (partials merged in a second
+    launch) and with one split (the output written directly), at S 1 (4
+    rows, slices of each tile) and S 21 (84 rows, two row blocks); each
+    held to the plain version at chip_smoke.py's K1_TOL / K3_TOL."""
+    for one_split in (False, True):
+        if one_split:
+            monkeypatch.setattr(da, "num_splits", lambda *args: 1)
+        for S in (1, 21):
+            q, k, v, q_pos, sc = _inputs(S, kv, card, seed=7, d=128)
+            assert da.kernel_design(q.dtype, 128) == "tensor cores"
+            got = da.ring_decode_attention_layered(q, k, v, q_pos, LAYER,
+                                                   window=200, **sc)
+            assert torch.equal(got, da.ring_decode_attention_layered(
+                q, k, v, q_pos, LAYER, window=200, **sc))
+            want = da.ring_decode_attention_layered_reference(
+                q, k, v, q_pos, LAYER, window=200, **sc)
+            torch.testing.assert_close(got.float(), want.float(), atol=2e-3,
+                                       rtol=2e-2)
+            q, k, v, table, q_pos, sc = _paged_inputs(S, kv, card, d=128,
+                                                      page=32)
+            got = pa.paged_attention(q, k, v, table, q_pos, LAYER, **sc)
+            assert torch.equal(got, pa.paged_attention(q, k, v, table, q_pos,
+                                                       LAYER, **sc))
+            want = pa.paged_attention_reference(q, k, v, table, q_pos, LAYER,
+                                                **sc)
+            torch.testing.assert_close(got.float(), want.float(), atol=4e-3,
+                                       rtol=2e-2)
+
+
+def test_decode_library_refuses_other_pairings_on_card(card):
+    """The library refuses a design that does not take (dtype, d): bf16 d
+    128 on FMA, fp32 on the tensor cores, d 256 on the tensor cores; and a
+    slice count the tensor-core kernel does not have (2)."""
+    stream = torch.cuda.current_stream(card).cuda_stream
+    q, k, v, q_pos, _ = _inputs(1, "bfloat16", card, d=128)
+    out = torch.empty_like(q)
+    part = torch.empty(64 * B * HKV * G * 128 * 2, device=card)
+    for d, is_bf16, design, slices in ((128, 1, 0, 4), (128, 0, 1, 4),
+                                       (256, 1, 1, 4), (128, 1, 1, 2)):
+        # q, k, v, ks, vs, q_pos, out, part_acc, part_ml, B, Hkv, S, rows,
+        # d, C, layer, window, nsplit, q_dtype, kv_int8, design, slices
+        assert da._kernel()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), None, None,
+            q_pos.data_ptr(), out.data_ptr(), part.data_ptr(),
+            part.data_ptr(), B, HKV, 1, G, d, C, LAYER, 0, 1, is_bf16, 0,
+            design, slices, stream) != 0
 
 
 def test_kernel_raises_on_what_it_does_not_take(card):
@@ -409,7 +464,8 @@ def _paged_inputs(S, dtype, dev, d=64, page=64, seed=8,
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32", "int8"])
-@pytest.mark.parametrize("d,page", [(64, 64), (128, 32), (256, 64)])
+@pytest.mark.parametrize("d,page", [(64, 64), (128, 32), (256, 64),
+                                    (64, 32), (128, 128)])
 def test_paged_kernel_matches_plain_on_card(card, dtype, d, page):
     """Tolerance, elementwise and on the relative norm error, chip_smoke.py's
     K3_TOL, set from its readings: bf16 queries (bf16 or int8 pools) atol
@@ -418,7 +474,11 @@ def test_paged_kernel_matches_plain_on_card(card, dtype, d, page):
     NaN."""
     atol, rtol, rel = ((1e-6, 1e-5, 1e-6) if dtype == "float32"
                        else (4e-3, 2e-2, 5e-3))
-    for S, window in ((1, None), (20, 100), (91, None), (128, 50)):
+    # rows (G * S) not a multiple of 16 at S 7 and 21; window edges and
+    # first visible slots inside a 64-slot tile; pages of 32 under 64-slot
+    # tiles and of 128 (one page-table lookup a tile)
+    for S, window in ((1, None), (20, 100), (91, None), (128, 50), (7, None),
+                      (21, 77)):
         q, k, v, table, q_pos, sc = _paged_inputs(S, dtype, card, d, page)
         want = pa.paged_attention_reference(q, k, v, table, q_pos, LAYER,
                                             window=window, **sc)

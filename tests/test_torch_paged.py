@@ -7,7 +7,10 @@ counterpart in the port:
     dispatch takes on the CPU) against the JAX Pallas kernel in interpret
     mode and the JAX gather reference, on the cases of
     ``tests/test_paged.py``: atol 2e-5, rtol 2e-4 (the JAX test's own
-    tolerance for kernel against reference);
+    tolerance for kernel against reference); in bf16 (bf16 q over bf16 or
+    int8 pools) at the bounds of BF16_KERNEL_TOL;
+  * the kernels' schedule over pages of 32, 64 and 512 slots, as the
+    wrappers mirror it (``split_ranges``, ``tile_rows``);
   * ``quantize_kv``: codes and scales bit-identical;
   * paged appends: the pools after the append sequences of
     ``tests/test_paged.py`` bit-identical to the JAX ``_paged_append``'s on
@@ -36,8 +39,18 @@ from videollm_online_tpu_torch.models import llama
 from videollm_online_tpu_torch.models.bridge import params_from_numpy
 from videollm_online_tpu_torch.ops import paged_attention as pa
 
+from _torch_schedule import SCHEDULE_S, check_schedule
+
 KERNEL_TOL = dict(atol=2e-5, rtol=2e-4)
 LOGIT_TOL = dict(atol=3e-5, rtol=3e-4)
+# bf16: the plain version, like the JAX gather reference, keeps P in fp32;
+# the Pallas kernel (and the CUDA kernel) round P to bf16 before P.V. The
+# plain version against the gather reference holds at KERNEL_TOL (both
+# fp32 inside; readings 3.8e-6); against the Pallas kernel at this bound,
+# elementwise (atol at rtol 2e-2) and on the relative norm error, above
+# the readings on these inputs (median |want| 0.18 to 0.23): max error
+# 7.8e-3, atol needed 1.1e-3, relative norm 2.7e-3.
+BF16_KERNEL_TOL = dict(atol=2e-3, rtol=2e-2, rel=4e-3)
 
 
 def _attention_case(seed, quantized):
@@ -61,13 +74,21 @@ def _attention_case(seed, quantized):
     return q, pool_k, pool_v, scales, table, q_pos
 
 
-@pytest.mark.parametrize("window", [None, 40])
-@pytest.mark.parametrize("layer", [0, 1])
-@pytest.mark.parametrize("quantized", [False, True], ids=["f32", "int8"])
-def test_plain_k3_matches_jax_kernel_and_reference(quantized, layer, window):
+@pytest.mark.parametrize("kind,layer,window", [
+    (kind, layer, window) for kind in ("f32", "int8")
+    for layer in (0, 1) for window in (None, 40)] + [
+    ("bf16", 1, None), ("bf16", 0, 40), ("bf16_int8", 1, 40)])
+def test_plain_k3_matches_jax_kernel_and_reference(kind, layer, window):
+    quantized, bf16 = "int8" in kind, kind.startswith("bf16")
     q, pk, pv, (ks, vs), table, q_pos = _attention_case(
         7 if quantized else 0, quantized)
     jargs = [jnp.asarray(x) for x in (q, pk, pv, table, q_pos)]
+    targs = [torch.from_numpy(x) for x in (q, pk, pv, table, q_pos)]
+    if bf16:       # q and float pools in bf16; int8 codes and scales as they are
+        jargs[:3] = [x.astype(jnp.bfloat16) if x.dtype == jnp.float32 else x
+                     for x in jargs[:3]]
+        targs[:3] = [x.to(torch.bfloat16) if x.is_floating_point() else x
+                     for x in targs[:3]]
     jsc = {} if ks is None else {"k_scale": jnp.asarray(ks),
                                  "v_scale": jnp.asarray(vs)}
     jax_ref = jax_paged_reference(*jargs, layer, window=window, **jsc)
@@ -75,12 +96,19 @@ def test_plain_k3_matches_jax_kernel_and_reference(quantized, layer, window):
                                   interpret=True, **jsc)
     tsc = {} if ks is None else {"k_scale": torch.from_numpy(ks),
                                  "v_scale": torch.from_numpy(vs)}
-    targs = [torch.from_numpy(x) for x in (q, pk, pv, table, q_pos)]
     got = pa.paged_attention(*targs, layer, window=window, **tsc)
-    np.testing.assert_allclose(got.numpy(), np.asarray(jax_ref),
+    assert got.dtype == targs[0].dtype
+    f32 = np.asarray(got.float().numpy())
+    np.testing.assert_allclose(f32, np.asarray(jax_ref.astype(jnp.float32)),
                                **KERNEL_TOL)
-    np.testing.assert_allclose(got.numpy(), np.asarray(jax_kernel),
-                               **KERNEL_TOL)
+    want = np.asarray(jax_kernel.astype(jnp.float32))
+    if bf16:
+        tol = BF16_KERNEL_TOL
+        np.testing.assert_allclose(f32, want, atol=tol["atol"],
+                                   rtol=tol["rtol"])
+        assert np.linalg.norm(f32 - want) / np.linalg.norm(want) <= tol["rel"]
+    else:
+        np.testing.assert_allclose(f32, want, **KERNEL_TOL)
     assert torch.equal(got, pa.paged_decode_attention(
         *targs, layer, window=window, **tsc))   # the CPU wrapper's route
 
@@ -195,16 +223,23 @@ def _caches(kind, jcfg, cfg, B, page, maxp):
             tc.replace(table=torch.from_numpy(table)))
 
 
-@pytest.mark.parametrize("kind", ["paged", "paged_int8", "ring_int8"])
-def test_forward_logits_match_jax(kind):
-    """tests/test_paged.py's decoder sequence (prefill, page-crossing
-    appends, 1-token decodes, ragged validity) through both packages."""
+@pytest.fixture(scope="module")
+def tiny_decoder():
+    """The tiny config's weights in both packages and the jitted JAX
+    forward, built once for the module's forward cases."""
     jcfg, cfg = jax_tiny_cfg(), tiny_live_config()
     jparams = jax.device_get(jax_live.init_params(jax.random.PRNGKey(0),
                                                   jcfg))["llama"]
-    params = params_from_numpy(jparams, device="cpu")
+    return (jcfg, cfg, jparams, params_from_numpy(jparams, device="cpu"),
+            jax.jit(jax_llama.forward, static_argnames=("cfg",)))
+
+
+@pytest.mark.parametrize("kind", ["paged", "paged_int8", "ring_int8"])
+def test_forward_logits_match_jax(kind, tiny_decoder):
+    """tests/test_paged.py's decoder sequence (prefill, page-crossing
+    appends, 1-token decodes, ragged validity) through both packages."""
+    jcfg, cfg, jparams, params, jforward = tiny_decoder
     jcache, cache = _caches(kind, jcfg, cfg, 2, 32, 6)
-    jforward = jax.jit(jax_llama.forward, static_argnames=("cfg",))
     rng = np.random.RandomState(5 if "int8" in kind else 1)
     for S in (24, 24, 11, 11, 1, 1, 30, 1):
         ids = rng.randint(0, cfg.llama.vocab_size, (2, S))
@@ -251,3 +286,42 @@ def test_dispatch_takes_the_plain_version_on_the_cpu():
     out = pa.paged_attention(*args, 1, window=None)
     assert pa.paged_decode_attention.launches == 0
     assert torch.equal(out, pa.paged_attention_reference(*args, 1))
+
+
+@pytest.mark.parametrize("design", pa.DESIGNS)
+@pytest.mark.parametrize("page", [32, 64, 512])
+def test_schedule_over_pages(design, page):
+    """K3's schedule as ops/paged_attention.py mirrors the CUDA source, at
+    S 1 / 7 / 20 / 21 / 64 / 91 / 128 with ragged offsets and windows off
+    and on: the splits cover each stream's visible tiles exactly once (none
+    past its last visible slot or wholly below its window); every loaded
+    row of a tile is the table's page and row for its slot, read through
+    one lookup a tile when the page holds whole tiles (page % 64 == 0 on
+    the tensor cores); rows outside the visible slots and pages outside
+    them (the trash page 0 past a stream's end) are never touched."""
+    maxp = -(-2600 // page)
+    slots = maxp * page
+    rng = np.random.RandomState(page)
+    table = list(rng.permutation(4 * maxp)[:maxp] + 1)
+    bk = pa.BLOCK_K[design]
+    for S in SCHEDULE_S:
+        nsplit = pa.num_splits(design, 132, 8, 8, 4 * S, slots)
+        for window in (None, 100, 700):
+            for off in (-S, 0, 31, 100, 448, 511, 1000, 2431):
+                q_pos = [off + i for i in range(S)]
+                check_schedule(design, q_pos, window, slots, nsplit)
+                lo, hi = pa.visible_slots(q_pos, window, slots)
+                last_page = hi // page if hi >= 0 else -1
+                tab = table[:last_page + 1] + [0] * (maxp - last_page - 1)
+                for start, end in pa.split_ranges(design, q_pos, window,
+                                                  slots, nsplit):
+                    for tile in range(start, end):
+                        rows = pa.tile_rows(tab, page, tile * bk, lo, hi,
+                                            design)
+                        for r, got in enumerate(rows):
+                            slot = tile * bk + r
+                            if not lo <= slot <= hi:
+                                assert got is None
+                                continue
+                            assert got == (tab[slot // page], slot % page)
+                            assert got[0] != 0       # never the trash page

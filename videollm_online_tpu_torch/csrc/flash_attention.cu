@@ -69,6 +69,9 @@
 
 #include <type_traits>
 
+#include "mma_sync.cuh"  // bf16, mma16816 and its fragment helpers
+#include "wgmma.cuh"     // wgmma, its descriptors and the 128-byte swizzle
+
 namespace {
 
 constexpr int TX = 16;        // threads along a tile row
@@ -483,72 +486,13 @@ __global__ void __launch_bounds__(THREADS)
 // fragment load fall on 32 different banks. S and dP stay in the mma
 // accumulators; P and dS are rounded to bf16 and repacked in registers as
 // the A operand of the next product (the C layout of two n-tiles is the A
-// layout of one k-step), so they never touch shared memory.
-
-typedef __nv_bfloat16 bf16;
+// layout of one k-step), so they never touch shared memory. The mma and
+// fragment helpers live in mma_sync.cuh, shared with K1 and K3.
 
 constexpr int MMA_THREADS = 128;
 constexpr int MN = 64;            // tile rows and columns
 constexpr int NT = MN / 8;        // n-tiles over a tile's 64 columns
 constexpr int LTT = MN + 8;       // row stride of a transposed (d x 64) tile
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d += a (16 x 16, row) * b (16 x 8, col), fp32 accumulate.
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Reductions over the 4 lanes that hold one fragment row.
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// The A fragment of rows [r, r + 16), columns [c, c + 16) of a row-major
-// bf16 tile with row stride ld (g = lane / 4, t = lane % 4).
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile, int ld, int r, int c,
-                                       int g, int t) {
-  a[0] = ld32(tile + (r + g) * ld + c + 2 * t);
-  a[1] = ld32(tile + (r + g + 8) * ld + c + 2 * t);
-  a[2] = ld32(tile + (r + g) * ld + c + 2 * t + 8);
-  a[3] = ld32(tile + (r + g + 8) * ld + c + 2 * t + 8);
-}
-
-// acc += A * B with B (16 x 8) read from rows [n, n + 8) and columns
-// [c, c + 16) of a row-major tile: B[kk][nn] = tile[n + nn][c + kk].
-__device__ __forceinline__ void mma_rows(float (&acc)[4], const uint32_t (&a)[4],
-                                         const bf16* tile, int ld, int n, int c, int g, int t) {
-  mma16816(acc, a, ld32(tile + (n + g) * ld + c + 2 * t),
-           ld32(tile + (n + g) * ld + c + 2 * t + 8));
-}
-
-// The A fragment of one k-step from the C fragments of the two n-tiles
-// that cover its 16 columns, rounded to bf16.
-__device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&lo)[4],
-                                       const float (&hi)[4]) {
-  a[0] = pack_bf16(lo[0], lo[1]);
-  a[1] = pack_bf16(lo[2], lo[3]);
-  a[2] = pack_bf16(hi[0], hi[1]);
-  a[3] = pack_bf16(hi[2], hi[3]);
-}
 
 // Rows [row0, row0 + 64) of a (rows, D) bf16 slab into shared memory:
 // row-major with row stride D + 8 into dst and/or transposed with row
@@ -570,12 +514,6 @@ __device__ __forceinline__ void stage_bf16(bf16* dst, bf16* dstT, const bf16* __
       for (int i = 0; i < 8; ++i) dstT[(c + i) * LTT + r] = e[i];
     }
   }
-}
-
-// The row (q index) and column (k index) of C-fragment element e of n-tile j.
-__device__ __forceinline__ int frag_row(int r0, int e) { return r0 + (e >> 1) * 8; }
-__device__ __forceinline__ int frag_col(int c0, int j, int t, int e) {
-  return c0 + j * 8 + 2 * t + (e & 1);
 }
 
 template <int D>
@@ -693,14 +631,9 @@ namespace hop {
 
 constexpr int WG = 128;                // threads in a warpgroup
 constexpr int STAGES = 2;              // slots in the load ring
-constexpr int PANEL = 64;              // bf16 columns in a 128-byte swizzled row
 constexpr int CONSUMER_WARPS = 8;      // arrivals that empty a slot
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
@@ -759,122 +692,6 @@ __device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap* map, uint
 #pragma unroll
   for (int p = 0; p < D / PANEL; ++p) tma_3d(dst + p * rows * PANEL, map, bar, p * PANEL, row0, bh);
 }
-
-// A wgmma shared-memory descriptor with the 128-byte swizzle: start address,
-// leading and stride byte offsets, each in 16-byte units. K-major: the
-// stride offset steps 8 rows (1024 bytes); the leading offset is unused.
-// MN-major: the leading offset steps from one 64-column panel to the next,
-// the stride offset 8 rows of the reduction.
-__device__ __forceinline__ uint64_t desc(const bf16* p, uint32_t lead, uint32_t stride) {
-  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lead >> 4) << 16) | (static_cast<uint64_t>(stride >> 4) << 32) |
-         (1ull << 62);
-}
-
-// The offset, in the descriptor's 16-byte units, of 16-deep step kk of a
-// K-major tile of `rows` rows: panel kk / 4, then 32 bytes a step in it.
-__host__ __device__ constexpr uint64_t kstep(int kk, int rows) {
-  return static_cast<uint64_t>((kk / 4) * rows * PANEL * 2 + (kk % 4) * 32) >> 4;
-}
-
-// The offset of 16-deep step kk of an MN-major tile: 16 rows of 128 bytes.
-__host__ __device__ constexpr uint64_t mnstep(int kk) { return static_cast<uint64_t>(kk) * 128; }
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Pins each accumulator register at this point, so the compiler moves no
-// read or write of it across a wgmma wait.
-template <int R>
-__device__ __forceinline__ void pin(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-template <int N>
-struct Wgmma;
-
-template <>
-struct Wgmma<64> {
-  // d = A * B (+ d if acc): A 64 x 16 and B 16 x 64 in shared memory, both
-  // K-major, at descriptors a + da and b + db (the sums taken inside the asm,
-  // so only the base descriptors stay in registers)
-  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t da, uint64_t b,
-                                            uint64_t db, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\n.reg .b64 wa, wb;\nsetp.ne.b32 p, %36, 0;\n"
-        "add.s64 wa, %32, %33;\nadd.s64 wb, %34, %35;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, wa, wb, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(da), "l"(b), "l"(db), "r"(acc));
-  }
-  // d += A * B: A 64 x 16 in registers, B 16 x 64 in shared memory, MN-major,
-  // at descriptor b + db
-  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
-                                            uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\n.reg .b64 wb;\nsetp.ne.b32 p, %38, 0;\nadd.s64 wb, %36, %37;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, wb, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "l"(db), "r"(1));
-  }
-};
-
-template <>
-struct Wgmma<128> {
-  // d = A * B (+ d if acc): A 64 x 16 and B 16 x 128 in shared memory, both
-  // K-major, at descriptors a + da and b + db (the sums taken inside the asm,
-  // so only the base descriptors stay in registers)
-  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t da, uint64_t b,
-                                            uint64_t db, int acc) {
-    asm volatile(
-        "{\n.reg .pred p;\n.reg .b64 wa, wb;\nsetp.ne.b32 p, %68, 0;\n"
-        "add.s64 wa, %64, %65;\nadd.s64 wb, %66, %67;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, wa, wb, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(da), "l"(b), "l"(db), "r"(acc));
-  }
-  // d += A * B: A 64 x 16 in registers, B 16 x 128 in shared memory, MN-major,
-  // at descriptor b + db
-  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
-                                            uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\n.reg .b64 wb;\nsetp.ne.b32 p, %70, 0;\nadd.s64 wb, %68, %69;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, wb, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "l"(db), "r"(1));
-  }
-};
 
 // The A fragment of one 16-deep step from the accumulators of the two
 // 8-column groups at c (c[0..3] and c[4..7]), rounded to bf16.

@@ -4,9 +4,19 @@ Counterpart of ``videollm_online_tpu/ops/decode_attention.py``. The serving
 loop appends 1 to 64 tokens per forward (a decode step, a spec-verify step,
 a one-frame step, a short prompt) and attends the whole ring. On a CUDA
 tensor the wrappers launch the hand-written kernel in
-``csrc/decode_attention.cu``; on a CPU tensor they take the plain PyTorch
-version beside it (``*_reference``), which is also what the kernel is held
-against on the card.
+``csrc/decode_attention.cu`` (or raise); on a CPU tensor they take the
+plain PyTorch version beside it (``*_reference``), which is also what the
+kernel is held against on the card.
+
+``kernel_design`` names the implementation each (dtype, d) runs, and the
+library refuses any other pairing: bf16 q with d in {64, 128}, over bf16
+or int8 K/V, runs on the tensor cores (a cp.async ring of K/V tiles shared
+by a CTA's query rows; wgmma warpgroups for more than 16 rows a kv head,
+mma.sync warps that slice each tile for fewer), fp32 q and d = 256 on
+fp32 FMA. ``row_blocks``, ``num_splits``, ``visible_slots`` and
+``split_ranges`` are the schedule as the CUDA source computes it, for the
+tests and for K3 (``ops/paged_attention.py``), which runs the same kernels
+over its pool.
 
 Layouts are the JAX package's: q (B, Hq, S, d), the stacked ring
 (L, B, Hkv, C, d), q_pos (B, S) int32 slot-relative positions, and for int8
@@ -17,18 +27,87 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from . import _build
 
-BLOCK_K = 32          # ring slots per kernel tile (csrc/decode_attention.cu)
-ROWS_PER_CTA = 16     # query rows per CTA (csrc/decode_attention.cu)
-CTAS_PER_SM = 4       # split CTAs the wrapper aims to put on each SM
 HEAD_DIMS = (64, 128, 256)
 MAX_CHUNK = 64
+DESIGNS = ("fma", "tensor cores")   # the library's design codes 0 and 1
+BLOCK_K = {"fma": 32, "tensor cores": 64}   # slots per K/V tile
+FMA_ROWS_PER_CTA = 16   # the FMA design: 4 warps x 4 query rows
+FMA_CTAS_PER_SM = 4     # split CTAs the wrapper aims to put on each SM
+# the tensor-core design by slices of each tile: query rows per CTA (two
+# wgmma warpgroups of 64 rows, or 4 mma.sync warps sharing 16 rows and
+# taking 4 slices of each tile's slots), and split CTAs aimed at per SM (a
+# wgmma CTA fills an SM; two mma.sync CTAs fit on one)
+TC_ROWS_PER_CTA = {1: 128, 4: 16}
+TC_CTAS_PER_SM = {1: 1, 4: 2}
+
+
+def kernel_design(dtype: torch.dtype, d: int) -> str:
+    """The implementation the kernels run for q's dtype and head size:
+    "tensor cores" for bf16 with d in {64, 128} (bf16 or int8 K/V),
+    "fma" for fp32 (which bf16 tensor cores cannot hold to fp32 accuracy)
+    and for d = 256 (whose accumulators do not fit a warp's registers)."""
+    if dtype == torch.bfloat16 and d in (64, 128):
+        return "tensor cores"
+    return "fma"
+
+
+def row_blocks(design: str, rows: int) -> Tuple[int, int, int]:
+    """(slices, rows per CTA, row blocks) for the G * S query rows of a kv
+    head. The tensor-core CTA runs two wgmma warpgroups of 64 rows; with at
+    most 16 rows, 4 mma.sync warps share one m16 tile of rows and split
+    each tile's slots into 4 slices, so that no warp idles (the split at 16
+    rows as measured on the H100: chip_smoke.py --phases tc_configs)."""
+    if design == "fma":
+        return 1, FMA_ROWS_PER_CTA, -(-rows // FMA_ROWS_PER_CTA)
+    slices = 4 if rows <= 16 else 1
+    per = TC_ROWS_PER_CTA[slices]
+    return slices, per, -(-rows // per)
+
+
+def num_splits(design: str, sm_count: int, B: int, Hkv: int, rows: int,
+               slots: int) -> int:
+    """Enough split CTAs for the aimed-at CTAs on every SM, never more
+    splits than tiles of a stream's slots. Sized from shapes alone (no
+    device readback): splits past a stream's visible tiles find an empty
+    range."""
+    slices, _, nblk = row_blocks(design, rows)
+    per_sm = FMA_CTAS_PER_SM if design == "fma" else TC_CTAS_PER_SM[slices]
+    want = -(-per_sm * sm_count // (B * Hkv * nblk))
+    return max(1, min(want, -(-slots // BLOCK_K[design])))
+
+
+def visible_slots(q_pos: Sequence[int], window: Optional[int],
+                  slots: int) -> Tuple[int, int]:
+    """[lo, hi], the slots some query of one stream sees (hi < lo when
+    none): the only slots the kernels read."""
+    hi = min(max(q_pos), slots - 1)
+    lo = max(min(q_pos) - window + 1, 0) if window else 0
+    return lo, hi
+
+
+def split_ranges(design: str, q_pos: Sequence[int], window: Optional[int],
+                 slots: int, nsplit: int) -> List[Tuple[int, int]]:
+    """Each split's tiles [start, end) of one stream with query positions
+    ``q_pos``, as the kernels compute them: the visible tiles cut into
+    nsplit runs of equal length (the last ones shorter or empty)."""
+    bk = BLOCK_K[design]
+    lo, hi = visible_slots(q_pos, window, slots)
+    if hi < 0 or lo > hi:
+        return [(0, 0)] * nsplit
+    fb, nb = lo // bk, hi // bk + 1
+    per = -(-(nb - fb) // nsplit)
+    out = []
+    for split in range(nsplit):
+        start = fb + split * per
+        out.append((start, max(min(nb, start + per), start)))
+    return out
 
 
 def _scale(d: int) -> float:
@@ -87,17 +166,28 @@ def _kernel():
     """The C entry point of csrc/decode_attention.cu, built at first use."""
     fn = _build.load("decode_attention").k1_ring_decode_attention
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
     return fn
 
 
-def _num_splits(device, B, Hkv, rows, C) -> int:
-    """Enough split CTAs for CTAS_PER_SM on every SM, never more splits than
-    ring tiles. Sized from shapes alone (no device readback): splits past a
-    stream's visible tiles exit at once."""
-    base = B * Hkv * -(-rows // ROWS_PER_CTA)
-    want = -(-CTAS_PER_SM * _sm_count(device) // base)
-    return max(1, min(want, -(-C // BLOCK_K)))
+def schedule(device, dtype, B, Hkv, rows, d, slots):
+    """(design, slices, nsplit, part_acc, part_ml) of one launch of K1 or
+    K3, with the fp32 split partials it needs allocated here (none for one
+    split on the tensor cores, which then write the output directly)."""
+    design = kernel_design(dtype, d)
+    slices = row_blocks(design, rows)[0]
+    nsplit = num_splits(design, _sm_count(device), B, Hkv, rows, slots)
+    part_acc = part_ml = None
+    if nsplit > 1 or design == "fma":
+        part_acc = torch.empty((nsplit, B * Hkv, rows, d), dtype=torch.float32,
+                               device=device)
+        part_ml = torch.empty((nsplit, B * Hkv, rows, 2), dtype=torch.float32,
+                              device=device)
+    return design, slices, nsplit, part_acc, part_ml
+
+
+def ptr(t) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 def _launch(q, k_all, v_all, q_pos, layer, window, k_scale, v_scale):
@@ -139,19 +229,15 @@ def _launch(q, k_all, v_all, q_pos, layer, window, k_scale, v_scale):
     if window is not None and int(window) <= 0:
         raise ValueError(f"window must be positive, got {window}")
     rows = (Hq // Hkv) * S
-    nsplit = _num_splits(q.device, B, Hkv, rows, C)
+    design, slices, nsplit, part_acc, part_ml = schedule(
+        q.device, q.dtype, B, Hkv, rows, d, C)
     out = torch.empty_like(q)
-    part_acc = torch.empty((nsplit, B * Hkv, rows, d), dtype=torch.float32,
-                           device=q.device)
-    part_ml = torch.empty((nsplit, B * Hkv, rows, 2), dtype=torch.float32,
-                          device=q.device)
     err = _kernel()(q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(),
-             k_scale.data_ptr() if quant else None,
-             v_scale.data_ptr() if quant else None,
-             q_pos.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
-             part_ml.data_ptr(), B, Hkv, S, rows, d, C, int(layer),
+             ptr(k_scale), ptr(v_scale), q_pos.data_ptr(), out.data_ptr(),
+             ptr(part_acc), ptr(part_ml), B, Hkv, S, rows, d, C, int(layer),
              int(window) if window is not None else 0, nsplit,
              1 if q.dtype == torch.bfloat16 else 0, 1 if quant else 0,
+             DESIGNS.index(design), slices,
              torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"k1_ring_decode_attention launch failed: CUDA "

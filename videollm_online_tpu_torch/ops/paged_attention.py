@@ -7,7 +7,12 @@ multi-stream serving keeps every stream's K/V in pages of one pool
 ``paged_decode_attention`` launches the hand-written kernel in
 ``csrc/paged_attention.cu``; on a CPU tensor it takes the plain PyTorch
 version beside it (``paged_attention_reference``), which is also what the
-kernel is held against on the card.
+kernel is held against on the card. K3 runs K1's kernels
+(``csrc/attention_common.cuh``) over the pool, so its design choice and
+schedule are K1's (``ops/decode_attention.py``: ``kernel_design``,
+``row_blocks``, ``num_splits``, ``visible_slots``, ``split_ranges``), with
+a stream's slots counted over its page table; ``tile_rows`` mirrors its
+page lookup.
 
 Layouts are the JAX package's: q (B, Hq, S, d), pools (L, P, Hkv, page, d),
 table (B, MAXP) int32, q_pos (B, S) int32 slot-relative positions, and for
@@ -18,12 +23,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from . import _build
-from .decode_attention import BLOCK_K, CTAS_PER_SM, HEAD_DIMS, ROWS_PER_CTA
+from .decode_attention import (BLOCK_K, DESIGNS, HEAD_DIMS,  # noqa: F401
+                               kernel_design, num_splits, ptr, row_blocks,
+                               schedule, split_ranges, visible_slots)
 
 NEG_INF = -1e30
 
@@ -64,9 +71,26 @@ def paged_attention_reference(q, pool_k, pool_v, table, q_pos, layer: int, *,
     return o.reshape(B, Hq, S, d).to(q.dtype)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+def tile_rows(table_row: Sequence[int], page: int, slot0: int, lo: int,
+              hi: int, design: str = "tensor cores"
+              ) -> List[Optional[Tuple[int, int]]]:
+    """(pool page, row in the page) that each row of the tile at slot0
+    loads from one stream's table, as the kernel looks it up (one lookup a
+    row, or one a tile when the tile lies in one page); None where the row
+    is outside the visible slots [lo, hi], zero-filled and not read."""
+    bk = BLOCK_K[design]
+    aligned = design == "tensor cores" and page % bk == 0
+    base = (table_row[slot0 // page], slot0 % page)
+    out = []
+    for r in range(bk):
+        slot = slot0 + r
+        if not lo <= slot <= hi:
+            out.append(None)
+        elif aligned:
+            out.append((base[0], base[1] + r))
+        else:
+            out.append((table_row[slot // page], slot % page))
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -74,18 +98,9 @@ def _kernel():
     """The C entry point of csrc/paged_attention.cu, built at first use."""
     fn = _build.load("paged_attention").k3_paged_decode_attention
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 13
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 15
                    + [ctypes.c_void_p])
     return fn
-
-
-def _num_splits(device, B, Hkv, rows, slots) -> int:
-    """Enough split CTAs for CTAS_PER_SM on every SM, never more splits than
-    tiles of a stream's logical space. Sized from shapes alone (no device
-    readback): splits past a stream's visible tiles exit at once."""
-    base = B * Hkv * -(-rows // ROWS_PER_CTA)
-    want = -(-CTAS_PER_SM * _sm_count(device) // base)
-    return max(1, min(want, -(-slots // BLOCK_K)))
 
 
 def _launch(q, pool_k, pool_v, table, q_pos, layer, window, k_scale,
@@ -133,20 +148,16 @@ def _launch(q, pool_k, pool_v, table, q_pos, layer, window, k_scale,
     if window is not None and int(window) <= 0:
         raise ValueError(f"window must be positive, got {window}")
     rows = (Hq // Hkv) * S
-    nsplit = _num_splits(q.device, B, Hkv, rows, maxp * page)
+    design, slices, nsplit, part_acc, part_ml = schedule(
+        q.device, q.dtype, B, Hkv, rows, d, maxp * page)
     out = torch.empty_like(q)
-    part_acc = torch.empty((nsplit, B * Hkv, rows, d), dtype=torch.float32,
-                           device=q.device)
-    part_ml = torch.empty((nsplit, B * Hkv, rows, 2), dtype=torch.float32,
-                          device=q.device)
     err = _kernel()(
-        q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-        k_scale.data_ptr() if quant else None,
-        v_scale.data_ptr() if quant else None, table.data_ptr(),
-        q_pos.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
-        part_ml.data_ptr(), B, Hkv, S, rows, d, P, page, maxp, int(layer),
-        int(window) if window is not None else 0, nsplit,
+        q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), ptr(k_scale),
+        ptr(v_scale), table.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
+        ptr(part_acc), ptr(part_ml), B, Hkv, S, rows, d, P, page, maxp,
+        int(layer), int(window) if window is not None else 0, nsplit,
         1 if q.dtype == torch.bfloat16 else 0, 1 if quant else 0,
+        DESIGNS.index(design), slices,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"k3_paged_decode_attention launch failed: CUDA "
