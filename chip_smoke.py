@@ -8,11 +8,13 @@ any failure raises and exits non-zero:
      versions;
   2. build every kernel under videollm_online_tpu_torch/csrc (one nvcc per
      source, all started together), and for each kernel of
-     flash_attention.cu, decode_attention.cu and paged_attention.cu print
-     its registers and spill bytes from nvcc's -Xptxas -v log and its
-     HGMMA (wgmma) and HMMA (mma.sync) instructions in the library's SASS
-     (cuobjdump; "not measured" without one), failing if a wgmma kernel or
-     a tensor-core decode kernel spills or has no such instruction;
+     flash_attention.cu, decode_attention.cu, paged_attention.cu and
+     fused_mlp.cu print its registers and spill bytes from nvcc's -Xptxas
+     -v log, its HGMMA (wgmma) and HMMA (mma.sync) instructions in the
+     library's SASS (cuobjdump; "not measured" without one) and ptxas's
+     wgmma notes, failing if a wgmma kernel (K2's three, K4's) or a
+     tensor-core decode kernel spills, has no such instruction or has its
+     wgmma serialized;
   3. K1 (ring decode attention) against its plain PyTorch version at the 8B
      shapes (bf16, window, int8 K/V, fp32; S 1 / 7 / 14 / 20 / 21 / 64, so
      rows that are not a multiple of 16, window edges inside a tile) and
@@ -48,8 +50,11 @@ any failure raises and exits non-zero:
      versions at the 8B shapes (D 4096, F 14336; head K 4096, N 128256) for
      1, 20, 91 and 128 rows and on small odd cases (groups below 128, column
      tails, unaligned byte rows, fp32 and bf16 x), the same input twice
-     giving equal bits, and each kernel's time at 1, 20 and 91 rows beside
-     the plain version's, the dequantizing route's and the bound;
+     giving equal bits, and each kernel's time at 1, 20, 91 and 128 rows
+     beside the plain version's, the dequantizing route's and the bound;
+     then one K4 call at 1, 20, 91 and 128 rows launch by launch on both of
+     its routes (the wgmma kernel, and the mma.sync family that unaligned
+     shapes take): each launch's device time and bytes moved;
  10. a small fp32 engine on mixed int4 weights twice, once through K4 and K5
      and once through their plain versions: transcripts equal, or equal up
      to a step that is shown to be a tie flip;
@@ -295,7 +300,8 @@ def _demangled(names):
 def _k2_kernel_report():
     """Per kernel of flash_attention.cu: registers and spill bytes, and the
     HGMMA instructions in the library's SASS ("not measured" without
-    cuobjdump); fails if a wgmma kernel spills or has no HGMMA."""
+    cuobjdump); fails if a wgmma kernel spills, has no HGMMA or has its
+    wgmma serialized."""
     raw, notes = _ptxas_report("flash_attention")
     hgmma = _sass_count("flash_attention", "HGMMA")
     report = {}
@@ -304,41 +310,48 @@ def _k2_kernel_report():
                       else hgmma.get(mangled, 0))
         report[_kernel_label(mangled)] = r
         log(f"  flash_attention.cu {_kernel_label(mangled)}: {r}")
+    if not notes:
+        log("  ptxas: no wgmma notes for flash_attention.cu (none serialized)")
     for mangled, note in notes:
         log(f"  ptxas note, {_kernel_label(mangled)}: {note}")
+        if "wgmma" in mangled and "serializ" in note.lower():
+            raise AssertionError(f"wgmma serialized in {_kernel_label(mangled)}")
     for name in ("k2_fwd_wgmma_kernel<64>", "k2_fwd_wgmma_kernel<128>",
-                 "k2_dkdv_wgmma_kernel<64>", "k2_dkdv_wgmma_kernel<128>"):
+                 "k2_dkdv_wgmma_kernel<64>", "k2_dkdv_wgmma_kernel<128>",
+                 "k2_dq_wgmma_kernel<64>", "k2_dq_wgmma_kernel<128>"):
         r = report[name]
         if r["spill bytes"] or (hgmma is not None and not r["HGMMA"]):
             raise AssertionError(f"{name}: {r} (want HGMMA and no spills)")
 
 
-def _decode_kernel_report(source):
-    """Per kernel of decode_attention.cu (K1) or paged_attention.cu (K3):
-    registers, spill bytes and tensor-core instructions (HGMMA for wgmma,
-    HMMA for mma.sync, in SASS; "not measured" without cuobjdump), and
-    ptxas's wgmma notes; fails if a tensor-core kernel (decode_tc_kernel)
-    spills, has neither, or has its wgmma serialized."""
+def _tc_kernel_report(source, mark, ops):
+    """Per kernel of csrc/<source>.cu: registers, spill bytes and the
+    tensor-core instructions ``ops`` (HGMMA for wgmma, HMMA for mma.sync)
+    in the library's SASS ("not measured" without cuobjdump), and ptxas's
+    wgmma notes; fails if a kernel whose mangled name matches the regular
+    expression ``mark`` (the tensor-core kernels checked) spills, has none
+    of ``ops``, or has its wgmma serialized."""
+    import re
     raw, notes = _ptxas_report(source)
-    counts = {op: _sass_count(source, op) for op in ("HGMMA", "HMMA")}
+    counts = {op: _sass_count(source, op) for op in ops}
     labels = _demangled(sorted(raw))
     for mangled in sorted(raw, key=labels.get):
         r = raw[mangled]
         for op, c in counts.items():
             r[op] = "not measured" if c is None else c.get(mangled, 0)
         log(f"  {source}.cu {labels[mangled]}: {r}")
-        measured = counts["HMMA"] is not None
-        if "decode_tc_kernel" in mangled and (
-                r["spill bytes"] or (measured and not r["HGMMA"] + r["HMMA"])):
-            raise AssertionError(f"{labels[mangled]}: {r} (want tensor-core "
-                                 f"instructions and no spills)")
+        measured = all(c is not None for c in counts.values())
+        if re.search(mark, mangled) and (
+                r["spill bytes"] or (measured and not sum(r[op] for op in ops))):
+            raise AssertionError(f"{labels[mangled]}: {r} (want {ops} and no "
+                                 f"spills)")
     note_labels = _demangled(sorted({n for n, _ in notes}))
     if not notes:
         log(f"  ptxas: no wgmma notes for {source}.cu (none serialized)")
     for mangled, note in notes:
         log(f"  ptxas note, {source}.cu {note_labels[mangled]}: {note}")
     serialized = [note_labels[n] for n, note in notes
-                  if "decode_tc_kernel" in n and "serializ" in note.lower()]
+                  if re.search(mark, n) and "serializ" in note.lower()]
     if serialized:
         raise AssertionError(f"wgmma serialized in {serialized}")
 
@@ -354,7 +367,12 @@ def phase_build():
         if name == "flash_attention":
             _k2_kernel_report()
         elif name in ("decode_attention", "paged_attention"):
-            _decode_kernel_report(name)
+            _tc_kernel_report(name, "decode_tc_kernel", ("HGMMA", "HMMA"))
+        elif name == "fused_mlp":
+            # K4's wgmma instances (N 8 to 128; N 1 and 4 run on the CUDA
+            # cores)
+            _tc_kernel_report(name, r"fused_mlp_q4c_kernelILi(8|16|32|64|128)E",
+                              ("HGMMA",))
         else:
             for line in _build.build_log(name).splitlines():
                 if "registers" in line or "spill" in line:
@@ -673,10 +691,10 @@ def _k2_timing(q, k, v, do, out, lse, delta, scale, kw):
                      "gflop": flops / 1e9,
                      "tflops": flops / t[name] / 1e9}
     # whole tiles: the pairs the tensor-core kernels compute, against the
-    # visible ones (the dQ kernel's 64 x 64 tiles are not counted)
+    # visible ones
     if fa.kernel_design(q.dtype, d) == "tensor cores":
         kv_len = S if kw["kv_valid"] is None else kw["kv_valid"]
-        for name in ("fwd", "dkdv"):
+        for name in ("fwd", "dkdv", "dq"):
             done = fa.computed_pairs(name, T, S, kw["q_offset"], True,
                                      kw["window"], kv_len)
             res[name]["computed_share"] = int(done.sum()) * B * Hq / pairs
@@ -1539,6 +1557,8 @@ def _fused_small_cases(gen):
         ("K4", 5, 48, 80, 16, torch.bfloat16),       # 40-byte rows
         ("K4", 70, 256, 512, 128, torch.bfloat16),
         ("K4", 128, 128, 384, 128, torch.float32),
+        ("K4", 12, 256, 512, 64, torch.bfloat16),    # wgmma N 16
+        ("K4", 40, 192, 320, 64, torch.float32),     # wgmma N 64
         ("K5", 1, 64, 512, 128, torch.float32),
         ("K5", 33, 128, 1000, 64, torch.bfloat16),   # 500-byte rows
         ("K5", 128, 256, 2048, 128, torch.bfloat16),
@@ -1571,7 +1591,7 @@ def _fused_small_cases(gen):
             for label in FUSED_KERNELS}
 
 
-def phase_fused(rows=(1, 20, 91, 128), timed_rows=(1, 20, 91)):
+def phase_fused(rows=(1, 20, 91, 128), timed_rows=(1, 20, 91, 128)):
     """K4, K5, K6, K7 against their plain versions at the 8B shapes and on
     small odd cases, and their device time per call (CUDA events around
     replays of a CUDA graph of the calls, so that no host launch cost is in
@@ -1598,7 +1618,8 @@ def phase_fused(rows=(1, 20, 91, 128), timed_rows=(1, 20, 91)):
                             "matmul" if label == "K5" else "mlp_bf16",
                             f"8B shapes, {B} rows")
             worst.append(r)
-            log(f"  {label} at the 8B shapes, {B} rows: {_readings(r)}")
+            log(f"  {label} at the 8B shapes, {B} rows: {_readings(r)} "
+                f"(two calls on one input give equal bits)")
             if B not in timed_rows:
                 continue
             t = {"ms": graph_ms(lambda i: kern(x, *per_layer[i % layers]),
@@ -1620,12 +1641,106 @@ def phase_fused(rows=(1, 20, 91, 128), timed_rows=(1, 20, 91)):
                 f"dequantizing route {t['dequant_route_ms']:.4f}, bound "
                 f"{t['bound_ms']:.4f} ({t['bound_by']}, {t['mbytes']:.1f} MB "
                 f"at {HBM_BYTES_PER_S / 1e12} TB/s): "
-                f"{t['ms'] / t['bound_ms']:.2f} x the bound")
+                f"{t['ms'] / t['bound_ms']:.2f} x the bound, "
+                f"{100 * t['bound_ms'] / t['ms']:.1f}% of it")
         out[label] = {**timing[timed_rows[0]],
                       "max_abs_err": max(small[label],
                                          _worst(worst)["max"])}
         del stacked, per_layer
         torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------------ K4's launches
+def _k4_route_bytes(route, B, D, F, mats, sms):
+    """The bytes each launch of one K4 call moves, each input read once and
+    each output written once, for the route's split counts: the gate/up
+    product, the SwiGLU merge, the down product, the down merge."""
+    from videollm_online_tpu_torch.ops import fused_mlp as fm
+    wg, sg, wu, su, wd, sd = mats
+    group_d, group_f = D // sg.shape[0], F // sd.shape[0]
+    if route == "wgmma":
+        s1 = fm.q4c_schedule(D, F // 2, B, 2, sms)[1]
+        s2 = fm.q4c_schedule(F, D // 2, B, 1, sms)[1]
+    else:
+        s1 = fm._split(D, group_d, F // 2, B, 2, sms)[0]
+        s2 = fm._split(F, group_f, D // 2, B, 1, sms)[0]
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    part1, part2 = 2 * s1 * B * F * 4, s2 * B * D * 4
+    return (s1, s2), [nbytes(wg, sg, wu, su) + B * D * 2 + part1,
+                      part1 + B * F * 2,
+                      nbytes(wd, sd) + B * F * 2 + part2,
+                      part2 + B * D * 4]
+
+
+def _kernel_sequence(fn, calls, per_call):
+    """The device kernels of fn's last `calls` calls under torch.profiler,
+    as (name, mean us) per launch of one call, fn launching `per_call`
+    kernels (the profiler can miss the first launches of its window, so two
+    more calls run first); None if it saw fewer."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls + 2):
+            fn()
+        torch.cuda.synchronize()
+    kernels = sorted((e.time_range.start, e.name, e.time_range.elapsed_us())
+                     for e in prof.events() if "CUDA" in str(e.device_type))
+    if len(kernels) < calls * per_call:
+        return None
+    kernels = kernels[-calls * per_call:]
+    return [(kernels[i][1], sum(kernels[c * per_call + i][2]
+                                for c in range(calls)) / calls)
+            for i in range(per_call)]
+
+
+def phase_k4_profile(rows=(1, 20, 91, 128)):
+    """One K4 call at the 8B shapes, launch by launch, on both of its
+    routes: the wgmma kernel (what the wrapper runs at these shapes) and
+    the mma.sync family it runs for unaligned shapes, called directly. Per
+    launch its device time under torch.profiler (mean of 6 calls on one
+    layer's weights) and the bytes it moves; per route the whole call by
+    CUDA-graph replay over 2 layers' weights."""
+    from videollm_online_tpu_torch.ops import fused_mlp as fm
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    D, F, layers = 4096, 14336, 2
+    stacked = _fused_mats("K4", D, F, 0, gen, layers)
+    per_layer = [[t[l] for pair in stacked for t in pair]
+                 for l in range(layers)]
+    sms = fm._sm_count(torch.device("cuda"))
+    routes = {"wgmma": fm.fused_mlp_int4c,
+              "mma.sync": lambda x, *m: fm._launch_mlp(fm.LAYOUT_Q4C, x, *m)}
+    out = {}
+    for B in rows:
+        x = torch.randn((B, D), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        for route, fn in routes.items():
+            ms = graph_ms(lambda i: fn(x, *per_layer[i % layers]), layers)
+            splits, moved = _k4_route_bytes(route, B, D, F, per_layer[0], sms)
+            # the two products, the two merges and the output's cast
+            seq = _kernel_sequence(lambda: fn(x, *per_layer[0]), 6, 5)
+            out[(route, B)] = ms
+            log(f"K4 {route} route, {B} rows (splits {splits}): "
+                f"{ms * 1e3:.1f} us a call by CUDA-graph replay")
+            if seq is None:
+                log("  launches: the profiler saw no device kernel (not "
+                    "measured)")
+                continue
+            named = [(n, us) for n, us in seq
+                     if "fused_mlp" in n or "swiglu" in n]
+            for (name, us), mb in zip(named, moved):
+                log(f"  {us:9.2f} us  {mb / 1e6:8.2f} MB  "
+                    f"{mb / us / 1e3:7.1f} GB/s  {name[:70]}")
+            for name, us in seq:
+                if (name, us) not in named:
+                    log(f"  {us:9.2f} us  (other)  {name[:70]}")
+    del stacked, per_layer
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2544,6 +2659,7 @@ PHASES = {"toolchain": phase_toolchain, "build": phase_build,
           "small_trainer": phase_small_trainer,
           "main_training": phase_main_training,
           "train_seeds": phase_train_seeds, "fused": phase_fused,
+          "k4_profile": phase_k4_profile,
           "small_int4_engine": phase_small_int4_engine,
           "main_path_int4": phase_main_path_int4,
           "ab_paths": phase_ab_paths, "k3": phase_k3,
@@ -2582,6 +2698,7 @@ def main(argv=None) -> int:
     phase_small_trainer()
     training = phase_main_training()
     fused = phase_fused()
+    phase_k4_profile()
     phase_small_int4_engine()
     int4_path = phase_main_path_int4()
     ab = phase_ab_paths()

@@ -272,6 +272,52 @@ def test_flash_kernels_raise_on_what_they_do_not_take(card):
                    lse.data_ptr(), *shape, is_bf16, design, stream) != 0
 
 
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("shape,kw", [
+    ((1, 8, 2, 1000, 1000), {}),
+    ((2, 4, 2, 256, 456), {"q_offset": 200}),
+    ((1, 4, 1, 512, 512), {"window": 100, "kv_valid": 400}),
+])
+def test_flash_dq_wgmma_matches_plain_on_card(card, d, shape, kw):
+    """The dQ kernel on wgmma (bf16, d 64 and 128) against its plain
+    version on the plain forward's lse: ragged T, a diagonal inside a tile
+    (q_offset 200), a window with kv_valid; chip_smoke.py's bf16 tolerance
+    (atol 2e-3, rtol 2e-2, relative norm 5e-3); two calls give equal
+    bits."""
+    B, Hq, Hkv, T, S = shape
+    rng = np.random.RandomState(T + d)
+    q, k, v, do = (torch.from_numpy(rng.randn(*s).astype(np.float32)).to(
+        torch.bfloat16).to(card) for s in ((B, Hq, T, d), (B, Hkv, S, d),
+                                           (B, Hkv, S, d), (B, Hq, T, d)))
+    scale = 1.0 / d ** 0.5
+    assert fa.kernel_design(q.dtype, d) == "tensor cores"
+    ref_out, ref_lse = fa.flash_attention_fwd_reference(q, k, v, scale, **kw)
+    delta = fa.softmax_delta(do, ref_out)
+    dq = fa.flash_dq(q, k, v, do, ref_lse, delta, scale, **kw)
+    assert torch.equal(dq, fa.flash_dq(q, k, v, do, ref_lse, delta, scale,
+                                       **kw))
+    want = fa.flash_bwd_plain(q, k, v, do, ref_lse, delta, scale, **kw)[0]
+    got, want = dq.float(), want.float()
+    torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-2)
+    assert float((got - want).norm() / want.norm()) <= 5e-3
+
+
+def test_flash_dq_library_refuses_other_designs_on_card(card):
+    """The dQ entry point refuses bf16 d 128 on FMA and fp32 on the tensor
+    cores, and launches nothing."""
+    q = torch.zeros((1, 4, 128, 128), dtype=torch.bfloat16, device=card)
+    k = torch.zeros((1, 2, 128, 128), dtype=torch.bfloat16, device=card)
+    rows = torch.zeros(q.shape[:3], device=card)
+    dq = torch.empty_like(q)
+    shape = (1, 4, 2, 128, 128, 128, 128, 0, 1, 0, 0.1)
+    stream = torch.cuda.current_stream(card).cuda_stream
+    for is_bf16, design in ((1, 0), (0, 1)):
+        assert fa._kernels()[2](q.data_ptr(), k.data_ptr(), k.data_ptr(),
+                                q.data_ptr(), rows.data_ptr(),
+                                rows.data_ptr(), dq.data_ptr(), *shape,
+                                is_bf16, design, stream) != 0
+
+
 def test_fp32_train_step_through_flash_matches_plain_on_card(card):
     """Two fp32 train steps (hd 64, T 256, so ops/auto.py sends attention
     to K2) give the plain attention's loss, grad norm and updated
@@ -370,6 +416,32 @@ def test_fused_mlp_kernels_match_plain_on_card(card, layout, D, F, group,
     assert got.dtype == x.dtype and got.shape == x.shape
     assert torch.equal(got, kern(x, *mats))
     _held(got, plain(x, *mats), "bf16" if dtype == "bfloat16" else "fp32")
+
+
+@pytest.mark.parametrize("group", [64, 128])
+@pytest.mark.parametrize("rows", [1, 3, 7, 17, 33, 91, 128])
+def test_fused_mlp_q4c_wgmma_matches_plain_on_card(card, rows, group):
+    """K4's wgmma kernel (D and F multiples of 32) against its plain
+    version at every N it instantiates (8, 16 .. 128 rows of x), groups of
+    64 and 128, byte columns that are not a multiple of the column tile
+    (F / 2 = 320 and D / 2 = 192 against tiles of 64 to 256), bf16 x of
+    unit scale, as a normed hidden state and as chip_smoke.py's 8B cases;
+    chip_smoke.py's bf16 tolerance; two calls give equal bits. (At 4 times
+    that scale h reaches about 170 at this D, where one bf16 ulp is 1: the
+    fp32 sums taken in another order than the plain version's flip an h
+    rounding now and then, which moves outputs by up to 0.06, past the
+    absolute tolerance.)"""
+    D, F = 384, 640
+    assert D % fm.Q4C_ALIGN == 0 and F % fm.Q4C_ALIGN == 0
+    mats, rng = _quantized("q4c", [(D, F), (D, F), (F, D)], group, card,
+                           rows + group)
+    x = torch.from_numpy(rng.randn(rows, D).astype(np.float32)).to(
+        torch.bfloat16).to(card)
+    before = fm.fused_mlp_int4c.launches
+    got = fm.fused_mlp_int4c(x, *mats)
+    assert fm.fused_mlp_int4c.launches == before + 1
+    assert torch.equal(got, fm.fused_mlp_int4c(x, *mats))
+    _held(got, fm.fused_mlp_int4c_reference(x, *mats), "bf16")
 
 
 @pytest.mark.parametrize("rows,K,N,group", [(1, 64, 512, 128),

@@ -151,8 +151,8 @@ def test_route_follows_the_jax_dispatch_rule(T, S, d, int8, want):
     (torch.float32, 256, "fma"),
 ])
 def test_kernel_design_by_dtype_and_head_size(dtype, d, want):
-    """bf16 with d <= 128 runs on the tensor cores (wgmma for the forward
-    and dK/dV, mma.sync for dQ); fp32 and bf16 d = 256 on FMA. The code
+    """bf16 with d <= 128 runs on the tensor cores (wgmma for the forward,
+    dK/dV and dQ); fp32 and bf16 d = 256 on FMA. The code
     passed to the library is the design's index in DESIGNS."""
     assert fa.kernel_design(dtype, d) == want
     assert fa.DESIGNS.index(want) == (1 if want == "tensor cores" else 0)
@@ -173,14 +173,15 @@ SCHEDULE_CASES = [
 ]
 
 
-@pytest.mark.parametrize("kernel", ["fwd", "dkdv"])
+@pytest.mark.parametrize("kernel", ["fwd", "dkdv", "dq"])
 @pytest.mark.parametrize("case", SCHEDULE_CASES)
 def test_schedule_computes_every_visible_pair_and_no_dead_block(kernel,
                                                                 case):
     """The tensor-core kernels' schedule (the tile ranges each CTA walks,
-    the blocks each dK/dV consumer skips) computes every visible (row,
-    col) pair, and every block it computes holds a visible pair: a
-    forward CTA's 128 x 128 tile, a dK/dV consumer's 64 x 64 block."""
+    the blocks each dK/dV or dQ consumer skips) computes every visible
+    (row, col) pair, and every block it computes holds a visible pair: a
+    forward CTA's 128 x 128 tile, a dK/dV or dQ consumer's 64 x 64
+    block."""
     T, S, off, window, kv_len = case
     done = fa.computed_pairs(kernel, T, S, off, True, window, kv_len)
     vis = fa.visible_mask(T, S, off, True, window, kv_len, "cpu")
@@ -194,17 +195,21 @@ def test_schedule_computes_every_visible_pair_and_no_dead_block(kernel,
 
 @pytest.mark.parametrize("case", SCHEDULE_CASES)
 def test_tile_ranges_are_the_tiles_with_a_visible_pair(case):
-    """kv_tile_range (per 128-row q tile) and q_tile_range (per 128-row k
+    """kv_tile_range (per 128-row q tile, against kv tiles of 128 for the
+    forward and of 64 for dQ) and q_tile_range (per 128-row k
     tile, 64-row q tiles) return exactly the tiles that hold a visible
     pair; an empty range where none does."""
     T, S, off, window, kv_len = case
     vis = fa.visible_mask(T, S, off, True, window, kv_len, "cpu")
-    (fbm, fbn), (dbm, dbn) = fa.FWD_TILE, fa.DKDV_TILE
-    for q0 in range(0, T, fbm):
-        want = [c // fbn for c in range(0, S, fbn)
-                if bool(vis[q0:q0 + fbm, c:c + fbn].any())]
-        first, last = fa.kv_tile_range(q0, T, kv_len, off, True, window)
-        assert list(range(first, last + 1)) == want, q0
+    dbm, dbn = fa.DKDV_TILE
+    for tile in (fa.FWD_TILE, fa.DQ_TILE):
+        fbm, fbn = tile
+        for q0 in range(0, T, fbm):
+            want = [c // fbn for c in range(0, S, fbn)
+                    if bool(vis[q0:q0 + fbm, c:c + fbn].any())]
+            first, last = fa.kv_tile_range(q0, T, kv_len, off, True, window,
+                                           tile)
+            assert list(range(first, last + 1)) == want, (tile, q0)
     for k0 in range(0, S, dbn):
         want = [r // dbm for r in range(0, T, dbm)
                 if bool(vis[r:r + dbm, k0:k0 + dbn].any())]

@@ -381,6 +381,62 @@ def test_cuda_only_wrapper_takes_plain_version_only_for_cpu_tensors():
     assert fused_mlp.fused_mlp_int4c.launches == before
 
 
+# K4's wgmma kernel: (D, F) of the 8B model and of the odd cases chip_smoke.py
+# holds on the card, and the rows the main paths send
+Q4C_SHAPES = [(4096, 14336), (64, 128), (192, 320), (256, 512), (128, 384),
+              (48, 80)]
+Q4C_ROWS = [1, 3, 7, 17, 20, 33, 91, 128]
+
+
+def _intervals(spans, end):
+    """The distinct (start, stop) spans, checked to chain from 0 to end."""
+    spans = sorted(set(spans))
+    assert [a for a, _ in spans] == [0] + [b for _, b in spans[:-1]]
+    assert spans[-1][1] == end and all(a < b for a, b in spans)
+    return spans
+
+
+@pytest.mark.parametrize("D,F", Q4C_SHAPES)
+@pytest.mark.parametrize("B", Q4C_ROWS)
+def test_q4c_work_units_cover_every_byte_column_and_row_once(D, F, B):
+    """K4's work decomposition (q4c_units, the order the CUDA kernel walks)
+    covers every (matrix, byte column, reduction row) of each product
+    exactly once: per matrix the units are the product of a partition of
+    the byte columns and one of the reduction rows, with no unit twice;
+    splits start on KT rows, and no CTA is idle, on 132 SMs and on 5."""
+    for sms in (132, 5):
+        for rows, cols, mats in ((D, F // 2, 2), (F, D // 2, 1)):
+            bc, splits, per, grid = fused_mlp.q4c_schedule(rows, cols, B,
+                                                           mats, sms)
+            assert per % fused_mlp.KT == 0 and splits * per >= rows
+            work = fused_mlp.q4c_units(rows, cols, B, mats, sms)
+            assert len(work) == grid <= sms and all(work)
+            units = [u for cta in work for u in cta]
+            assert len(set(units)) == len(units)
+            for mat in range(mats):
+                mine = [u for u in units if u[0] == mat]
+                col_spans = _intervals([(c0, c1) for _, c0, c1, _, _ in mine],
+                                       cols)
+                row_spans = _intervals([(r0, r1) for _, _, _, r0, r1 in mine],
+                                       rows)
+                assert all(r0 % fused_mlp.KT == 0 for r0, _ in row_spans)
+                assert all(c1 - c0 <= bc for c0, c1 in col_spans)
+                assert len(mine) == len(col_spans) * len(row_spans)
+            assert {u[0] for u in units} == set(range(mats))
+
+
+def test_q4c_rows_and_tiles():
+    """N, the rows of x a wgmma product of K4 serves, is B rounded up to
+    8, 16, 32, 64 or 128; a tile's byte columns shrink as N grows, so the
+    accumulators stay at MT * N = 128 a thread or fewer."""
+    assert [fused_mlp.q4c_rows(b)
+            for b in (1, 2, 4, 5, 8, 9, 20, 33, 64, 91, 128)] \
+        == [8, 8, 8, 8, 8, 16, 32, 64, 64, 128, 128]
+    for b in (1, 20, 33, 91):
+        mt = fused_mlp.q4c_tile(b) // 64
+        assert mt * fused_mlp.q4c_rows(b) <= 128 and mt in (1, 2, 4)
+
+
 # ------------------------------------------------------- the slice as a whole
 @pytest.fixture(scope="module")
 def int4_pair():

@@ -712,7 +712,7 @@ __global__ void __launch_bounds__(Cfg<KT, D, WS>::THREADS, Cfg<KT, D, WS>::MIN_C
       const uint64_t kd = desc(reinterpret_cast<const bf16*>(tk), 16, 1024);
       wg_fence();
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk) Wgmma<64>::rs_k(sc, qa[kk], kd, kstep(kk, BK));
+      for (int kk = 0; kk < KS; ++kk) WgmmaRK<64>::run(sc, qa[kk], kd, kstep(kk, BK), 1);
       wg_commit();
       wg_wait<0>();
       pin(sc);

@@ -37,21 +37,19 @@
 // and not HBM are the limit, and attention does thousands. So each design
 // is about keeping the tensor cores fed.
 //
-// Three designs, picked by the caller for (dtype, d):
-//  * bf16, d in {64, 128}, forward and dK/dV (the training path): wgmma
-//    on tiles that TMA loads ahead through a ring of mbarrier-guarded slots
-//    (hop:: below). Only wgmma reaches Hopper's tensor-core rate; TMA moves
-//    a tile with one thread and no registers, and the ring keeps the next
-//    tiles' loads in flight behind the current tile's products. The
-//    128-byte swizzle serves both operand majors, so no tile is transposed
-//    in memory. Logits are prescaled by scale * log2(e) for exp2. Tiles
-//    fully inside the visible region skip the mask; the dK/dV kernel skips
+// Two designs, picked by the caller for (dtype, d):
+//  * bf16, d in {64, 128} (the training path): forward, dK/dV and dQ on
+//    wgmma over tiles that TMA loads ahead through a ring of mbarrier-
+//    guarded slots (hop:: below; the barrier and copy helpers live in
+//    tma.cuh). Only wgmma reaches Hopper's tensor-core rate; TMA moves a
+//    tile with one thread and no registers, and the ring keeps the next
+//    tiles' loads in flight behind the current tile's products. The 128-byte
+//    swizzle serves both operand majors, so no tile is transposed in
+//    memory: dQ's product reads K MN-major from the tile S was computed
+//    from. Logits are prescaled by scale * log2(e) for exp2. Tiles fully
+//    inside the visible region skip the mask; the dK/dV and dQ kernels skip
 //    a block with no visible pair. CTAs run longest first over the whole
 //    grid, so the causal tail is short.
-//  * bf16, d in {64, 128}, dQ: mma.sync m16n8k16 (bf16 in, fp32 accumulate),
-//    4 warps, 64 x 64 tiles staged synchronously, each warp owning 16 rows;
-//    dS goes from the accumulators to the next product's A operand in
-//    registers.
 //  * fp32 (which bf16 tensor cores cannot hold to fp32 accuracy) and bf16
 //    with d = 256 (whose accumulators do not fit those registers): the CUDA
 //    cores with fp32 FMA: 256 threads as 16 x 16, tiles N x N with N = 64
@@ -59,8 +57,6 @@
 //    each thread holding (N/16) x (N/16) of S and (N/16) rows x (d/16)
 //    columns of each accumulator.
 
-#include <cuda.h>  // CUtensorMap and its enums; the library links no libcuda
-#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -69,7 +65,8 @@
 
 #include <type_traits>
 
-#include "mma_sync.cuh"  // bf16, mma16816 and its fragment helpers
+#include "mma_sync.cuh"  // bf16, quad reductions, pack_bf16
+#include "tma.cuh"       // mbarriers, TMA copies, the tensor-map encoder
 #include "wgmma.cuh"     // wgmma, its descriptors and the 128-byte swizzle
 
 namespace {
@@ -478,143 +475,16 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 // ---------------------------------------------------------------------------
-// bf16, d <= 128: the same three kernels on the tensor cores (mma.sync
-// m16n8k16, bf16 in, fp32 accumulate). 4 warps; a tile is 64 x 64; each
-// warp owns 16 rows of its tile (q rows for the forward and dQ, k rows for
-// dK/dV). Tiles are staged in shared memory as bf16 with a row stride of
-// d + 8 (64 + 8 for the transposed copies), so the 8 rows x 4 lanes of a
-// fragment load fall on 32 different banks. S and dP stay in the mma
-// accumulators; P and dS are rounded to bf16 and repacked in registers as
-// the A operand of the next product (the C layout of two n-tiles is the A
-// layout of one k-step), so they never touch shared memory. The mma and
-// fragment helpers live in mma_sync.cuh, shared with K1 and K3.
-
-constexpr int MMA_THREADS = 128;
-constexpr int MN = 64;            // tile rows and columns
-constexpr int NT = MN / 8;        // n-tiles over a tile's 64 columns
-constexpr int LTT = MN + 8;       // row stride of a transposed (d x 64) tile
-
-// Rows [row0, row0 + 64) of a (rows, D) bf16 slab into shared memory:
-// row-major with row stride D + 8 into dst and/or transposed with row
-// stride 64 + 8 into dstT (either may be null); rows past the slab are
-// zero. Each thread moves 16 bytes; consecutive threads take consecutive
-// rows, so the transposed 2-byte stores do not collide on a bank.
-template <int D>
-__device__ __forceinline__ void stage_bf16(bf16* dst, bf16* dstT, const bf16* __restrict__ src,
-                                           int row0, int rows) {
-  for (int idx = threadIdx.x; idx < MN * (D / 8); idx += MMA_THREADS) {
-    const int r = idx % MN, c = (idx / MN) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < rows)
-      v = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(row0 + r) * D + c);
-    if (dst != nullptr) *reinterpret_cast<uint4*>(dst + r * (D + 8) + c) = v;
-    if (dstT != nullptr) {
-      const bf16* e = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) dstT[(c + i) * LTT + r] = e[i];
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
-    k2_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     bf16* __restrict__ dq, Shape s) {
-  constexpr int LS = D + 8, DT = D / 8, KS = D / 16;
-  extern __shared__ __align__(16) unsigned char k2_smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(k2_smem);
-  bf16* dOs = Qs + MN * LS;
-  bf16* Ks = dOs + MN * LS;
-  bf16* Vs = Ks + MN * LS;
-  bf16* Kt = Vs + MN * LS;  // D x LTT
-
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int wr = (threadIdx.x / 32) * 16;
-  const int q0 = ((s.T + MN - 1) / MN - 1 - static_cast<int>(blockIdx.x)) * MN;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const size_t qrow = (static_cast<size_t>(b) * s.Hq + h) * s.T;
-  const size_t krow = (static_cast<size_t>(b) * s.Hkv + h / (s.Hq / s.Hkv)) * s.S;
-  const int r0 = q0 + wr + g;
-
-  stage_bf16<D>(Qs, nullptr, q + qrow * D, q0, s.T);
-  stage_bf16<D>(dOs, nullptr, dout + qrow * D, q0, s.T);
-  float L[2], Dl[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r0 + 8 * r;
-    L[r] = row < s.T ? lse[qrow + row] : 0.f;
-    Dl[r] = row < s.T ? delta[qrow + row] : 0.f;
-  }
-
-  float acc[DT][4];
-#pragma unroll
-  for (int n = 0; n < DT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  int first, last;
-  kv_tile_range(s, q0, MN, MN, first, last);
-  for (int kt = first; kt <= last; ++kt) {
-    const int k0 = kt * MN;
-    __syncthreads();  // the last tile's K/V reads are done
-    stage_bf16<D>(Ks, Kt, k + krow * D, k0, s.S);
-    stage_bf16<D>(Vs, nullptr, v + krow * D, k0, s.S);
-    __syncthreads();
-
-    float sc[NT][4], dp[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      uint32_t a[4];
-      load_a(a, Qs, LS, wr, kk * 16, g, t);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) mma_rows(sc[j], a, Ks, LS, j * 8, kk * 16, g, t);
-      load_a(a, dOs, LS, wr, kk * 16, g, t);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) mma_rows(dp[j], a, Vs, LS, j * 8, kk * 16, g, t);
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = visible(s, frag_row(r0, e), frag_col(k0, j, t, e))
-                            ? expf(sc[j][e] * s.scale - L[e >> 1])
-                            : 0.f;
-        sc[j][e] = p * (dp[j][e] - Dl[e >> 1]) * s.scale;  // dS
-      }
-#pragma unroll
-    for (int kk = 0; kk < MN / 16; ++kk) {
-      uint32_t da[4];
-      c_to_a(da, sc[2 * kk], sc[2 * kk + 1]);  // dS rounded to bf16
-#pragma unroll
-      for (int n = 0; n < DT; ++n) mma_rows(acc[n], da, Kt, LTT, n * 8, kk * 16, g, t);
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r0 + 8 * r;
-    if (row >= s.T) continue;
-#pragma unroll
-    for (int n = 0; n < DT; ++n)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) store(dq + (qrow + row) * D + n * 8 + 2 * t + e, acc[n][2 * r + e]);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// bf16, d in {64, 128}: the forward (K2f) and dK/dV (K2b) kernels for Hopper.
+// bf16, d in {64, 128}: the forward (K2f), dK/dV (K2b) and dQ (K2q) kernels
+// for Hopper.
 // Each CTA has two consumer warpgroups of 64 rows that run wgmma on tiles
 // which TMA loads ahead of them into a ring of STAGES slots in shared
 // memory: an mbarrier per slot that the copy fills, one that the consumers'
 // 8 warps empty. One thread issues every load. In K2f it is the one thread
 // of a producer warpgroup (warp specialisation; setmaxnreg hands the
 // producer's registers to the consumers, whose code fits in the 168 that 12
-// warps leave). K2b's consumers need more (dK and dV alone hold 128 fp32 a
-// thread): ptxas allocated them 168 with any ninth warp, setmaxnreg or not,
+// warps leave); K2q is built the same way. K2b's consumers need more (dK
+// and dV alone hold 128 fp32 a thread): ptxas allocated them 168 with any ninth warp, setmaxnreg or not,
 // spilled and serialized the wgmma, so K2b runs 8 warps (255 registers) and
 // its thread 0 refills a slot at the start of the item after the slot's last
 // one, once its own warp has released it. Every tile is loaded by TMA with
@@ -622,8 +492,8 @@ __global__ void __launch_bounds__(MMA_THREADS)
 // rows; each map views its tensor as (d, rows, B * heads), so a box past a
 // head's last row reads TMA's zero fill, never the next head's rows. wgmma
 // reads the panels through descriptors: K-major where d is the reduction
-// (Q K^T, K Q^T, V dO^T) and MN-major where the rows are (P V, P^T dO,
-// dS^T Q), so no operand is ever transposed in memory. P and dS go from the
+// (Q K^T, K Q^T, V dO^T, dO V^T) and MN-major where the rows are (P V,
+// P^T dO, dS^T Q, dS K), so no operand is ever transposed in memory. P and dS go from the
 // fp32 accumulators to bf16 A fragments in registers (the accumulator
 // layout of two 8-column groups is the A layout of one 16-deep step).
 
@@ -634,55 +504,6 @@ constexpr int STAGES = 2;              // slots in the load ring
 constexpr int CONSUMER_WARPS = 8;      // arrivals that empty a slot
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Waits until the phase of the given parity has completed. A wait that
-// outlasts any real load (2^32 polls) traps, so a lost arrival fails the
-// launch instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_u32(bar);
-  uint32_t done, polls = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-    if (++polls == 0) __trap();
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
-                                       int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_1d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0) {
-  asm volatile(
-      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0)
-      : "memory");
-}
 
 // Rows [row0, row0 + rows) of head bh, all D columns, as D / 64 swizzled
 // panels of rows x 64 at dst.
@@ -713,10 +534,6 @@ __device__ __forceinline__ int block_visibility(const Shape& s, int r0, int nr, 
   const bool all = c_hi < s.kv_len && r0 + nr <= s.T && (!s.causal || c_hi <= p_lo) &&
                    (s.window <= 0 || c0 > p_hi - s.window);
   return all ? 2 : 1;
-}
-
-__device__ __forceinline__ unsigned char* align_1024(unsigned char* p) {
-  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
 }
 
 // K2f: one CTA per (q tile of 128 rows, q head, b), q tiles longest first
@@ -809,7 +626,7 @@ __global__ void __launch_bounds__(Fwd<D>::THREADS, 1)
       mbar_init(&k_empty[i], CONSUMER_WARPS);
       mbar_init(&v_empty[i], CONSUMER_WARPS);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -952,7 +769,7 @@ __global__ void __launch_bounds__(Dkdv<D>::THREADS, 1)
       mbar_init(&full[i], 1);
       mbar_init(&empty[i], CONSUMER_WARPS);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -1077,52 +894,183 @@ __global__ void __launch_bounds__(Dkdv<D>::THREADS, 1)
   }
 }
 
-// Encodes TMA maps through the driver's cuTensorMapEncodeTiled, found at
-// run time with cudaGetDriverEntryPoint so the library links no libcuda.
-PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+// K2q: one CTA per (q tile of 128 rows, q head, b), q tiles longest first
+// over the whole grid, as K2f orders them; a producer warpgroup loads Q and
+// dO once and streams K and V in tiles of 64 rows through the ring; each
+// consumer owns 64 q rows, reads their lse and delta once, and per kv tile
+// runs S = Q K^T and dP = dO V^T (K-major operands), P = exp2(S * scale *
+// log2e - lse * log2e) (masked only on a block that is not all visible; a
+// block with no visible pair is skipped), dS = P (dP - delta) scale packed
+// from the accumulators into bf16 A fragments, and dQ += dS K with K read
+// MN-major from the same swizzled tile through a second descriptor (as K2f
+// reads V), so no transposed copy exists. Kv tiles of 64 rows keep S, dP and
+// dQ (32 + 32 + 64 fp32 at d 128) inside the 168 registers that 12 warps
+// leave. (Running each tile's dQ product under the next tile's S and dP
+// spilled there, and on 8 warps with thread 0 loading it measured slower.)
+// dQ is written once in bf16: no atomics, equal bits on every run.
+template <int D>
+struct Dq {
+  static constexpr int THREADS = 3 * WG;  // the producer warpgroup, then two consumers
+  static constexpr int BM = 128, BN = 64, STAGES = 3;
+  static constexpr int Q_BYTES = BM * D * 2, KV_BYTES = BN * D * 2;
+  static constexpr int DO_OFF = Q_BYTES, RING_OFF = 2 * Q_BYTES;  // a slot: K, then V
+  static constexpr int BAR_OFF = RING_OFF + STAGES * 2 * KV_BYTES;
+  static constexpr int SMEM = BAR_OFF + (1 + 2 * STAGES) * 8 + 1024;  // + alignment slack
+};
+
+template <int D>
+__global__ void __launch_bounds__(Dq<D>::THREADS, 1)
+    k2_dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap,
+                       const __grid_constant__ CUtensorMap domap, const float* __restrict__ lse,
+                       const float* __restrict__ delta, bf16* __restrict__ dq, Shape s) {
+  using L = Dq<D>;
+  extern __shared__ unsigned char k2_raw[];
+  unsigned char* base = align_1024(k2_raw);
+  bf16* Qs = reinterpret_cast<bf16*>(base);
+  bf16* dOs = reinterpret_cast<bf16*>(base + L::DO_OFF);
+  bf16* ring = reinterpret_cast<bf16*>(base + L::RING_OFF);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(base + L::BAR_OFF);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + L::STAGES;
+
+  const int heads = s.B * s.Hq;
+  const int hb = blockIdx.x % heads;
+  const int h = hb % s.Hq, b = hb / s.Hq;
+  const int q0 = ((s.T + L::BM - 1) / L::BM - 1 - static_cast<int>(blockIdx.x) / heads) * L::BM;
+  int first, last;
+  kv_tile_range(s, q0, L::BM, L::BN, first, last);
+  const int n = last - first + 1;  // kv tiles in the loop
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int i = 0; i < L::STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], CONSUMER_WARPS);
+    }
+    mbar_fence_init();
   }
-  return fn;
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / WG, 0);
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      const int kvh = b * s.Hkv + h / (s.Hq / s.Hkv);
+      mbar_expect_tx(q_full, 2 * L::Q_BYTES);
+      tma_tile<D>(Qs, &qmap, q_full, L::BM, q0, hb);
+      tma_tile<D>(dOs, &domap, q_full, L::BM, q0, hb);
+      for (int i = 0; i < n; ++i) {
+        const int st = i % L::STAGES, k0 = (first + i) * L::BN;
+        bf16* ks = ring + st * 2 * L::BN * D;
+        mbar_wait(&empty[st], ((i / L::STAGES) & 1) ^ 1);  // the slot's last use released
+        mbar_expect_tx(&full[st], 2 * L::KV_BYTES);
+        tma_tile<D>(ks, &kmap, &full[st], L::BN, k0, kvh);
+        tma_tile<D>(ks + L::BN * D, &vmap, &full[st], L::BN, k0, kvh);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int cw = wg - 1, tid = threadIdx.x % WG, lane = tid % 32, g = lane / 4, t = lane % 4;
+    const int qw0 = q0 + cw * 64;              // this consumer's first q row
+    const int r0 = qw0 + (tid / 32) * 16 + g;  // this thread's rows: r0 and r0 + 8
+    const float sl2 = s.scale * LOG2E;         // logits in log2 units
+    const size_t qrow = static_cast<size_t>(hb) * s.T;
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 8 * r;
+      lse2[r] = row < s.T ? lse[qrow + row] * LOG2E : 0.f;
+      dl[r] = row < s.T ? delta[qrow + row] : 0.f;
+    }
+    const uint64_t qd = desc(Qs + cw * 64 * PANEL, 16, 1024);
+    const uint64_t dod = desc(dOs + cw * 64 * PANEL, 16, 1024);
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    mbar_wait(q_full, 0);
+    for (int i = 0; i < n; ++i) {
+      const int st = i % L::STAGES, k0 = (first + i) * L::BN;
+      const bf16* ks = ring + st * 2 * L::BN * D;
+      const bf16* vs = ks + L::BN * D;
+      const int vis = block_visibility(s, qw0, 64, k0, L::BN);
+      mbar_wait(&full[st], (i / L::STAGES) & 1);
+      if (vis != 0) {
+        float sc[32], dp[32];  // S and dP: 64 q rows x 64 kv columns
+        const uint64_t kd = desc(ks, 16, 1024), vd = desc(vs, 16, 1024);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          Wgmma<64>::ss(sc, qd, kstep(kk, L::BM), kd, kstep(kk, L::BN), kk);
+        wg_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          Wgmma<64>::ss(dp, dod, kstep(kk, L::BM), vd, kstep(kk, L::BN), kk);
+        wg_commit();
+        wg_wait<1>();  // S is in; P is computed while dP runs
+        pin(sc);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool on =
+                vis == 2 || visible(s, r0 + (e >> 1) * 8, k0 + j * 8 + 2 * t + (e & 1));
+            sc[j * 4 + e] = on ? exp2f(fmaf(sc[j * 4 + e], sl2, -lse2[e >> 1])) : 0.f;
+          }
+        wg_wait<0>();
+        pin(dp);
+        uint32_t da[4][4];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)  // dS
+            dp[j * 4 + e] = sc[j * 4 + e] * (dp[j * 4 + e] - dl[e >> 1]) * s.scale;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) pack_a(da[kk], dp + 8 * kk);  // dS rounded to bf16
+        const uint64_t km = desc(ks, L::BN * PANEL * 2, 1024);  // K, MN-major
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) Wgmma<D>::rs(acc, da[kk], km, mnstep(kk));
+        wg_commit();
+        wg_wait<0>();
+        pin(acc);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);  // K and V are read: the slot may refill
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 8 * r;
+      if (row >= s.T) continue;
+      bf16* dst = dq + (qrow + row) * D + 2 * t;
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c)
+        *reinterpret_cast<__nv_bfloat162*>(dst + c * 8) =
+            __floats2bfloat162_rn(acc[4 * c + 2 * r], acc[4 * c + 2 * r + 1]);
+    }
+  }
 }
 
 // A (d, rows, heads) bf16 view of a contiguous (heads, rows, d) tensor,
 // boxes of 64 columns x box_rows rows of one head, 128-byte swizzle.
 int map_rows(CUtensorMap* m, const void* ptr, int d, int rows, int heads, int box_rows) {
-  const auto fn = encode_tiled();
-  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(heads)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
                                  static_cast<cuuint64_t>(rows) * d * 2};
   const cuuint32_t box[3] = {PANEL, static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
-             ? 0
-             : static_cast<int>(cudaErrorInvalidValue);
+  return encode_map(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, ptr, dims, strides, box,
+                    CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B);
 }
 
 // A flat fp32 view of n values, boxes of 64; past n reads zeros.
 int map_flat(CUtensorMap* m, const void* ptr, size_t n) {
-  const auto fn = encode_tiled();
-  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
   const cuuint64_t dims[1] = {static_cast<cuuint64_t>(n)};
   const cuuint64_t strides[1] = {0};
   const cuuint32_t box[1] = {64};
-  const cuuint32_t elem[1] = {1};
-  return fn(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<void*>(ptr), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-            CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
-             ? 0
-             : static_cast<int>(cudaErrorInvalidValue);
+  return encode_map(m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, ptr, dims, strides, box,
+                    CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE);
 }
 
 }  // namespace hop
@@ -1170,9 +1118,26 @@ int launch_dkdv_wgmma(const void* q, const void* k, const void* v, const void* d
 }
 
 template <int D>
-constexpr size_t dq_mma_smem() {
-  return (4 * MN * (D + 8) + D * LTT) * sizeof(bf16);
+int launch_dq_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                    const void* lse, const void* delta, void* dq, Shape s, cudaStream_t st) {
+  using L = hop::Dq<D>;
+  CUtensorMap qm, km, vm, dom;
+  int e;
+  if ((e = hop::map_rows(&qm, q, D, s.T, s.B * s.Hq, L::BM)) ||
+      (e = hop::map_rows(&dom, dout, D, s.T, s.B * s.Hq, L::BM)) ||
+      (e = hop::map_rows(&km, k, D, s.S, s.B * s.Hkv, L::BN)) ||
+      (e = hop::map_rows(&vm, v, D, s.S, s.B * s.Hkv, L::BN)))
+    return e;
+  cudaError_t err = cudaFuncSetAttribute(hop::k2_dq_wgmma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+  if (err != cudaSuccess) return err;
+  const int grid = (s.T + L::BM - 1) / L::BM * s.Hq * s.B;
+  hop::k2_dq_wgmma_kernel<D><<<grid, L::THREADS, L::SMEM, st>>>(
+      qm, km, vm, dom, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dq), s);
+  return cudaGetLastError();
 }
+
 template <int D>
 constexpr size_t fwd_smem() {
   return (3 * Tile<D>::N * Tile<D>::LD + Tile<D>::N * Tile<D>::LP) * sizeof(float);
@@ -1232,21 +1197,6 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
   return cudaGetLastError();
 }
 
-template <int D>
-int launch_dq_mma(const void* q, const void* k, const void* v, const void* dout,
-                  const void* lse, const void* delta, void* dq, Shape s, cudaStream_t st) {
-  constexpr size_t smem = dq_mma_smem<D>();
-  cudaError_t e = cudaFuncSetAttribute(k2_dq_mma_kernel<D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((s.T + MN - 1) / MN, s.Hq, s.B);
-  k2_dq_mma_kernel<D><<<grid, MMA_THREADS, smem, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dq), s);
-  return cudaGetLastError();
-}
-
 Shape make_shape(int B, int Hq, int Hkv, int T, int S, int kv_len, int q_offset, int causal,
                  int window, float scale) {
   return Shape{B, Hq, Hkv, T, S, kv_len, q_offset, causal, window, scale};
@@ -1255,8 +1205,8 @@ Shape make_shape(int B, int Hq, int Hkv, int T, int S, int kv_len, int q_offset,
 }  // namespace
 
 // Runs the kernel of the design the caller names for (dtype, d). design 1,
-// the tensor cores, takes bf16 with d in {64, 128}: K2f and K2b on wgmma
-// with TMA (hop::), K2q on mma.sync. design 0, FMA, takes fp32 (which the
+// the tensor cores, takes bf16 with d in {64, 128}: K2f, K2b and K2q on
+// wgmma with TMA (hop::). design 0, FMA, takes fp32 (which the
 // bf16 tensor cores cannot hold to fp32 accuracy) with d in {64, 128, 256}
 // and bf16 with d = 256 (whose accumulators do not fit the tensor-core
 // kernels' registers). Any other combination is refused.
@@ -1299,5 +1249,5 @@ extern "C" int k2_flash_dq(const void* q, const void* k, const void* v, const vo
                            int T, int S, int d, int kv_len, int q_offset, int causal,
                            int window, float scale, int is_bf16, int design, void* stream) {
   const Shape s = make_shape(B, Hq, Hkv, T, S, kv_len, q_offset, causal, window, scale);
-  K2_DISPATCH(launch_dq_mma, launch_dq, q, k, v, dout, lse, delta, dq, s, static_cast<cudaStream_t>(stream));
+  K2_DISPATCH(launch_dq_wgmma, launch_dq, q, k, v, dout, lse, delta, dq, s, static_cast<cudaStream_t>(stream));
 }

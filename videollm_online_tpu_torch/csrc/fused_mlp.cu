@@ -20,38 +20,52 @@
 // Every byte value is decoded right: lo = (byte & 15) - 8 and hi = byte >> 4
 // (arithmetic) for q4c, two sign-extended nibbles for q4p.
 //
-// Bound. At 1 to 128 rows the products do at most 2 * 128 operations per
-// weight byte, below the card's ~295 per byte, so the kernels are bound by
-// the bytes of the weights, each read once: 94 MB for an 8B layer's MLP in
-// int4, 279 MB for the head.
+// Bound. A product of B rows does 2 * B operations per int4 weight and
+// int4 packs two weights a byte, so 4 * B operations per weight byte (2 * B
+// for int8). The card needs ~295 bf16 operations a byte before the tensor
+// cores and not HBM are the limit: int4 is bound by the bytes of the
+// weights, each read once (94 MB for an 8B layer's MLP, 279 MB for the
+// head), up to about 74 rows and by operations above (the 91-row chunk
+// ingest and 128-row prompts); int8 is bound by bytes up to 128 rows.
 //
-// Design. One family: qgemm_partial_kernel computes x @ W for one tile of
-// byte columns and one range of reduction rows, with the layout as a
-// template parameter that says how a byte becomes values. The TPU kernels
-// walk the MLP's inner dimension F on a sequential grid axis and carry the
-// (B, D) sum in VMEM. Here the MLP is two launches with h kept as a (B, F)
-// bf16 workspace between them (h is rounded to bf16 anyway, so nothing is
-// lost), and each product's reduction rows are cut across CTAs so that the
-// card's 132 SMs all stream weights: every CTA writes its fp32 partial
-// result to a workspace and a small merge kernel adds the splits in a fixed
-// order (no floating-point atomics: the sum's order never changes from run
-// to run) and applies the epilogue (SwiGLU to bf16, or the plain sum).
+// K4 (q4c::, below): the MLP's two products on wgmma, weight-stationary,
+// with x as the B operand (N = B rounded up to 8 .. 128) and the decoded
+// weights as A in registers, so each weight byte is decoded once whatever
+// B is; persistent CTAs stream (column tile, reduction split) work units
+// through an 8-slot TMA ring on mbarriers (two warpgroups, thread 0 also
+// issuing the loads), write each unit's fp32 partial result to its own slot, and
+// the merge kernels below add the splits in a fixed order, SwiGLU between
+// the products. Byte rows that are not 16-byte aligned (D or F not a
+// multiple of 32; no model has one) take the mma.sync design below.
+//
+// K5, K6, K7 and such K4 shapes: one family, qgemm_partial_kernel, computes
+// x @ W for one tile of byte columns and one range of reduction rows, with
+// the layout as a template parameter that says how a byte becomes values.
+// The TPU kernels walk the MLP's inner dimension F on a sequential grid axis
+// and carry the (B, D) sum in VMEM. Here the MLP is two launches with h kept
+// as a (B, F) bf16 workspace between them (h is rounded to bf16 anyway, so
+// nothing is lost), and each product's reduction rows are cut across CTAs so
+// that the card's 132 SMs all stream weights: every CTA writes its fp32
+// partial result to a workspace and a small merge kernel adds the splits in
+// a fixed order (no floating-point atomics: the sum's order never changes
+// from run to run) and applies the epilogue (SwiGLU to bf16, or the plain
+// sum).
 //
 // A CTA stages 64 reduction rows at a time: the weight bytes and the x
 // columns go from device memory to registers with 16-byte loads (the next
 // tile's loads are in flight while the current tile is computed on) and then
-// to shared memory. The products run on the tensor cores, mma.sync m16n8k16
-// with bf16 operands and fp32 accumulators; all rows share each weight tile,
-// so the weights are read once whatever B is. Each thread reads a 4 x 4
-// block of weight bytes (4 reduction rows, 4 byte columns) as four 32-bit
-// words, which serves 8 n-tiles (the low and the high nibble of 4 byte
-// columns): the reduction rows of a k-step are taken in the order
-// 4t .. 4t + 3 per thread and the 8 columns of n-tile i are the byte columns
-// 4n + i, both free choices since x's fragments follow the same row order
-// and the results are written back to their true columns. Nibbles become
-// bf16 with integer masks and one bf16 subtraction: 0x4300 | v is the bf16
-// of 128 + v for v in [0, 15], and every nibble is first put into the form
-// "value + 8" by one xor per word. wgmma and TMA are later work.
+// to shared memory. The products run on mma.sync m16n8k16 with bf16
+// operands and fp32 accumulators; all rows share each weight tile, so the
+// weights are read once whatever B is. Each thread reads a 4 x 4 block of
+// weight bytes (4 reduction rows, 4 byte columns) as four 32-bit words,
+// which serves 8 n-tiles (the low and the high nibble of 4 byte columns):
+// the reduction rows of a k-step are taken in the order 4t .. 4t + 3 per
+// thread and the 8 columns of n-tile i are the byte columns 4n + i, both
+// free choices since x's fragments follow the same row order and the
+// results are written back to their true columns. Nibbles become bf16 with
+// integer masks and one bf16 subtraction: 0x4300 | v is the bf16 of 128 + v
+// for v in [0, 15], and every nibble is first put into the form "value + 8"
+// by one xor per word.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,9 +73,11 @@
 
 #include <type_traits>
 
-namespace {
+#include "mma_sync.cuh"  // bf16, mma16816
+#include "tma.cuh"       // mbarriers, TMA copies, the tensor-map encoder
+#include "wgmma.cuh"     // wgmma with A in registers, descriptors, the 128-byte swizzle
 
-typedef __nv_bfloat16 bf16;
+namespace {
 
 constexpr int KT = 64;    // reduction rows per staged tile
 constexpr int XPAD = 16;  // bf16 of padding per staged x row
@@ -84,21 +100,10 @@ struct GemmArgs {
   int vec_ok;          // every byte row starts 16-byte aligned
 };
 
-// d += a (16 x 16, row) * b (16 x 8, col), fp32 accumulate.
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Byte I of a and byte I of b, each a nibble value v + 8 in [0, 15], as the
-// bf16 pair (v_a, v_b): a in the low half.
-template <int I>
-__device__ __forceinline__ uint32_t nibble_pair(uint32_t a, uint32_t b) {
-  constexpr uint32_t sel = I | (I << 4) | ((4 + I) << 8) | (I << 12);
+// Byte i of a and byte i of b, each a nibble value v + 8 in [0, 15], as the
+// bf16 pair (v_a, v_b): a in the low half (i is known after unrolling).
+__device__ __forceinline__ uint32_t nibbles(uint32_t a, uint32_t b, int i) {
+  const uint32_t sel = i | (i << 4) | ((4 + i) << 8) | (i << 12);
   uint32_t v = (__byte_perm(a, b, sel) & 0x000F000Fu) | 0x43004300u;  // 128 + (v + 8)
   const uint32_t bias = 0x43084308u;                                  // 136
   __nv_bfloat162 r = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&v),
@@ -319,10 +324,10 @@ __device__ __forceinline__ void qgemm_partial(const GemmArgs& a) {
           hi[r] = (v >> 4) & 0x0F0F0F0Fu;
         }
 #define Q4_TILE(I)                                         \
-  b[I][0] = nibble_pair<I>(lo[0], lo[1]);                  \
-  b[I][1] = nibble_pair<I>(lo[2], lo[3]);                  \
-  b[(NT - 4) + I][0] = nibble_pair<I>(hi[0], hi[1]);       \
-  b[(NT - 4) + I][1] = nibble_pair<I>(hi[2], hi[3]);
+  b[I][0] = nibbles(lo[0], lo[1], I);                      \
+  b[I][1] = nibbles(lo[2], lo[3], I);                      \
+  b[(NT - 4) + I][0] = nibbles(hi[0], hi[1], I);           \
+  b[(NT - 4) + I][1] = nibbles(hi[2], hi[3], I);
         Q4_TILE(0) Q4_TILE(1) Q4_TILE(2) Q4_TILE(3)
 #undef Q4_TILE
       }
@@ -487,6 +492,307 @@ int merge_blocks(int B, int N) {
   return static_cast<int>((static_cast<size_t>(B) * N + MERGE_THREADS - 1) / MERGE_THREADS);
 }
 
+// ---------------------------------------------------------------------------
+// K4 for Hopper: the q4c products of the MLP on wgmma, weight-stationary
+// ("swap AB"): out^T (n x B) = W^T (n x K) x^T (K x B). The decoded weights
+// are the 64-row A operand, in registers; x is the B operand, N = B rounded
+// up to 8, 16, 32, 64 or 128, in shared memory. One warpgroup serves 1 to
+// 128 rows and decodes every weight byte once.
+//
+// Persistent CTAs (at most one an SM) walk the product's work units, (matrix,
+// column tile of BC byte columns, split of `per` reduction rows), unit u at
+// CTA u % grid, in a fixed order. Thread 0 streams each unit's slots
+// through a ring of STAGES mbarrier-guarded slots by TMA: KT = 64 reduction
+// rows of the weight tile (bytes as stored, no swizzle) and the
+// same 64 columns of x (N rows, the 128-byte swizzle; rows past B and
+// columns past K read TMA's zero fill). Two warpgroups each own BC / 2 byte
+// columns of the tile (a ninth, loading warp would cap ptxas at 168
+// registers, as in K2b, and the N 32 accumulators would spill). Per 16-deep step a thread reads, for
+// reduction rows 2t, 2t + 1, 2t + 8 and 2t + 9, the MT bytes at its byte
+// columns; byte i gives m-tile i's A rows g (the low nibble: output column
+// c) and g + 8 (the high nibble: column c + n / 2), decoded to bf16 by the
+// masks and one subtraction of `nibbles`. Each scale group's sum runs in
+// the wgmma accumulator c (the group's first product overwrites it) and is
+// added, times the group's scale, into acc in fp32; each unit writes acc to
+// its own slot of the partial workspace, which the merge kernels add in a
+// fixed order: equal bits on every run, no atomics. MT (64-column m-tiles a
+// warpgroup) shrinks as N grows so c and acc (MT * N fp32) stay at 128
+// registers or fewer.
+namespace q4c {
+
+constexpr int KT = 64;                            // reduction rows a slot
+constexpr int STAGES = 8;                         // slots in the ring
+constexpr int LAG = 4;                            // see the loader below
+constexpr int CONSUMERS = 2;                      // warpgroups
+constexpr int THREADS = CONSUMERS * 128;          // thread 0 also loads
+
+template <int N>
+struct Cfg {
+  static constexpr int MT = N >= 128 ? 1 : N >= 64 ? 2 : 4;
+  static constexpr int WG_BYTES = 32 * MT;         // byte columns a warpgroup
+  static constexpr int BC = CONSUMERS * WG_BYTES;  // byte columns a tile
+  static constexpr int X_BYTES = N * 128;          // N rows x 64 bf16
+  static constexpr int W_BYTES = KT * BC;
+  static constexpr int STAGE = X_BYTES + W_BYTES;  // a multiple of 1024
+  static constexpr int BAR_OFF = STAGES * STAGE;
+  static constexpr int SMEM = BAR_OFF + 2 * STAGES * 8 + 1024;  // + alignment slack
+};
+
+struct Args {
+  const float* s[2];  // group scales (K / group, n) of each matrix
+  float* partial;     // (mats, splits, B, n) fp32
+  int B, K, n, cbytes, group;
+  int splits, per, col_tiles, units;
+};
+
+// The unit's matrix, column tile and reduction rows [r0, r1).
+__device__ __forceinline__ void unit_of(const Args& a, int u, int& mat, int& ct, int& split,
+                                        int& r0, int& r1) {
+  split = u % a.splits;
+  ct = (u / a.splits) % a.col_tiles;
+  mat = u / (a.splits * a.col_tiles);
+  r0 = split * a.per;
+  r1 = min(a.K, r0 + a.per);
+}
+
+template <int MT>
+__device__ __forceinline__ uint32_t load_bytes(const unsigned char* p) {
+  if constexpr (MT == 4) return *reinterpret_cast<const uint32_t*>(p);
+  if constexpr (MT == 2) return *reinterpret_cast<const uint16_t*>(p);
+  return *p;
+}
+
+// The loader's place in the CTA's sequence of slots: unit u (a.units past
+// the last), its matrix and column tile, and the next reduction row r of
+// its rows [r, r1).
+struct Cursor {
+  int u, mat, ct, r, r1;
+};
+
+__device__ __forceinline__ void cursor_at(const Args& a, Cursor& c, int u) {
+  c.u = u;
+  if (u < a.units) {
+    int split;
+    unit_of(a, u, c.mat, c.ct, split, c.r, c.r1);
+  }
+}
+
+template <int N>
+__global__ void __launch_bounds__(THREADS, 1)
+    fused_mlp_q4c_kernel(const __grid_constant__ CUtensorMap xmap,
+                         const __grid_constant__ CUtensorMap w0map,
+                         const __grid_constant__ CUtensorMap w1map, const Args a) {
+  using C = Cfg<N>;
+  constexpr int MT = C::MT, NR = N / 2;
+  extern __shared__ unsigned char q4c_raw[];
+  unsigned char* base = align_1024(q4c_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + C::BAR_OFF);
+  uint64_t* empty = full + STAGES;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], CONSUMERS * 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // Thread 0 also loads: slot use `lit` into slot lit % STAGES, once every
+  // warp released the slot's previous use. It fills the ring first, then
+  // refills one slot at the start of each slot use it >= LAG (use
+  // it + STAGES - LAG, into the slot use it - LAG held): STAGES - LAG slots
+  // stay in flight ahead of the consumers, and warp 0 waits only for warps
+  // that trail it by LAG slots, so the two warpgroups do not run in step.
+  const bool loader = threadIdx.x == 0;
+  Cursor lc;
+  int lit = 0;
+  cursor_at(a, lc, blockIdx.x);
+  auto load_next = [&]() {
+    if (lc.u >= a.units) return;
+    const int st = lit % STAGES;
+    unsigned char* slot = base + st * C::STAGE;
+    mbar_wait(&empty[st], ((lit / STAGES) & 1) ^ 1);
+    mbar_expect_tx(&full[st], C::STAGE);
+    tma_2d(slot, &xmap, &full[st], lc.r, 0);
+    tma_2d(slot + C::X_BYTES, lc.mat ? &w1map : &w0map, &full[st], lc.ct * C::BC, lc.r);
+    ++lit;
+    lc.r += KT;
+    if (lc.r >= lc.r1) cursor_at(a, lc, lc.u + gridDim.x);
+  };
+  if (loader)
+    for (int i = 0; i < STAGES; ++i) load_next();
+  __syncwarp();
+
+  const int warp = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 32, 0);
+  const int lane = threadIdx.x % 32;
+  const int wg = warp / 4, w = warp % 4, g = lane / 4, t = lane % 4;
+  const int cw = wg * C::WG_BYTES + MT * (8 * w + g);  // this thread's first byte column
+  float c[MT][NR], acc[MT][NR], s_lo[MT], s_hi[MT];
+  int it = 0;
+  for (int u = blockIdx.x; u < a.units; u += gridDim.x) {
+    int mat, ct, split, r0, r1;
+    unit_of(a, u, mat, ct, split, r0, r1);
+    const float* __restrict__ sc = a.s[mat];
+    const int col = ct * C::BC + cw;  // m-tile i's byte column is col + i
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NR; ++j) acc[i][j] = 0.f;
+    // acc += c * the scales of the group c summed
+    auto flush = [&]() {
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        pin(c[i]);
+#pragma unroll
+        for (int j = 0; j < NR; ++j) acc[i][j] = fmaf(c[i][j], (j & 2) ? s_hi[i] : s_lo[i], acc[i][j]);
+      }
+    };
+    int cur = -1;  // the group c is summing
+    int fresh = 1;  // the next product starts c anew
+    for (int r = r0; r < r1; r += KT, ++it) {
+      const int st = it % STAGES;
+      const unsigned char* slot = base + st * C::STAGE;
+      const unsigned char* ws = slot + C::X_BYTES + cw;
+      const uint64_t xd = desc(reinterpret_cast<const bf16*>(slot), 16, 1024);
+      const int steps = min(KT, r1 - r) / 16;
+      if (loader && it >= LAG) load_next();
+      __syncwarp();
+      mbar_wait(&full[st], (it / STAGES) & 1);
+      // the slot's weights, decoded first (all of them: rows past K are
+      // zeros), so that no decode sits between its products
+      uint32_t af[KT / 16][MT][4];
+#pragma unroll
+      for (int s = 0; s < KT / 16; ++s) {
+        const unsigned char* p = ws + (16 * s + 2 * t) * C::BC;
+        uint32_t lo[4], hi[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          // rows 2t, 2t + 1, 2t + 8, 2t + 9; the high nibble to the form v + 8
+          const uint32_t v = load_bytes<MT>(p + ((k & 1) + (k >> 1) * 8) * C::BC) ^ 0x80808080u;
+          lo[k] = v & 0x0F0F0F0Fu;
+          hi[k] = (v >> 4) & 0x0F0F0F0Fu;
+        }
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          af[s][i][0] = nibbles(lo[0], lo[1], i);  // row g (low nibble), k 2t, 2t + 1
+          af[s][i][1] = nibbles(hi[0], hi[1], i);  // row g + 8 (high nibble)
+          af[s][i][2] = nibbles(lo[2], lo[3], i);  // k 2t + 8, 2t + 9
+          af[s][i][3] = nibbles(hi[2], hi[3], i);
+        }
+      }
+      // Each step's products are their own wgmma group behind a fence;
+      // everything here is uniform across the warpgroup (a branch around a
+      // load, as a guarded scale read, made ptxas serialize the wgmma).
+#pragma unroll
+      for (int s = 0; s < KT / 16; ++s) {
+        if (s >= steps) break;
+        const int grp = (r + 16 * s) / a.group;
+        if (grp != cur) {
+          if (cur >= 0) {
+            wg_wait<0>();
+            flush();
+          }
+          cur = grp;
+          fresh = 1;
+          const float* srow = sc + static_cast<size_t>(grp) * a.n;
+#pragma unroll
+          for (int i = 0; i < MT; ++i) {
+            const int ci = min(col + i, a.cbytes - 1);  // a valid column, read unguarded
+            const float lo = srow[ci], hi = srow[ci + a.n / 2];
+            s_lo[i] = col + i < a.cbytes ? lo : 0.f;
+            s_hi[i] = col + i < a.cbytes ? hi : 0.f;
+          }
+        }
+        wg_fence();
+#pragma unroll
+        for (int i = 0; i < MT; ++i) WgmmaRK<N>::run(c[i], af[s][i], xd, kstep(s, N), !fresh);
+        wg_commit();
+        fresh = 0;
+      }
+      wg_wait<0>();  // the slot's x is read
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+    }
+    flush();
+    float* __restrict__ out =
+        a.partial + static_cast<size_t>(mat * a.splits + split) * a.B * a.n;
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      if (col + i >= a.cbytes) continue;
+#pragma unroll
+      for (int j = 0; j < NR; ++j) {
+        // accumulator j: x row 8 (j / 4) + 2t + (j & 1); the high nibble's
+        // column when j & 2
+        const int b = 8 * (j / 4) + 2 * t + (j & 1);
+        if (b < a.B) out[static_cast<size_t>(b) * a.n + col + i + ((j & 2) ? a.n / 2 : 0)] = acc[i][j];
+      }
+    }
+  }
+}
+
+// x (B, K) bf16 @ the `mats` q4c matrices (K, n / 2) with scales (K / group,
+// n): each unit's fp32 partial result into `partial` (mats, splits, B, n).
+template <int N>
+int launch(const void* x, const void* w0, const void* s0, const void* w1, const void* s1,
+           void* partial, int B, int K, int n, int group, int mats, int splits, int per,
+           int grid, cudaStream_t stream) {
+  using C = Cfg<N>;
+  Args a;
+  a.s[0] = static_cast<const float*>(s0);
+  a.s[1] = static_cast<const float*>(s1);
+  a.partial = static_cast<float*>(partial);
+  a.B = B;
+  a.K = K;
+  a.n = n;
+  a.cbytes = n / 2;
+  a.group = group;
+  a.splits = splits;
+  a.per = per;
+  a.col_tiles = (a.cbytes + C::BC - 1) / C::BC;
+  a.units = mats * a.col_tiles * splits;
+  CUtensorMap xm, wm[2];
+  const cuuint64_t xdims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(B)};
+  const cuuint64_t xstrides[1] = {static_cast<cuuint64_t>(K) * 2};
+  const cuuint32_t xbox[2] = {KT, N};
+  int e = encode_map(&xm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, xdims, xstrides, xbox,
+                     CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B);
+  const cuuint64_t wdims[2] = {static_cast<cuuint64_t>(a.cbytes), static_cast<cuuint64_t>(K)};
+  const cuuint64_t wstrides[1] = {static_cast<cuuint64_t>(a.cbytes)};
+  const cuuint32_t wbox[2] = {C::BC, KT};
+  const void* ws[2] = {w0, w1};
+  for (int m = 0; m < 2 && e == 0; ++m)
+    e = encode_map(&wm[m], CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, ws[m], wdims, wstrides, wbox,
+                   CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B);
+  if (e != 0) return e;
+  cudaError_t err = cudaFuncSetAttribute(fused_mlp_q4c_kernel<N>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (err != cudaSuccess) return err;
+  fused_mlp_q4c_kernel<N><<<grid, THREADS, C::SMEM, stream>>>(xm, wm[0], wm[1], a);
+  return cudaGetLastError();
+}
+
+// The N (rows of x a product serves) for B rows.
+int launch_rows(const void* x, const void* w0, const void* s0, const void* w1, const void* s1,
+                void* partial, int B, int K, int n, int group, int mats, int splits, int per,
+                int grid, cudaStream_t stream) {
+  if (B < 1 || B > 128 || K % 16 || n % 32 || group < 16 || group % 16 || K % group ||
+      per < KT || per % KT || splits < 1 || static_cast<long long>(splits) * per < K ||
+      static_cast<long long>(splits - 1) * per >= K || grid < 1 || mats < 1 || mats > 2 ||
+      reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(w0) % 16 ||
+      reinterpret_cast<uintptr_t>(w1) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+#define Q4C_N(NN) \
+  return launch<NN>(x, w0, s0, w1, s1, partial, B, K, n, group, mats, splits, per, grid, stream)
+  if (B <= 8) Q4C_N(8);
+  if (B <= 16) Q4C_N(16);
+  if (B <= 32) Q4C_N(32);
+  if (B <= 64) Q4C_N(64);
+  Q4C_N(128);
+#undef Q4C_N
+}
+
+}  // namespace q4c
+
 }  // namespace
 
 // The SwiGLU MLP: out (B, D) fp32 = (silu(x @ Wg) * (x @ Wu)) @ Wd.
@@ -534,3 +840,30 @@ extern "C" int fused_mlp_matmul_int4c(const void* x, const void* w, const void* 
       static_cast<const float*>(partial), static_cast<float*>(out), splits, B, N);
   return static_cast<int>(cudaGetLastError());
 }
+
+// K4 on the wgmma kernel (q4c::): out (B, D) fp32 = (silu(x @ Wg) * (x @ Wu))
+// @ Wd over q4c matrices whose byte rows are 16-byte aligned (D and F
+// multiples of 32). x (B, D) bf16; h: (B, F) bf16 workspace; partial: fp32
+// workspace of max(2 * split1 * B * F, split2 * B * D) elements. splitN,
+// perN, gridN: product N's reduction splits, reduction rows per split (a
+// multiple of 64) and persistent CTAs. Returns the first CUDA error, or 0.
+extern "C" int fused_mlp_q4c(const void* x, const void* wg, const void* sg, const void* wu,
+                             const void* su, const void* wd, const void* sd, void* h,
+                             void* partial, void* out, int B, int D, int F, int group_d,
+                             int group_f, int split1, int per1, int grid1, int split2, int per2,
+                             int grid2, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int e = q4c::launch_rows(x, wg, sg, wu, su, partial, B, D, F, group_d, 2, split1, per1, grid1,
+                           st);
+  if (e != 0) return e;
+  swiglu_merge_kernel<<<merge_blocks(B, F), MERGE_THREADS, 0, st>>>(
+      static_cast<const float*>(partial), nullptr, nullptr, static_cast<bf16*>(h), split1, B, F);
+  e = static_cast<int>(cudaGetLastError());
+  if (e != 0) return e;
+  e = q4c::launch_rows(h, wd, sd, wd, sd, partial, B, F, D, group_f, 1, split2, per2, grid2, st);
+  if (e != 0) return e;
+  fused_mlp_down_merge_kernel<<<merge_blocks(B, D), MERGE_THREADS, 0, st>>>(
+      static_cast<const float*>(partial), nullptr, static_cast<float*>(out), split2, B, D);
+  return static_cast<int>(cudaGetLastError());
+}
+

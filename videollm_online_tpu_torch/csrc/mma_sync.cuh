@@ -1,7 +1,9 @@
-// Warp-level tensor-core helpers for Hopper (sm_90a) shared by K2's dQ
-// kernel (flash_attention.cu) and the tensor-core decode attention of K1
-// and K3 (attention_common.cuh): mma.sync m16n8k16 with bf16 operands and
-// fp32 accumulators, its fragment layouts, ldmatrix, and cp.async.
+// Warp-level tensor-core helpers for Hopper (sm_90a) shared by the
+// tensor-core decode attention of K1 and K3 (attention_common.cuh), the
+// mma.sync products of the fused-MLP family (fused_mlp.cu) and K2's wgmma
+// kernels (flash_attention.cu: quad reductions, bf16 packing): mma.sync
+// m16n8k16 with bf16 operands and fp32 accumulators, its fragment layouts,
+// ldmatrix, and cp.async.
 //
 // Fragment layout of m16n8k16 (g = lane / 4, t = lane % 4): A (16 x 16,
 // row) a0 = A[g][2t..2t+1], a1 = A[g+8][2t..], a2 = A[g][2t+8..], a3 =

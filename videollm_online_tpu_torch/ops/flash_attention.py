@@ -12,9 +12,9 @@ which is also what the kernels are held against on the card.
 
 ``kernel_design`` names the implementation each (dtype, d) runs and is
 passed to the library, which refuses any other pairing: bf16 with d <= 128
-runs on the tensor cores (the forward and dK/dV kernels on ``wgmma`` over
-tiles that TMA loads ahead through a ring of mbarrier-guarded slots, dQ on
-``mma.sync``), fp32 and bf16 with d = 256 on fp32 FMA. ``kv_tile_range`` and ``q_tile_range`` are
+runs on the tensor cores (the forward, dK/dV and dQ kernels on ``wgmma``
+over tiles that TMA loads ahead through a ring of mbarrier-guarded slots),
+fp32 and bf16 with d = 256 on fp32 FMA. ``kv_tile_range`` and ``q_tile_range`` are
 the tensor-core kernels' schedule as the CUDA source computes it;
 ``computed_pairs`` marks the (row, col) pairs whose products they compute,
 for the tests and for counting the work done in whole tiles.
@@ -41,9 +41,10 @@ HEAD_DIMS = (64, 128, 256)
 NEG_INF = -1e30
 _DTYPES = (torch.bfloat16, torch.float32)
 DESIGNS = ("fma", "tensor cores")   # the library's design codes 0 and 1
-# (q rows, kv rows) of a tile: the forward CTA's q tile against its kv
-# tiles, and the dK/dV kernel's streamed q tile against its CTA's k tile
+# (q rows, kv rows) of a tile: the forward and dQ CTAs' q tile against their
+# kv tiles, and the dK/dV kernel's streamed q tile against its CTA's k tile
 FWD_TILE = (128, 128)
+DQ_TILE = (128, 64)
 DKDV_TILE = (64, 128)
 # TMA coordinates and the kernels' row indices are 32-bit
 MAX_ROWS = 2 ** 31 - 1
@@ -60,10 +61,11 @@ def kernel_design(dtype: torch.dtype, d: int) -> str:
 
 
 def kv_tile_range(q0: int, T: int, kv_len: int, q_offset: int,
-                  causal: bool, window: Optional[int]) -> Tuple[int, int]:
+                  causal: bool, window: Optional[int],
+                  tile: Tuple[int, int] = FWD_TILE) -> Tuple[int, int]:
     """The kv tiles [first, last] that some row of the q tile at q0 sees
-    (the forward's loop)."""
-    bm, bn = FWD_TILE
+    (the forward's loop; the dQ kernel's with ``tile=DQ_TILE``)."""
+    bm, bn = tile
     last = (kv_len + bn - 1) // bn - 1
     if causal:
         last = min(last, (min(q0 + bm, T) - 1 + q_offset) // bn)
@@ -110,11 +112,11 @@ def _block_visibility(r0: int, nr: int, c0: int, nc: int, T: int,
 def computed_pairs(kernel: str, T: int, S: int, q_offset: int, causal: bool,
                    window: Optional[int], kv_len: int) -> torch.Tensor:
     """(T, S) bool: the (row, col) pairs of one head whose products the
-    tensor-core kernel ("fwd" or "dkdv") computes, as its schedule walks
-    them. The forward computes its whole q tile against every kv tile of
-    its loop (a consumer masks a block it does not see); the dK/dV kernel
-    skips each consumer's 64-column block where no pair of it is
-    visible."""
+    tensor-core kernel ("fwd", "dkdv" or "dq") computes, as its schedule
+    walks them. The forward computes its whole q tile against every kv tile
+    of its loop (a consumer masks a block it does not see); the dK/dV
+    kernel skips each consumer's 64-column block, and the dQ kernel each
+    consumer's 64-row block, where no pair of it is visible."""
     done = torch.zeros(T, S, dtype=torch.bool)
     if kernel == "fwd":
         bm, bn = FWD_TILE
@@ -124,6 +126,16 @@ def computed_pairs(kernel: str, T: int, S: int, q_offset: int, causal: bool,
         return done
     vis = functools.partial(_block_visibility, T=T, kv_len=kv_len,
                             q_offset=q_offset, causal=causal, window=window)
+    if kernel == "dq":
+        bm, bn = DQ_TILE
+        for q0 in range(0, T, bm):
+            first, last = kv_tile_range(q0, T, kv_len, q_offset, causal, window,
+                                        DQ_TILE)
+            for r0 in (q0, q0 + bm // 2):
+                for c0 in range(first * bn, (last + 1) * bn, bn):
+                    if vis(r0, bm // 2, c0, bn):
+                        done[r0:r0 + bm // 2, c0:c0 + bn] = True
+        return done
     bm, bn = DKDV_TILE
     for k0 in range(0, S, bn):
         first, last = q_tile_range(k0, T, kv_len, q_offset, causal, window)

@@ -21,6 +21,12 @@ The plain versions are what the kernels are held against, on the CPU by the
 tests and on the card by ``chip_smoke.py``; nothing on a CUDA tensor's path
 calls them.
 
+K4 runs the wgmma kernel (``fused_mlp_q4c_kernel``) where every byte row
+of its matrices is 16-byte aligned (D and F multiples of 32, as in every
+model); ``q4c_schedule`` and ``q4c_units`` are its work decomposition as
+the CUDA source walks it. Other shapes, K5, K6 and K7 run the ``mma.sync``
+family (``_split`` cuts its reduction).
+
 ``maybe_fused`` / ``maybe_matmul_int4c`` are the dispatch of
 ``models/llama._layer`` and ``models/quant.quantized_matmul``, the JAX
 package's rule with "on a TPU" read as "on a CUDA tensor": at most
@@ -51,6 +57,8 @@ MAX_FUSED_TOKENS = 128
 KT = 64                 # reduction rows per staged tile (csrc/fused_mlp.cu)
 K_STEP = 16             # reduction rows per mma step
 LAYOUT_Q4C, LAYOUT_Q4P, LAYOUT_Q8 = 0, 1, 2
+Q4C_ALIGN = 32          # D and F multiples of this take K4's wgmma kernel
+Q4C_MAX_SPLITS = 32
 
 
 # ------------------------------------------------------------ plain versions
@@ -124,7 +132,11 @@ def _kernels():
     mm.restype = ctypes.c_int
     mm.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                    + [ctypes.c_void_p])
-    return mlp, mm
+    q4c = lib.fused_mlp_q4c
+    q4c.restype = ctypes.c_int
+    q4c.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 11
+                    + [ctypes.c_void_p])
+    return mlp, mm, q4c
 
 
 def _split(rows: int, group: int, byte_cols: int, B: int, n_mats: int,
@@ -143,6 +155,58 @@ def _split(rows: int, group: int, byte_cols: int, B: int, n_mats: int,
     n = max(1, min(want, rows // align))
     per = -(-(-(-rows // n)) // align) * align
     return -(-rows // per), per
+
+
+def q4c_rows(B: int) -> int:
+    """The N of K4's wgmma products: the rows of x, rounded up to 8, 16,
+    32, 64 or 128."""
+    return next(n for n in (8, 16, 32, 64, 128) if B <= n)
+
+
+def q4c_tile(B: int) -> int:
+    """Byte columns of one work unit of K4's wgmma kernel: two warpgroups
+    of 32 * MT, MT the 64-column m-tiles a warpgroup holds (4, 2 at N 64,
+    1 at N 128: MT * N accumulators stay at 128 a thread)."""
+    n = q4c_rows(B)
+    return 2 * 32 * (1 if n >= 128 else 2 if n >= 64 else 4)
+
+
+def q4c_schedule(rows: int, byte_cols: int, B: int, n_mats: int, sms: int):
+    """How K4's wgmma kernel cuts one product: (tile byte columns, splits,
+    reduction rows per split (a multiple of KT), persistent CTAs). Units
+    are (matrix, column tile, split); CTA c takes units c, c + grid, ...
+    The split count minimises the bytes the busiest CTAs stream (whole
+    waves of units over the SMs) plus the fp32 partial results written and
+    read again by the merges."""
+    bc = q4c_tile(B)
+    col_tiles = -(-byte_cols // bc)
+    best = None
+    for splits in range(1, max(1, min(Q4C_MAX_SPLITS, rows // KT)) + 1):
+        per = -(-(-(-rows // splits)) // KT) * KT
+        if -(-rows // per) != splits:
+            continue                    # a split would get no rows
+        units = n_mats * col_tiles * splits
+        waves = -(-units // sms)
+        cost = (waves * per * bc * sms
+                + 2 * n_mats * splits * B * 2 * byte_cols * 4)
+        if best is None or cost < best[0]:
+            best = (cost, splits, per, min(units, sms))
+    _, splits, per, grid = best
+    return bc, splits, per, grid
+
+
+def q4c_units(rows: int, byte_cols: int, B: int, n_mats: int, sms: int):
+    """K4's work units in the order the CUDA kernel takes them: per CTA, a
+    list of (matrix, byte columns [c0, c1), reduction rows [r0, r1))."""
+    bc, splits, per, grid = q4c_schedule(rows, byte_cols, B, n_mats, sms)
+    col_tiles = -(-byte_cols // bc)
+    work = [[] for _ in range(grid)]
+    for u in range(n_mats * col_tiles * splits):
+        split, ct = u % splits, (u // splits) % col_tiles
+        mat = u // (splits * col_tiles)
+        work[u % grid].append((mat, ct * bc, min(byte_cols, (ct + 1) * bc),
+                               split * per, min(rows, (split + 1) * per)))
+    return work
 
 
 def _check_weights(name, layout, x, w, s, K, N):
@@ -192,15 +256,24 @@ def _check_x(x, K):
     return x.to(torch.bfloat16).contiguous()
 
 
-def _launch_mlp(layout, x, wg, sg, wu, su, wd, sd):
+def _check_mlp(layout, x, wg, sg, wu, su, wd, sd):
+    """x as bf16 and the MLP's group sizes: (xb, D, F, group_d, group_f)."""
     D = x.shape[-1]
     F = sg.shape[-1]
     xb = _check_x(x, D)
-    B = xb.shape[0]
     group_d = _check_weights("w_gate", layout, x, wg, sg, D, F)
     if _check_weights("w_up", layout, x, wu, su, D, F) != group_d:
         raise ValueError("w_gate and w_up must share their group size")
     group_f = _check_weights("w_down", layout, x, wd, sd, F, D)
+    return xb, D, F, group_d, group_f
+
+
+def _launch_mlp(layout, x, wg, sg, wu, su, wd, sd):
+    """The MLP on the mma.sync family (K6, K7, and K4 at unaligned
+    shapes)."""
+    xb, D, F, group_d, group_f = _check_mlp(layout, x, wg, sg, wu, su, wd,
+                                            sd)
+    B = xb.shape[0]
     sms = _sm_count(x.device)
     rows1, cols1 = wg.shape
     rows2, cols2 = wd.shape
@@ -211,7 +284,7 @@ def _launch_mlp(layout, x, wg, sg, wu, su, wd, sd):
     part = torch.empty((max(2 * split1 * B * F, split2 * B * D),),
                        dtype=torch.float32, device=dev)
     out = torch.empty((B, D), dtype=torch.float32, device=dev)
-    mlp, _ = _kernels()
+    mlp = _kernels()[0]
     err = mlp(layout, xb.data_ptr(), wg.data_ptr(), sg.data_ptr(),
               wu.data_ptr(), su.data_ptr(), wd.data_ptr(), sd.data_ptr(),
               h.data_ptr(), part.data_ptr(), out.data_ptr(), B, D, F,
@@ -223,6 +296,33 @@ def _launch_mlp(layout, x, wg, sg, wu, su, wd, sd):
     return out.to(x.dtype)
 
 
+def _launch_q4c(x, wg, sg, wu, su, wd, sd):
+    """K4 on the wgmma kernel (D and F multiples of Q4C_ALIGN, 16-byte
+    aligned weights)."""
+    xb, D, F, group_d, group_f = _check_mlp(LAYOUT_Q4C, x, wg, sg, wu, su,
+                                            wd, sd)
+    if xb.data_ptr() % 16:  # TMA reads x
+        xb = xb.clone()
+    B = xb.shape[0]
+    sms = _sm_count(x.device)
+    _, split1, per1, grid1 = q4c_schedule(D, F // 2, B, 2, sms)
+    _, split2, per2, grid2 = q4c_schedule(F, D // 2, B, 1, sms)
+    dev = x.device
+    h = torch.empty((B, F), dtype=torch.bfloat16, device=dev)
+    part = torch.empty((max(2 * split1 * B * F, split2 * B * D),),
+                       dtype=torch.float32, device=dev)
+    out = torch.empty((B, D), dtype=torch.float32, device=dev)
+    err = _kernels()[2](xb.data_ptr(), wg.data_ptr(), sg.data_ptr(),
+                        wu.data_ptr(), su.data_ptr(), wd.data_ptr(),
+                        sd.data_ptr(), h.data_ptr(), part.data_ptr(),
+                        out.data_ptr(), B, D, F, group_d, group_f, split1,
+                        per1, grid1, split2, per2, grid2,
+                        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_mlp_q4c launch failed: CUDA error {err}")
+    return out.to(x.dtype)
+
+
 def fused_mlp_int4c(x, wg_p, wg_s, wu_p, wu_s, wd_p, wd_s):
     """K4. SwiGLU MLP over column-packed int4: x (B, D) -> (B, D) in x's
     dtype. wg_p/wu_p (D, F/2) bytes with scales (D/group, F); wd_p (F, D/2)
@@ -230,7 +330,12 @@ def fused_mlp_int4c(x, wg_p, wg_s, wu_p, wu_s, wd_p, wd_s):
     if not x.is_cuda:
         return fused_mlp_int4c_reference(x, wg_p, wg_s, wu_p, wu_s, wd_p,
                                          wd_s)
-    out = _launch_mlp(LAYOUT_Q4C, x, wg_p, wg_s, wu_p, wu_s, wd_p, wd_s)
+    mats = (wg_p, wu_p, wd_p)
+    if (x.shape[-1] % Q4C_ALIGN == 0 and wg_s.shape[-1] % Q4C_ALIGN == 0
+            and all(w.data_ptr() % 16 == 0 for w in mats)):
+        out = _launch_q4c(x, wg_p, wg_s, wu_p, wu_s, wd_p, wd_s)
+    else:
+        out = _launch_mlp(LAYOUT_Q4C, x, wg_p, wg_s, wu_p, wu_s, wd_p, wd_s)
     fused_mlp_int4c.launches += 1
     return out
 
@@ -270,7 +375,7 @@ def matmul_int4c(x, w_p, w_s):
     part = torch.empty((split * B * N,), dtype=torch.float32,
                        device=x.device)
     out = torch.empty((B, N), dtype=torch.float32, device=x.device)
-    _, mm = _kernels()
+    mm = _kernels()[1]
     err = mm(xb.data_ptr(), w_p.data_ptr(), w_s.data_ptr(),
              part.data_ptr(), out.data_ptr(), B, K, N, group, split, per,
              torch.cuda.current_stream(x.device).cuda_stream)
