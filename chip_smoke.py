@@ -12,9 +12,9 @@ any failure raises and exits non-zero:
      fused_mlp.cu print its registers and spill bytes from nvcc's -Xptxas
      -v log, its HGMMA (wgmma) and HMMA (mma.sync) instructions in the
      library's SASS (cuobjdump; "not measured" without one) and ptxas's
-     wgmma notes, failing if a wgmma kernel (K2's three, K4's) or a
-     tensor-core decode kernel spills, has no such instruction or has its
-     wgmma serialized;
+     wgmma notes, failing if a wgmma kernel (K2's three, K4's), the
+     streaming core of K5 and K6 or a tensor-core decode kernel spills,
+     has no such instruction or has its wgmma serialized;
   3. K1 (ring decode attention) against its plain PyTorch version at the 8B
      shapes (bf16, window, int8 K/V, fp32; S 1 / 7 / 14 / 20 / 21 / 64, so
      rows that are not a multiple of 16, window edges inside a tile) and
@@ -48,13 +48,15 @@ any failure raises and exits non-zero:
      against the step in fp32, per gradient leaf);
   9. the fused-MLP kernels K4, K5, K6 and K7 against their plain PyTorch
      versions at the 8B shapes (D 4096, F 14336; head K 4096, N 128256) for
-     1, 20, 91 and 128 rows and on small odd cases (groups below 128, column
-     tails, unaligned byte rows, fp32 and bf16 x), the same input twice
-     giving equal bits, and each kernel's time at 1, 20, 91 and 128 rows
-     beside the plain version's, the dequantizing route's and the bound;
-     then one K4 call at 1, 20, 91 and 128 rows launch by launch on both of
-     its routes (the wgmma kernel, and the mma.sync family that unaligned
-     shapes take): each launch's device time and bytes moved;
+     1, 20, 91 and 128 rows (K5 also 8) and on small odd cases (groups
+     below 128, column tails, unaligned byte rows, fp32 and bf16 x), the
+     same input twice giving equal bits, and each kernel's time beside the
+     plain version's, the dequantizing route's and the bound; K5 and K6 on
+     both of their routes (the streaming core, the mma.sync family) and
+     beside one library call for the same function (tinygemm's
+     _weight_int4pack_mm; _weight_int8pack_mm); then one call of K4, K5
+     and K6 launch by launch on each route: each launch's device time and
+     bytes moved;
  10. a small fp32 engine on mixed int4 weights twice, once through K4 and K5
      and once through their plain versions: transcripts equal, or equal up
      to a step that is shown to be a tie flip;
@@ -99,7 +101,10 @@ through K2, the plain attention and the plain attention in fp32 at several
 seeds, the spread that phase 8's loss bound must hold;
 ``--phases tc_configs`` (in no default run either) holds and times each
 configuration of K1's and K3's tensor-core kernel at the main paths' chunk
-lengths, the A/B behind the wrapper's choice. The
+lengths, the A/B behind the wrapper's choice; ``--phases wo_probe`` (in no
+default run) builds the streaming core of K5 and K6 with per-warp clock64
+counters and prints its cycles a slot by phase, three cut-down consumers,
+the SASS of one slot's loop and the A/B against K4's wgmma kernel. The
 launch counts are set to 0 just before each main path and read just after
 it. The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -235,10 +240,15 @@ def _ptxas_report(source):
     """Per kernel of csrc/<source>.cu, by mangled name: registers and spill
     bytes from nvcc's -Xptxas -v log; and ptxas's notes on wgmma
     (serialized, fences injected) as (mangled name, note)."""
-    import re
     from videollm_online_tpu_torch.ops import _build
+    return _ptxas_report_log(_build.build_log(source))
+
+
+def _ptxas_report_log(text):
+    """_ptxas_report of one build log's text."""
+    import re
     report, name, notes = {}, None, []
-    for line in _build.build_log(source).splitlines():
+    for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         w = re.search(r"\((C75\d\d)\) ([^']*)'(\S+)'", line)
         if w:
@@ -369,10 +379,10 @@ def phase_build():
         elif name in ("decode_attention", "paged_attention"):
             _tc_kernel_report(name, "decode_tc_kernel", ("HGMMA", "HMMA"))
         elif name == "fused_mlp":
-            # K4's wgmma instances (N 8 to 128; N 1 and 4 run on the CUDA
-            # cores)
-            _tc_kernel_report(name, r"fused_mlp_q4c_kernelILi(8|16|32|64|128)E",
-                              ("HGMMA",))
+            # K4's wgmma instances (N 8 to 128) and the streaming core of K5
+            # and K6 (mma.sync, every layout and N)
+            _tc_kernel_report(name, r"fused_mlp_q4c_kernelILi(8|16|32|64|128)E"
+                              r"|wo_kernel", ("HGMMA", "HMMA"))
         else:
             for line in _build.build_log(name).splitlines():
                 if "registers" in line or "spill" in line:
@@ -808,13 +818,15 @@ def phase_small_engine():
 # ---------------------------------------------------------------- phase 5
 # kernel classes by name, the first class that matches (K1's and K3's
 # split kernels by their pool type, and the merge of their split partials,
-# decode_merge_kernel, on its own): K1, K3, K4, K5, cuBLAS matmuls, and the
+# decode_merge_kernel, on its own; K5 and K6 on the streaming core by its
+# layout, 0 q4c and 2 int8): K1, K3, K4, K5, cuBLAS matmuls, and the
 # dtype-casting copies (chiefly quantized_matmul's per-call int8 -> bf16
 # weight conversion)
 KERNEL_CLASSES = (("K1", ("ringpool",)), ("K3", ("pagedpool",)),
                   ("K1/K3 merge", ("decode_merge_kernel",)),
                   ("K4", ("fused_mlp_", "swiglu_merge")),
-                  ("K5", ("matmul_int4c_",)),
+                  ("K5", ("matmul_int4c_", "wo_kernel<0")),
+                  ("K6", ("wo_kernel<2",)),
                   ("matmul", ("nvjet", "gemm", "cutlass", "xmma")),
                   ("cast copies", ("copy_kernel",)))
 
@@ -1536,6 +1548,70 @@ def _fused_bound(label, B, D, F, V, mats):
             "mbytes": bytes_ / 1e6}
 
 
+def _library_fn(label, mats):
+    """One PyTorch call on the card for K5's function (tinygemm,
+    ``_weight_int4pack_mm``, on the same integers repacked by
+    ``_convert_weight_to_int4pack``, zero point 8, scales rounded to bf16)
+    and for K6's products (three ``_weight_int8pack_mm`` around silu * up,
+    in bf16), timed beside the kernels and used nowhere in the port; None
+    for the other kernels."""
+    from videollm_online_tpu_torch.models import quant
+    if label == "K5":
+        w, s = mats
+        K, N = w.shape[0], s.shape[-1]
+        q = (quant._unpack_int4c(w, torch.int32) + 8).t().contiguous()
+        packed = torch.ops.aten._convert_weight_to_int4pack(
+            (q[:, ::2] << 4 | q[:, 1::2]).to(torch.uint8), 8)
+        del q
+        sz = torch.stack([s, torch.zeros_like(s)], -1).to(
+            torch.bfloat16).contiguous()
+        group = K // s.shape[0]
+        return lambda x: torch.ops.aten._weight_int4pack_mm(x, packed, group,
+                                                            sz)
+    if label == "K6":
+        wg, sg, wu, su, wd, sd = mats
+        wt = [m.t().contiguous() for m in (wg, wu, wd)]
+        sb = [m.to(torch.bfloat16) for m in (sg, su, sd)]
+        mm = torch.ops.aten._weight_int8pack_mm
+
+        def mlp(x):
+            g, u = mm(x, wt[0], sb[0]), mm(x, wt[1], sb[1])
+            return mm(torch.nn.functional.silu(g) * u, wt[2], sb[2])
+        return mlp
+    return None
+
+
+def _library_ms(label, x, per_layer, want):
+    """The library call's ms a call (CUDA-graph replay over the layers'
+    weights) and its largest error against the plain version, or (None,
+    why it does not run)."""
+    try:
+        fns = [_library_fn(label, m) for m in per_layer]
+        if fns[0] is None:
+            return None, "no library call"
+        got = fns[0](x)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        ms = graph_ms(lambda i: fns[i % len(fns)](x), len(fns))
+        return ms, f"max error {err:.3g} against the plain version"
+    except (RuntimeError, NotImplementedError, AttributeError) as e:
+        return None, f"does not run: {str(e).splitlines()[0][:160]}"
+
+
+def _routes(label):
+    """K5's and K6's two routes called directly: the streaming core and
+    the mma.sync family."""
+    from videollm_online_tpu_torch.ops import fused_mlp as fm
+    if label == "K5":
+        return {"streaming": lambda x, *m: fm._launch_matmul(x, *m, True),
+                "mma.sync": lambda x, *m: fm._launch_matmul(x, *m, False)}
+    if label == "K6":
+        return {"streaming": fm._launch_wo_mlp,
+                "mma.sync": lambda x, *m: fm._launch_mlp(fm.LAYOUT_Q8, x,
+                                                         *m)}
+    return {}
+
+
 def _fused_small_cases(gen):
     """Odd shapes on real quantized weights: groups below 128, byte rows
     that are not a multiple of 16 or of the column tile, an odd number of
@@ -1597,7 +1673,10 @@ def phase_fused(rows=(1, 20, 91, 128), timed_rows=(1, 20, 91, 128)):
     replays of a CUDA graph of the calls, so that no host launch cost is in
     it, and around 10 eager calls after 2 warm-ups; each call on the next of
     2 layers' weights so that they come from device memory, not the L2)
-    beside the plain version's, the dequantizing route's and the bound."""
+    beside the plain version's, the dequantizing route's and the bound.
+    K5 also at 8 rows (the gate's logits of a chunk); K5 and K6 on both of
+    their routes (the streaming core and the mma.sync family, each held to
+    the plain version) and beside one library call for the same function."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     D, F, V, layers = 4096, 14336, 128256, 2
     log(f"fused-MLP kernels vs plain (tolerance {FUSED_TOL}):")
@@ -1611,17 +1690,27 @@ def phase_fused(rows=(1, 20, 91, 128), timed_rows=(1, 20, 91, 128)):
                      for l in range(layers)]
         worst = []
         timing = {}
-        for B in rows:
+        routes = _routes(label)
+        tol_key = "matmul" if label == "K5" else "mlp_bf16"
+        for B in (rows if label != "K5" else sorted({8, *rows})):
             x = torch.randn((B, D), generator=gen, device="cuda").to(
                 torch.bfloat16)
-            r = _fused_case(label, x, per_layer[0],
-                            "matmul" if label == "K5" else "mlp_bf16",
+            r = _fused_case(label, x, per_layer[0], tol_key,
                             f"8B shapes, {B} rows")
             worst.append(r)
             log(f"  {label} at the 8B shapes, {B} rows: {_readings(r)} "
                 f"(two calls on one input give equal bits)")
-            if B not in timed_rows:
+            want = plain(x, *per_layer[0])
+            for route, fn in routes.items():
+                rr = _close(f"{label} {route} route, {B} rows",
+                            fn(x, *per_layer[0]), want, FUSED_TOL[tol_key])
+                worst.append(rr)
+                log(f"    {route} route: {_readings(rr)}")
+            if B not in timed_rows and not (label == "K5" and B == 8):
                 continue
+            # the card's clocks recover from the plain version's load first
+            graph_ms(lambda i: kern(x, *per_layer[i % layers]), layers,
+                     reps=100)
             t = {"ms": graph_ms(lambda i: kern(x, *per_layer[i % layers]),
                                 layers),
                  "eager_ms": cuda_ms(
@@ -1631,8 +1720,12 @@ def phase_fused(rows=(1, 20, 91, 128), timed_rows=(1, 20, 91, 128)):
                  "dequant_route_ms": cuda_ms(
                      lambda i: _dequant_route(layout, x,
                                               per_layer[i % layers]), 10, 2),
-                 "library_ms": None,
                  **_fused_bound(label, B, D, F, V, per_layer[0])}
+            t["library_ms"], t["library"] = _library_ms(label, x, per_layer,
+                                                        want)
+            for route, fn in routes.items():
+                t[f"{route}_ms"] = graph_ms(
+                    lambda i: fn(x, *per_layer[i % layers]), layers)
             timing[B] = t
             log(f"  {label} at the 8B shapes, {B} rows, device ms per call: "
                 f"kernel {t['ms']:.4f} (CUDA-graph replay; called eagerly "
@@ -1642,7 +1735,11 @@ def phase_fused(rows=(1, 20, 91, 128), timed_rows=(1, 20, 91, 128)):
                 f"{t['bound_ms']:.4f} ({t['bound_by']}, {t['mbytes']:.1f} MB "
                 f"at {HBM_BYTES_PER_S / 1e12} TB/s): "
                 f"{t['ms'] / t['bound_ms']:.2f} x the bound, "
-                f"{100 * t['bound_ms'] / t['ms']:.1f}% of it")
+                f"{100 * t['bound_ms'] / t['ms']:.1f}% of it"
+                + "".join(f"; {route} route {t[route + '_ms']:.4f}"
+                          for route in routes)
+                + ("" if t["library_ms"] is None and label not in ("K5", "K6")
+                   else f"; library call {t['library_ms']} ({t['library']})"))
         out[label] = {**timing[timed_rows[0]],
                       "max_abs_err": max(small[label],
                                          _worst(worst)["max"])}
@@ -1651,29 +1748,56 @@ def phase_fused(rows=(1, 20, 91, 128), timed_rows=(1, 20, 91, 128)):
     return out
 
 
-# ------------------------------------------------------ K4's launches
-def _k4_route_bytes(route, B, D, F, mats, sms):
-    """The bytes each launch of one K4 call moves, each input read once and
-    each output written once, for the route's split counts: the gate/up
-    product, the SwiGLU merge, the down product, the down merge."""
+# ------------------------------------------------ K4's, K5's, K6's launches
+def _route_bytes(label, route, B, mats, sms):
+    """The bytes each launch of one call moves, each input read once and
+    each output written once, for the route's split counts: K4 and K6 the
+    gate/up product, the SwiGLU merge, the down product, the down merge;
+    K5 the product and, past one split (or on the mma.sync family), the
+    merge."""
     from videollm_online_tpu_torch.ops import fused_mlp as fm
-    wg, sg, wu, su, wd, sd = mats
-    group_d, group_f = D // sg.shape[0], F // sd.shape[0]
-    if route == "wgmma":
-        s1 = fm.q4c_schedule(D, F // 2, B, 2, sms)[1]
-        s2 = fm.q4c_schedule(F, D // 2, B, 1, sms)[1]
-    else:
-        s1 = fm._split(D, group_d, F // 2, B, 2, sms)[0]
-        s2 = fm._split(F, group_f, D // 2, B, 1, sms)[0]
 
     def nbytes(*ts):
         return sum(t.numel() * t.element_size() for t in ts)
 
+    if label == "K5":
+        w, sc = mats
+        K, N = w.shape[0], sc.shape[-1]
+        group = K // sc.shape[0]
+        if route == "streaming":
+            s1 = fm.wo_schedule(fm.LAYOUT_Q4C, K, N // 2, B, group, 1, sms)[1]
+        else:
+            s1 = fm._split(K, group, N // 2, B, 1, sms)[0]
+        if route == "streaming" and s1 == 1:
+            return (s1,), [nbytes(w, sc) + B * K * 2 + B * N * 4]
+        part = s1 * B * N * 4
+        return (s1,), [nbytes(w, sc) + B * K * 2 + part, part + B * N * 4]
+    wg, sg, wu, su, wd, sd = mats
+    D, F = wg.shape[0], wd.shape[0]
+    if label == "K4":
+        group_d, group_f = D // sg.shape[0], F // sd.shape[0]
+        if route == "wgmma":
+            s1 = fm.q4c_schedule(D, F // 2, B, 2, sms)[1]
+            s2 = fm.q4c_schedule(F, D // 2, B, 1, sms)[1]
+        else:
+            s1 = fm._split(D, group_d, F // 2, B, 2, sms)[0]
+            s2 = fm._split(F, group_f, D // 2, B, 1, sms)[0]
+        scales = ((sg, su), (wd, sd))
+    else:
+        if route == "streaming":
+            s1 = fm.wo_schedule(fm.LAYOUT_Q8, D, F, B, D, 2, sms)[1]
+            s2 = fm.wo_schedule(fm.LAYOUT_Q8, F, D, B, F, 1, sms)[1]
+        else:
+            s1 = fm._split(D, D, F, B, 2, sms)[0]
+            s2 = fm._split(F, F, D, B, 1, sms)[0]
+        scales = ((), (wd,))
     part1, part2 = 2 * s1 * B * F * 4, s2 * B * D * 4
-    return (s1, s2), [nbytes(wg, sg, wu, su) + B * D * 2 + part1,
-                      part1 + B * F * 2,
-                      nbytes(wd, sd) + B * F * 2 + part2,
-                      part2 + B * D * 4]
+    merge1 = nbytes(sg, su) if label == "K6" else 0
+    merge2 = nbytes(sd) if label == "K6" else 0
+    return (s1, s2), [nbytes(wg, wu, *scales[0]) + B * D * 2 + part1,
+                      part1 + merge1 + B * F * 2,
+                      nbytes(*scales[1]) + B * F * 2 + part2,
+                      part2 + merge2 + B * D * 4]
 
 
 def _kernel_sequence(fn, calls, per_call):
@@ -1700,47 +1824,261 @@ def _kernel_sequence(fn, calls, per_call):
 
 
 def phase_k4_profile(rows=(1, 20, 91, 128)):
-    """One K4 call at the 8B shapes, launch by launch, on both of its
-    routes: the wgmma kernel (what the wrapper runs at these shapes) and
-    the mma.sync family it runs for unaligned shapes, called directly. Per
-    launch its device time under torch.profiler (mean of 6 calls on one
-    layer's weights) and the bytes it moves; per route the whole call by
-    CUDA-graph replay over 2 layers' weights."""
+    """One call each of K4, K5 and K6 at the 8B shapes, launch by launch,
+    on both routes of each, called directly: K4's wgmma kernel and K5's and
+    K6's streaming core (what the wrappers run at these shapes) and the
+    mma.sync family. Per launch its device time under torch.profiler
+    (mean of 6 calls on one layer's weights), the bytes it moves and their
+    rate; per route the whole call by CUDA-graph replay over 2 layers'
+    weights. K5 also at 8 rows."""
     from videollm_online_tpu_torch.ops import fused_mlp as fm
     gen = torch.Generator(device="cuda").manual_seed(4)
-    D, F, layers = 4096, 14336, 2
-    stacked = _fused_mats("K4", D, F, 0, gen, layers)
-    per_layer = [[t[l] for pair in stacked for t in pair]
-                 for l in range(layers)]
+    D, F, V, layers = 4096, 14336, 128256, 2
     sms = fm._sm_count(torch.device("cuda"))
-    routes = {"wgmma": fm.fused_mlp_int4c,
-              "mma.sync": lambda x, *m: fm._launch_mlp(fm.LAYOUT_Q4C, x, *m)}
     out = {}
-    for B in rows:
-        x = torch.randn((B, D), generator=gen, device="cuda").to(
-            torch.bfloat16)
-        for route, fn in routes.items():
-            ms = graph_ms(lambda i: fn(x, *per_layer[i % layers]), layers)
-            splits, moved = _k4_route_bytes(route, B, D, F, per_layer[0], sms)
-            # the two products, the two merges and the output's cast
-            seq = _kernel_sequence(lambda: fn(x, *per_layer[0]), 6, 5)
-            out[(route, B)] = ms
-            log(f"K4 {route} route, {B} rows (splits {splits}): "
-                f"{ms * 1e3:.1f} us a call by CUDA-graph replay")
-            if seq is None:
-                log("  launches: the profiler saw no device kernel (not "
-                    "measured)")
-                continue
-            named = [(n, us) for n, us in seq
-                     if "fused_mlp" in n or "swiglu" in n]
-            for (name, us), mb in zip(named, moved):
-                log(f"  {us:9.2f} us  {mb / 1e6:8.2f} MB  "
-                    f"{mb / us / 1e3:7.1f} GB/s  {name[:70]}")
-            for name, us in seq:
-                if (name, us) not in named:
-                    log(f"  {us:9.2f} us  (other)  {name[:70]}")
-    del stacked, per_layer
-    torch.cuda.empty_cache()
+    for label in ("K4", "K5", "K6"):
+        stacked = _fused_mats(label, D, F, V, gen, layers)
+        per_layer = [[t[l] for pair in stacked for t in pair]
+                     for l in range(layers)]
+        routes = ({"wgmma": fm.fused_mlp_int4c,
+                   "mma.sync": lambda x, *m: fm._launch_mlp(fm.LAYOUT_Q4C, x,
+                                                            *m)}
+                  if label == "K4" else _routes(label))
+        for B in (rows if label != "K5" else sorted({8, *rows})):
+            x = torch.randn((B, D), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            for route, fn in routes.items():
+                ms = graph_ms(lambda i: fn(x, *per_layer[i % layers]), layers)
+                splits, moved = _route_bytes(label, route, B, per_layer[0],
+                                             sms)
+                # the products and merges, and the MLPs' output cast
+                seq = _kernel_sequence(lambda: fn(x, *per_layer[0]), 6,
+                                       len(moved) + (label != "K5"))
+                out[(label, route, B)] = ms
+                log(f"{label} {route} route, {B} rows (splits {splits}): "
+                    f"{ms * 1e3:.1f} us a call by CUDA-graph replay")
+                if seq is None:
+                    log("  launches: the profiler saw no device kernel (not "
+                        "measured)")
+                    continue
+                named = [(n, us) for n, us in seq
+                         if any(k in n for k in ("fused_mlp", "swiglu",
+                                                 "wo_kernel", "matmul_int4c"))]
+                for (name, us), mb in zip(named, moved):
+                    log(f"  {us:9.2f} us  {mb / 1e6:8.2f} MB  "
+                        f"{mb / us / 1e3:7.1f} GB/s  {name[:70]}")
+                for name, us in seq:
+                    if (name, us) not in named:
+                        log(f"  {us:9.2f} us  (other)  {name[:70]}")
+        del stacked, per_layer
+        torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------------------ the streaming core's probe
+WO_COUNTERS = ("wait", "load", "decode", "mma", "flush", "release", "slots",
+               "total", "sink", "sampled")
+WO_MODES = ("run", "timed", "idle", "read", "decode")
+
+
+def _wo_loop_sass(lib_path, layout, n):
+    """The SASS of one slot's consumer loop of wo_kernel<layout, n, 0>: the
+    smallest loop (a backward branch and its target) that holds HMMA, as
+    (instructions, {opcode: count}); None without cuobjdump."""
+    import re
+    tool = _cuobjdump()
+    if not tool:
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, check=True).stdout
+    want = re.compile(rf"wo_kernelILi{layout}ELi{n}ELi0E")
+    lines, on = [], False
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            on = bool(want.search(m.group(1)))
+            continue
+        if on:
+            lines.append(line)
+    labels, addrs, instrs = {}, {}, []
+    for line in lines:
+        lab = re.match(r"\s*\.(L_x_\d+):", line)
+        if lab:
+            labels[lab.group(1)] = len(instrs)
+            continue
+        ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
+                       r"([A-Z0-9_.]+)(.*?);", line)
+        if ins:
+            addrs[int(ins.group(1), 16)] = len(instrs)
+            instrs.append((ins.group(3), ins.group(4)))
+    best = None
+    for i, (op, rest) in enumerate(instrs):
+        if not op.startswith("BRA"):
+            continue
+        m = re.search(r"\(\.(L_x_\d+)\)", rest)
+        h = re.search(r"0x([0-9a-f]+)", rest)
+        target = (labels.get(m.group(1)) if m else
+                  addrs.get(int(h.group(1), 16)) if h else None)
+        if target is not None and target <= i:
+            body = instrs[target:i + 1]
+            if any(o.startswith("HMMA") for o, _ in body) and (
+                    best is None or len(body) < len(best)):
+                best = body
+    if best is None:
+        return None
+    ops = {}
+    for op, _ in best:
+        key = op.split(".")[0]
+        ops[key] = ops.get(key, 0) + 1
+    return len(best), dict(sorted(ops.items(), key=lambda kv: -kv[1]))
+
+
+def phase_wo_probe(rows=(1, 20)):
+    """The streaming core (K5's and K6's kernel) measured phase by phase
+    (--phases wo_probe; in no default run; its library is built with
+    -DWO_PROBE). For K5's head (K 4096, N 128256, q4c, groups of 128) and
+    one of K6's int8 products (K 4096, N 14336) at 1 and 20 rows: the
+    product as built (mode run) against the plain version; its time per
+    call (CUDA-graph replay over 2 layers' weights) as built and with every
+    warp timing the phases of each slot in registers (clock64, written once
+    at exit: mode timed), which counts only within 10 % of the time as
+    built; the cycles a slot per phase; the same for three cut-down
+    consumers (idle: wait and release only; read: read every byte; decode:
+    read and decode, no products); the SASS of one slot's consumer loop;
+    and for K5 the same product on K4's wgmma kernel and on the mma.sync
+    family, the A/B of the products' issue."""
+    import ctypes
+    from videollm_online_tpu_torch.ops import _build
+    from videollm_online_tpu_torch.ops import fused_mlp as fm
+    lib = _build.load("fused_mlp", ("WO_PROBE",))
+    raw, _ = _ptxas_report_log(_build.build_log("fused_mlp", ("WO_PROBE",)))
+    labels = _demangled(sorted(n for n in raw if "wo_kernel" in n))
+    for mangled in sorted(labels, key=labels.get):
+        log(f"  probe build {labels[mangled]}: {raw[mangled]}")
+    probe = lib.wo_probe
+    probe.restype = ctypes.c_int
+    probe.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
+                      + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    wgmma = lib.wo_probe_q4c_wgmma
+    wgmma.restype = ctypes.c_int
+    wgmma.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
+                      + [ctypes.c_void_p])
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    sms = fm._sm_count(torch.device("cuda"))
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                            "--format=csv,noheader"], capture_output=True,
+                           text=True).stdout.strip()
+    log(f"wo probe: SM clock (now, max) {clock}")
+    out = {}
+    for label, layout, K, n, group in (("K5", fm.LAYOUT_Q4C, 4096, 128256, 128),
+                                       ("K6", fm.LAYOUT_Q8, 4096, 14336, 0)):
+        key = "q4c" if layout == fm.LAYOUT_Q4C else "q8"
+        w, sc = _rand_quantized(key, K, n, gen, layers=2)
+        group = group or K
+        cbytes = w.shape[-1]
+        for B in rows:
+            x = torch.randn((B, K), generator=gen, device="cuda").to(
+                torch.bfloat16)
+            design, splits, per, grid = fm.wo_schedule(layout, K, cbytes, B,
+                                                       group, 1, sms)
+            sass = _wo_loop_sass(_build.library_path("fused_mlp"), layout,
+                                 design)
+            log(f"{label} {B} rows: one slot's consumer loop of wo_kernel<"
+                f"{layout}, {design}> (cuobjdump -sass): "
+                + ("not measured" if sass is None else
+                   f"{sass[0]} instructions, {sass[1]}"))
+            part = torch.empty((splits * B * n,), dtype=torch.float32,
+                               device="cuda")
+            counters = torch.zeros((grid * 8 * len(WO_COUNTERS),),
+                                   dtype=torch.int64, device="cuda")
+
+            def run(mode, i):
+                err = probe(mode, layout, design, x.data_ptr(), w[i].data_ptr(),
+                            sc[i].data_ptr(), part.data_ptr(),
+                            counters.data_ptr(), B, K, n, group, splits, per,
+                            grid, torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"wo_probe mode {mode}: CUDA error {err}")
+
+            run(0, 0)
+            got = part.view(splits, B, n).sum(0)
+            if layout == fm.LAYOUT_Q4C:
+                want = fm.matmul_int4c_reference(x, w[0], sc[0])
+            else:
+                want = x.float() @ w[0].float()
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            if not err <= 1e-3 * float(want.abs().max()):
+                raise AssertionError(f"{label} {B} rows: probe build run "
+                                     f"differs from the plain version by {err}")
+            bytes_ = w[0].numel() + (sc[0].numel() * 4 if layout == fm.LAYOUT_Q4C
+                                     else 0)
+            # clocks up first; then run and timed in turns (run, timed,
+            # timed, run), each mode's mean
+            graph_ms(lambda i: run(0, i % 2), 2, reps=400)
+            order = (0, 1, 1, 0, 2, 3, 4)
+            took = [graph_ms(lambda i: run(mode, i % 2), 2, reps=40)
+                    for mode in order]
+            times = {name: float(np.mean([t for m, t in zip(order, took)
+                                          if m == mode]))
+                     for mode, name in enumerate(WO_MODES)}
+            ratio = times["timed"] / times["run"]
+            log(f"{label} {B} rows (N {design}, splits {splits}, per {per}, "
+                f"grid {grid}; {bytes_ / 1e6:.1f} MB): ms a call: "
+                + ", ".join(f"{k} {v:.4f} ({bytes_ / v / 1e6:.0f} GB/s)"
+                            for k, v in times.items())
+                + f"; timed / run {ratio:.3f}"
+                + ("" if ratio <= 1.10 else
+                   " -- the probe distorted the run: its readings are not used"))
+            readings = {}
+            for mode, name in enumerate(WO_MODES):
+                if name == "run":
+                    continue
+                counters.zero_()
+                run(mode, 0)
+                c = counters.view(grid * 8, len(WO_COUNTERS)).cpu().double()
+                slots, sampled = float(c[:, 6].sum()), float(c[:, 9].sum())
+                per_slot = {k: float(c[:, i].sum()) / sampled
+                            for i, k in enumerate(WO_COUNTERS[:6])}
+                per_slot["sum"] = sum(per_slot.values())
+                per_slot["total"] = float(c[:, 7].sum()) / slots
+                readings[name] = per_slot
+                mhz = float(c[:, 7].max()) / (times[name] * 1e3)
+                log(f"  {name}: cycles a slot use a warp (a slot: 8 KB of "
+                    f"one strip, shared by its group's warps; phases over "
+                    f"the {sampled:.0f} uses timed of {slots:.0f}, total over "
+                    f"all): " + ", ".join(f"{k} {v:.0f}"
+                                          for k, v in per_slot.items())
+                    + f"; busiest warp {c[:, 7].max():.0f} cycles = "
+                    f"{mhz:.0f} MHz of the call's time")
+            out[(label, B)] = {"ms": times, "ratio": ratio, "cycles": readings}
+            if layout == fm.LAYOUT_Q4C:
+                wout = torch.empty((B, n), dtype=torch.float32, device="cuda")
+                _, s1, p1, g1 = fm.q4c_schedule(K, cbytes, B, 1, sms)
+                wpart = torch.empty((s1 * B * n,), dtype=torch.float32,
+                                    device="cuda")
+
+                def run_wgmma(i):
+                    e = wgmma(x.data_ptr(), w[i].data_ptr(), sc[i].data_ptr(),
+                              wpart.data_ptr(), wout.data_ptr(), B, K, n,
+                              group, s1, p1, g1,
+                              torch.cuda.current_stream().cuda_stream)
+                    if e:
+                        raise RuntimeError(f"wo_probe_q4c_wgmma: CUDA error {e}")
+
+                run_wgmma(0)
+                torch.cuda.synchronize()
+                werr = float((wout - want).abs().max())
+                ms_w = graph_ms(lambda i: run_wgmma(i % 2), 2)
+                ms_m = graph_ms(lambda i: fm._launch_matmul(x, w[i % 2],
+                                                            sc[i % 2], False), 2)
+                ms_s = graph_ms(lambda i: fm._launch_matmul(x, w[i % 2],
+                                                            sc[i % 2], True), 2)
+                log(f"  {label} {B} rows, ms a call with the merge: streaming "
+                    f"core {ms_s:.4f}, K4's wgmma kernel {ms_w:.4f} (max error "
+                    f"{werr:.2e}), mma.sync family {ms_m:.4f}")
+        del w, sc
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2659,7 +2997,7 @@ PHASES = {"toolchain": phase_toolchain, "build": phase_build,
           "small_trainer": phase_small_trainer,
           "main_training": phase_main_training,
           "train_seeds": phase_train_seeds, "fused": phase_fused,
-          "k4_profile": phase_k4_profile,
+          "k4_profile": phase_k4_profile, "wo_probe": phase_wo_probe,
           "small_int4_engine": phase_small_int4_engine,
           "main_path_int4": phase_main_path_int4,
           "ab_paths": phase_ab_paths, "k3": phase_k3,

@@ -374,12 +374,16 @@ FUSED = {"q4c": (fm.fused_mlp_int4c, fm.fused_mlp_int4c_reference,
                 lambda w, group=None: quant.quantize_weight(w, axis=-2))}
 
 
-def _quantized(layout, shapes, group, dev, seed):
+def _quantized(layout, shapes, group, dev, seed, std=None):
+    """Quantized random matrices of the given shapes, of standard deviation
+    0.05, or std / sqrt(rows) (a layer's weights, whose outputs keep the
+    scale of its inputs) when std is given."""
     rng = np.random.RandomState(seed)
     mats = []
     for shape in shapes:
+        scale = 0.05 if std is None else std / shape[0] ** 0.5
         q = FUSED[layout][2](torch.from_numpy(
-            (rng.randn(*shape) * 0.05).astype(np.float32)).to(dev),
+            (rng.randn(*shape) * scale).astype(np.float32)).to(dev),
             group=group)
         mats += [q[layout], q["scale"]]
     return mats, rng
@@ -479,6 +483,117 @@ def test_fused_kernels_raise_on_what_they_do_not_take(card):
     with pytest.raises(ValueError, match="multiple of 16"):
         fm.matmul_int4c(torch.zeros((1, 24), dtype=torch.bfloat16,
                                     device=card), *odd)
+
+
+# ------------------------------- the streaming core of K5 and K6 (wo_kernel)
+@pytest.mark.parametrize("rows", [1, 8, 20, 91, 128])
+@pytest.mark.parametrize("K,N,group", [(512, 128256, 128), (512, 128256, 64),
+                                       (256, 2080, 128), (256, 2080, 64),
+                                       (80, 1024, 16)])
+def test_matmul_int4c_streaming_core_matches_plain_on_card(card, rows, K, N,
+                                                           group):
+    """K5 on the streaming core against its plain version: the 8B vocab (V
+    128256, 501 strips of 128 byte columns) and N 2080 (a strip tail of 16
+    byte columns), groups of 64 and 128, and groups of 16 over K 80 (four
+    groups a slot, a last slot of 16 rows), at every N it instantiates
+    (8 to 64, two 64-row blocks at 91 and 128 rows); chip_smoke.py's K5
+    tolerance; the wrapper launches one call and two calls give equal
+    bits."""
+    (w, s), rng = _quantized("q4c", [(K, N)], group, card, K + N + rows)
+    x = torch.from_numpy(rng.randn(rows, K).astype(np.float32)).to(
+        torch.bfloat16).to(card)
+    want = fm.matmul_int4c_reference(x, w, s)
+    got = fm._launch_matmul(x, w, s, True)
+    assert got.dtype == torch.float32 and got.shape == (rows, N)
+    _held(got, want, "matmul")
+    assert torch.equal(got, fm._launch_matmul(x, w, s, True))
+    before = fm.matmul_int4c.launches
+    _held(fm.matmul_int4c(x, w, s), want, "matmul")
+    assert fm.matmul_int4c.launches == before + 1
+
+
+@pytest.mark.parametrize("rows", [1, 20, 91, 128])
+@pytest.mark.parametrize("D,F", [(4096, 14336), (80, 176)])
+def test_fused_mlp_int8_streaming_core_matches_plain_on_card(card, rows, D,
+                                                             F):
+    """K6 on the streaming core against its plain version at the 8B shapes
+    and at D 80, F 176 (strips of 80 and 48 byte columns, a last slot of 16
+    rows), bf16 x of unit scale and weights of a layer's scale (outputs of
+    about 0.5, as chip_smoke.py's 8B cases; with weights of 0.05 at D 4096
+    the outputs reach about 30, where a bf16 rounding flip of h that an
+    fp32 sum in another order causes moves an output past the absolute
+    tolerance, for the plain version as for any kernel); chip_smoke.py's
+    bf16 tolerance; the wrapper launches one call and two calls give equal
+    bits."""
+    mats, rng = _quantized("q8", [(D, F), (D, F), (F, D)], 0, card,
+                           D + F + rows, std=1.0)
+    x = torch.from_numpy(rng.randn(rows, D).astype(np.float32)).to(
+        torch.bfloat16).to(card)
+    want = fm.fused_mlp_int8_reference(x, *mats)
+    got = fm._launch_wo_mlp(x, *mats)
+    assert got.dtype == x.dtype and got.shape == x.shape
+    _held(got, want, "bf16")
+    assert torch.equal(got, fm._launch_wo_mlp(x, *mats))
+    before = fm.fused_mlp_int8.launches
+    _held(fm.fused_mlp_int8(x, *mats), want, "bf16")
+    assert fm.fused_mlp_int8.launches == before + 1
+
+
+def test_fused_mlp_int8_streaming_core_is_exact_on_card(card):
+    """K6 on the streaming core with weights that hold every int8 value,
+    unit gate and up scales and one-hot x rows gives exact integers: x row
+    i selects reduction row k, the gate there is 32 on the diagonal (silu
+    is then 32 exactly in fp32), the up matrix holds the 256 values on its
+    diagonal and zeros elsewhere, so h is 32 v_k at f = k and 0 elsewhere,
+    and out[i, d] = 32 v_k wd[k, d] (at most 2^19, exact in fp32)."""
+    n = 256
+    idx = torch.arange(n, device=card)
+    val = (idx - 128).to(torch.int8)                    # every int8 value
+    wg = (((idx[:, None] + idx[None, :]) % n) - 128).to(torch.int8)
+    wg[idx, idx] = 32
+    wu = torch.zeros((n, n), dtype=torch.int8, device=card)
+    wu[idx, idx] = val
+    wd = (((idx[:, None] + 3 * idx[None, :]) % n) - 128).to(torch.int8)
+    ones = torch.ones(n, device=card)
+    for ks in (list(range(128)), list(range(128, 256)), [255]):
+        x = torch.zeros((len(ks), n), device=card)
+        x[torch.arange(len(ks)), torch.tensor(ks)] = 1.0
+        got = fm._launch_wo_mlp(x, wg, ones, wu, ones, wd, ones)
+        k = torch.tensor(ks, device=card)
+        want = 32.0 * val[k].float()[:, None] * wd[k].float()
+        assert torch.equal(got, want)
+
+
+def test_streaming_core_refuses_other_layouts_and_designs_on_card(card):
+    """The streaming core's entry points refuse another layout than
+    their own (K5's q4c, K6's int8: q4p, an unknown code, the other's), a
+    design (N) that is not 8, 16, 32 or 64 (or 24 for q4c) or serves fewer
+    rows than x has, and out as the workspace at more than one split; they
+    launch nothing then."""
+    (w, s), _ = _quantized("q4c", [(256, 2048)], 128, card, 3)
+    x = torch.zeros((4, 256), dtype=torch.bfloat16, device=card)
+    out = torch.zeros((4, 2048), device=card)
+    part = torch.zeros((2 * 4 * 2048,), device=card)
+    stream = torch.cuda.current_stream(card).cuda_stream
+    mm, mlp = fm._kernels()[3], fm._kernels()[4]
+    for layout, design, splits, per, ws in ((1, 8, 1, 256, part),
+                                            (5, 8, 1, 256, part),
+                                            (0, 40, 1, 256, part),
+                                            (2, 24, 1, 256, part),
+                                            (0, 4, 1, 256, part),
+                                            (0, 2, 1, 256, part),
+                                            (0, 8, 2, 128, out)):
+        assert mm(layout, x.data_ptr(), w.data_ptr(), s.data_ptr(),
+                  ws.data_ptr(), out.data_ptr(), 4, 256, 2048, 128, splits,
+                  per, 4, design, stream) != 0
+    h = torch.zeros((4, 2048), dtype=torch.bfloat16, device=card)
+    for layout in (0, 1):
+        assert mlp(layout, x.data_ptr(), w.data_ptr(), s.data_ptr(),
+                   w.data_ptr(), s.data_ptr(), w.data_ptr(), s.data_ptr(),
+                   h.data_ptr(), part.data_ptr(), out.data_ptr(), 4, 256,
+                   2048, 128, 128, 1, 256, 4, 1, 2048, 4, 8, stream) != 0
+    torch.cuda.synchronize()
+    assert not out.any()
 
 
 def test_int4_forward_dispatches_the_kernels_on_card(card, monkeypatch):

@@ -437,6 +437,88 @@ def test_q4c_rows_and_tiles():
         assert mt * fused_mlp.q4c_rows(b) <= 128 and mt in (1, 2, 4)
 
 
+# The streaming core of K5 and K6: (label, layout, reduction rows, byte
+# columns, group, matrices) of the 8B head (V 128256: 501 strips of 128 byte
+# columns, the last of them its tail), K6's gate/up and down products, and
+# odd shapes with a strip tail (N 2080 at groups of 64; D 80, F 176)
+WO_SHAPES = [("K5 8B", 0, 4096, 64128, 128, 1),
+             ("K6 gate/up 8B", 2, 4096, 14336, 4096, 2),
+             ("K6 down 8B", 2, 14336, 4096, 14336, 1),
+             ("K5 N 2080", 0, 256, 1040, 64, 1),
+             ("K6 D 80 F 176", 2, 80, 176, 80, 2)]
+
+
+@pytest.mark.parametrize("shape", WO_SHAPES, ids=[s[0] for s in WO_SHAPES])
+@pytest.mark.parametrize("B", [1, 8, 20, 91, 128])
+def test_wo_work_units_cover_every_byte_column_and_row_once(shape, B):
+    """The streaming core's work decomposition (wo_units, the order the
+    CUDA kernel walks) covers every (matrix, x row, byte column, reduction
+    row) exactly once: per matrix the units are the product of partitions
+    of the x rows (blocks of N), the byte columns (strips of 128)
+    and the reduction rows (splits on a slot, and for q4c at more than one
+    split on a group); no unit twice; every CTA has work; on 132 SMs and
+    on 5."""
+    _, layout, rows, cols, group, mats = shape
+    for sms in (132, 5):
+        n, splits, per, grid = fused_mlp.wo_schedule(layout, rows, cols, B,
+                                                     group, mats, sms)
+        assert n == fused_mlp.wo_design(layout, B)
+        assert B <= n or n == 64
+        assert per % fused_mlp.WO_KW == 0 and splits * per >= rows
+        if splits > 1 and layout == fused_mlp.LAYOUT_Q4C:
+            assert per % group == 0
+        work = fused_mlp.wo_units(layout, rows, cols, B, group, mats, sms)
+        gpc = fused_mlp.WO_WARPS // fused_mlp.wo_group_warps(layout, n)
+        assert len(work) == grid * gpc and grid <= sms
+        assert all(any(work[j * grid + c] for j in range(gpc))
+                   for c in range(grid))
+        units = [u for w in work for u in w]
+        assert len(set(units)) == len(units)
+        for mat in range(mats):
+            mine = [u for u in units if u[0] == mat]
+            x_spans = _intervals([(b0, b1) for _, b0, b1, *_ in mine], B)
+            col_spans = _intervals([(c0, c1) for *_, c0, c1, _, _ in mine],
+                                   cols)
+            row_spans = _intervals([(r0, r1) for *_, r0, r1 in mine], rows)
+            assert all(b1 - b0 <= n for b0, b1 in x_spans)
+            assert all(c1 - c0 <= fused_mlp.WO_STRIP for c0, c1 in col_spans)
+            assert all(r0 % per == 0 for r0, _ in row_spans)
+            assert len(mine) == (len(x_spans) * len(col_spans)
+                                 * len(row_spans))
+        assert {u[0] for u in units} == set(range(mats))
+
+
+def _bf16_bits(bits):
+    """int32 tensor of 16-bit patterns -> the bf16 values they encode."""
+    return bits.to(torch.int16).view(torch.bfloat16)
+
+
+@pytest.mark.parametrize("layout", ["q8", "q4c"])
+def test_streaming_core_decode_is_exact_for_every_byte(layout):
+    """A model of the streaming core's decode, step for step on int32
+    tensors, gives every one of the 256 byte values exactly: int8 by
+    __byte_perm into 0x4B0000XX (the byte xored with 0x80), one fp32
+    subtraction of 2^23 + 128 and the high half as bf16 (no I2F); q4c's
+    low nibble as 0x43XX (bf16 128 + v + 8) and its high nibble with bit 3
+    flipped, each less bf16 136."""
+    b = torch.arange(256, dtype=torch.int32)
+    signed = torch.arange(256, dtype=torch.int32).to(torch.uint8).view(
+        torch.int8).to(torch.int32)
+    if layout == "q8":
+        f = (0x4B000000 | (b ^ 0x80)).view(torch.float32) - 8388736.0
+        got = _bf16_bits(f.view(torch.int32) >> 16).float()
+        want = signed.float()
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+        return
+    bias = torch.tensor(136.0, dtype=torch.bfloat16)
+    lo = _bf16_bits((b & 0x0F) | 0x4300) - bias
+    hi = _bf16_bits(((b >> 4) & 0x0F) ^ 0x4308) - bias
+    want = quant._unpack_int4c(signed.to(torch.int8)[None, :],
+                               torch.float32)[0]
+    np.testing.assert_array_equal(lo.float().numpy(), want[:256].numpy())
+    np.testing.assert_array_equal(hi.float().numpy(), want[256:].numpy())
+
+
 # ------------------------------------------------------- the slice as a whole
 @pytest.fixture(scope="module")
 def int4_pair():

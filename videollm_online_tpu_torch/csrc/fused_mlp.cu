@@ -38,7 +38,10 @@
 // the products. Byte rows that are not 16-byte aligned (D or F not a
 // multiple of 32; no model has one) take the mma.sync design below.
 //
-// K5, K6, K7 and such K4 shapes: one family, qgemm_partial_kernel, computes
+// K5 and K6 (wo::, below): one streaming weight-only core on mma.sync.
+//
+// K7, and K4, K5, K6 at shapes whose byte rows are not 16-byte aligned (no
+// model has one): one family, qgemm_partial_kernel, computes
 // x @ W for one tile of byte columns and one range of reduction rows, with
 // the layout as a template parameter that says how a byte becomes values.
 // The TPU kernels walk the MLP's inner dimension F on a sequential grid axis
@@ -793,6 +796,596 @@ int launch_rows(const void* x, const void* w0, const void* s0, const void* w1, c
 
 }  // namespace q4c
 
+// ---------------------------------------------------------------------------
+// K5 and K6 for Hopper: one streaming weight-only core (wo::), a template
+// over the layout (q4c: two int4 a byte, a scale per group of `group`
+// reduction rows; q8: one int8 a byte, the column's scale applied by the
+// merge) and over N, the rows of x a unit serves (8, 16, 32 or 64, and 24
+// for q4c; above 64 rows a unit serves one 64-row block of x).
+//
+// Bound: the weight bytes (q4c up to about 74 rows, int8 up to 128), so the
+// core is a stream of weight tiles past consumers that must keep up with the
+// card's memory rate. chip_smoke.py --phases wo_probe times its phases per
+// slot (readings in PERF.md). Its design:
+// - The products run on mma.sync m16n8k16 with the decoded weights as A
+//   ("swap AB") and x as B: a warp issues them with no warpgroup fence or
+//   drain, and the decode of the next m-tiles overlaps the products in
+//   flight.
+// - Groups of G warps share one 128-byte column strip. Each group has its
+//   own ring of `stages` slots on its own mbarriers; a ninth warp only
+//   loads (its lane j issues group j's TMA copies as slots free up), so no
+//   consumer stalls on a copy's issue and no warp waits for a warp of
+//   another group. A slot holds KW = 64 reduction rows of the strip (8 KB,
+//   the 128-byte swizzle), the same 64 columns of x (N rows, the 128-byte
+//   swizzle) and, for q4c, where scale groups end in the slot, their scales
+//   for the strip's 256 output columns: no global load in the loop. (Slots
+//   of 32 rows, 4 KB, held even idle consumers to 1.8 to 2.6 TB/s, as if
+//   each copy cost the SM 150 to 240 cycles to issue; 64 rows reach 2.8.)
+// - Lane (g, t) reads rows 2t, 2t + 1, 2t + 8 and 2t + 9 of a 16-row step,
+//   16 / G bytes of chunk g of each: under the 128-byte swizzle the lanes of
+//   a quarter warp hit 8 different 16-byte bank groups (chunk g ^ 2t), so a
+//   16-byte read has no bank conflict.
+// - Decode without I2F: a q4c nibble by masks into 0x43XX (bf16 128 + v +
+//   8), two m-tiles a __byte_perm, and one bf16 subtraction; an int8 byte
+//   by __byte_perm into 0x4B0000XX (fp32 2^23 + v + 128), one FADD and the
+//   high half.
+// - Persistent CTAs (at most one a SM) of 8 consumer warps and the loading
+//   warp (so at most 168 registers a thread). Worker w (group j of CTA
+//   c, w = j * grid + c) takes units w, w + workers, ...: (matrix, row
+//   block, split of `per` reduction rows, strip), strips fastest. Each unit
+//   writes its fp32 partial result to its own slot, and the merges add the
+//   splits in a fixed order: equal bits run to run, no atomics.
+namespace wo {
+
+constexpr int KW = 64;                  // reduction rows a slot
+constexpr int STRIP = 128;              // byte columns a group streams
+constexpr int WARPS = 8;                // consumer warps; warp 8 loads
+constexpr int THREADS = (WARPS + 1) * 32;
+constexpr int W_BYTES = KW * STRIP;     // a slot's weight bytes
+constexpr int S_ROW = STRIP * 4;        // one scale row of a strip's byte columns, fp32
+constexpr int MAX_STAGES = 32;
+constexpr int SMEM_BUDGET = 227 * 1024;
+
+// Probe modes (built only with -DWO_PROBE, for chip_smoke.py --phases
+// wo_probe): the core as built timed phase by phase, and three cut-down
+// consumers: wait and release only, read every byte, read and decode.
+enum Mode { RUN = 0, TIMED = 1, IDLE = 2, READ = 3, DECODE = 4 };
+// per-warp counters of a probe: cycles a phase summed over slots, slots,
+// the warp's cycles in all, and a sink that keeps cut-down work alive
+enum Counter { P_WAIT, P_LOAD, P_DECODE, P_MMA, P_FLUSH, P_RELEASE, P_SLOTS, P_TOTAL, P_SINK,
+               P_SAMPLED, P_COUNT };
+// TIMED instruments one slot use in SAMPLE (the clock reads and the order
+// they force between phases slow a slot down; odd, so that the uses timed
+// fall on both slots of a 128-row scale group); the cut-down modes, every
+// use.
+constexpr int SAMPLE = 7;
+
+template <int LAYOUT, int N>
+struct Cfg {
+  static_assert(N == 8 || N == 16 || N == 24 || N == 32 || N == 64, "N");
+  static constexpr int NT = N / 8;  // n-tiles of x rows
+  // warps a strip: each keeps MTW * NT * 4 accumulators, 64 for int8 and
+  // twice 64 for q4c's group sums, within the 168 registers a thread of 9
+  // warps has (ptxas spilled int8 at 128)
+  static constexpr int G = LAYOUT == Q4C ? (NT == 3 ? 4 : NT > 2 ? NT : 2) : (NT > 2 ? NT / 2 : 1);
+  static constexpr int GPC = WARPS / G;                    // groups a CTA
+  static constexpr int LB = 16 / G;                        // bytes a lane reads of a row
+  static constexpr int MTW = LAYOUT == Q4C ? LB : LB / 2;  // m-tiles a warp
+  static constexpr int VEC = MTW < 4 ? MTW : 4;            // fp32 a store
+  static constexpr int X_BYTES = N * KW * 2;               // N rows of 128 bytes
+};
+
+struct Args {
+  float* partial;             // (mats, splits, B, n) fp32
+  unsigned long long* probe;  // probe builds: P_COUNT counters a warp
+  int B, K, n, cbytes, group;
+  int splits, per, strips, rblocks, units;
+  int stages, slot, sr;  // ring slots a group, bytes a slot, q4c scale rows a slot
+};
+
+__device__ __forceinline__ void unit_of(const Args& a, int u, int& mat, int& rb, int& split,
+                                        int& strip) {
+  strip = u % a.strips;
+  u /= a.strips;
+  split = u % a.splits;
+  u /= a.splits;
+  rb = u % a.rblocks;
+  mat = u / a.rblocks;
+}
+
+// The first q4c scale row the slot of rows [r, r + KW) needs: every group
+// ending in it (sr rows from it when groups are shorter than a slot), or -1.
+__device__ __forceinline__ int scale_row(const Args& a, int r) {
+  const int grp = r / a.group;
+  return (a.group < KW || (grp + 1) * a.group <= r + KW) ? grp : -1;
+}
+
+__device__ __forceinline__ unsigned long long clock_now() {
+  unsigned long long c;
+  asm volatile("mov.u64 %0, %%clock64;\n" : "=l"(c)::"memory");
+  return c;
+}
+
+// d += a * b on mma.sync; volatile where a probe must keep it in its phase
+// Whether the phase of the given parity has completed (no wait).
+__device__ __forceinline__ bool mbar_test(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+template <bool V>
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  if constexpr (V) {
+    mma16816(d, a, b[0], b[1]);
+  } else {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+        "{%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+}
+
+template <int LB>
+__device__ __forceinline__ void lds(uint32_t (&w)[(LB + 3) / 4], const unsigned char* p) {
+  if constexpr (LB == 16) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    w[0] = v.x;
+    w[1] = v.y;
+    w[2] = v.z;
+    w[3] = v.w;
+  } else if constexpr (LB == 8) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    w[0] = v.x;
+    w[1] = v.y;
+  } else if constexpr (LB == 4) {
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  } else {
+    w[0] = *reinterpret_cast<const uint16_t*>(p);
+  }
+}
+
+// bf16 pair minus 136: v + 8 in [0, 15] as 0x43XX (128 + v + 8) -> v
+__device__ __forceinline__ uint32_t less136(uint32_t v) {
+  const uint32_t bias = 0x43084308u;
+  __nv_bfloat162 r = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&v),
+                             *reinterpret_cast<const __nv_bfloat162*>(&bias));
+  return *reinterpret_cast<uint32_t*>(&r);
+}
+
+// The nibbles at bits 0-3 and 16-19 of v as a bf16 pair: q4c's low nibble
+// (stored as v + 8), and its high nibble (two's complement: bit 3 flipped).
+__device__ __forceinline__ uint32_t q4_lo(uint32_t v) { return less136((v & 0x000F000Fu) | 0x43004300u); }
+__device__ __forceinline__ uint32_t q4_hi(uint32_t v) { return less136((v & 0x000F000Fu) ^ 0x43084308u); }
+
+// The A fragments of m-tiles j and j + 1 (bytes j, j + 1 of words r0..r3
+// of rows 2t, 2t + 1, 2t + 8, 2t + 9): row g the low nibble's column, row
+// g + 8 the high nibble's. j is 0 or 2, known after unrolling.
+__device__ __forceinline__ void q4_pair(uint32_t r0, uint32_t r1, uint32_t r2, uint32_t r3, int j,
+                                        uint32_t (&fa)[4], uint32_t (&fb)[4]) {
+  const uint32_t sel = j | ((j + 1) << 4) | ((j + 4) << 8) | ((j + 5) << 12);
+  const uint32_t p = __byte_perm(r0, r1, sel), q = __byte_perm(r2, r3, sel);
+  fa[0] = q4_lo(p);
+  fa[1] = q4_hi(p >> 4);
+  fa[2] = q4_lo(q);
+  fa[3] = q4_hi(q >> 4);
+  fb[0] = q4_lo(p >> 8);
+  fb[1] = q4_hi(p >> 12);
+  fb[2] = q4_lo(q >> 8);
+  fb[3] = q4_hi(q >> 12);
+}
+
+// Byte i of x and of y (words xored with 0x80808080, so a byte is v + 128)
+// as the bf16 pair (x's, y's), exact: fp32 0x4B0000XX is 2^23 + v + 128.
+__device__ __forceinline__ uint32_t q8_pair(uint32_t x, uint32_t y, int i) {
+  const uint32_t sel = i | (4 << 4) | (4 << 8) | (7 << 12);  // byte i, 0, 0, 0x4B
+  const float fx = __uint_as_float(__byte_perm(x, 0x4B000000u, sel)) - 8388736.f;
+  const float fy = __uint_as_float(__byte_perm(y, 0x4B000000u, sel)) - 8388736.f;
+  return __byte_perm(__float_as_uint(fx), __float_as_uint(fy), 0x7632);
+}
+
+template <int LAYOUT, int N, int MODE>
+__global__ void __launch_bounds__(THREADS, 1)
+    wo_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap w0map,
+              const __grid_constant__ CUtensorMap w1map, const __grid_constant__ CUtensorMap s0map,
+              const __grid_constant__ CUtensorMap s1map, const Args a) {
+  using C = Cfg<LAYOUT, N>;
+  constexpr int NT = C::NT, G = C::G, LB = C::LB, MTW = C::MTW, NW = (LB + 3) / 4;
+  constexpr int VEC = C::VEC;
+  constexpr bool Q4 = LAYOUT == Q4C;
+  constexpr bool PRODUCTS = MODE == RUN || MODE == TIMED;
+  extern __shared__ unsigned char wo_raw[];
+  // 1024-aligned by an offset from the shared array, so loads stay LDS
+  unsigned char* base = wo_raw + ((1024u - (smem_u32(wo_raw) & 1023u)) & 1023u);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(base + C::GPC * a.stages * a.slot);
+  const int warp = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 32, 0);
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int j = 0; j < C::GPC; ++j)
+      for (int i = 0; i < a.stages; ++i) {
+        mbar_init(&bars[j * 2 * MAX_STAGES + i], 1);               // full
+        mbar_init(&bars[j * 2 * MAX_STAGES + MAX_STAGES + i], G);  // empty
+      }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  const int workers = gridDim.x * C::GPC;
+
+  if (warp == WARPS) {
+    // The loading warp: lane j fills group j's ring, slot use after slot
+    // use, as soon as the group's warps released the slot's previous use.
+    // Its cursor: unit u, its matrix, row block and strip, the next row r
+    // of [r, r1), and the slot and parity of the next use.
+    const int j = lane;
+    unsigned char* ring = base + j * a.stages * a.slot;
+    uint64_t* full = bars + j * 2 * MAX_STAGES;
+    uint64_t* empty = full + MAX_STAGES;
+    int u = j * gridDim.x + blockIdx.x, mat = 0, rb = 0, strip = 0, r = 0, r1 = 0, st = 0, ph = 0;
+    auto start = [&]() {
+      if (u < a.units) {
+        int split;
+        unit_of(a, u, mat, rb, split, strip);
+        r = split * a.per;
+        r1 = min(a.K, r + a.per);
+      }
+    };
+    start();
+    bool more = j < C::GPC && u < a.units;
+    while (__any_sync(0xffffffffu, more)) {
+      bool issued = false;
+      if (more && mbar_test(&empty[st], ph ^ 1)) {
+        unsigned char* slot = ring + st * a.slot;
+        const int srow = Q4 ? scale_row(a, r) : -1;
+        mbar_expect_tx(&full[st], W_BYTES + C::X_BYTES + (srow >= 0 ? 2 * a.sr * S_ROW : 0));
+        tma_2d(slot, mat ? &w1map : &w0map, &full[st], strip * STRIP, r);
+        tma_2d(slot + W_BYTES, &xmap, &full[st], r, rb * N);
+        if (srow >= 0) {
+          const CUtensorMap* sm = mat ? &s1map : &s0map;
+          unsigned char* dst = slot + W_BYTES + C::X_BYTES;
+          tma_2d(dst, sm, &full[st], strip * STRIP, srow);
+          tma_2d(dst + a.sr * S_ROW, sm, &full[st], a.n / 2 + strip * STRIP, srow);
+        }
+        if (++st == a.stages) {
+          st = 0;
+          ph ^= 1;
+        }
+        r += KW;
+        if (r >= r1) {
+          u += workers;
+          start();
+          more = u < a.units;
+        }
+        issued = true;
+      }
+      if (!__any_sync(0xffffffffu, issued)) __nanosleep(64);
+    }
+    return;
+  }
+
+  const int g = lane / 4, t = lane % 4;
+  const int grp = warp / G, q = warp % G;
+  const unsigned char* ring = base + grp * a.stages * a.slot;
+  uint64_t* full = bars + grp * 2 * MAX_STAGES;
+  uint64_t* empty = full + MAX_STAGES;
+
+  unsigned long long pc[P_COUNT] = {};
+  unsigned long long tick = 0;
+  if constexpr (MODE != RUN) pc[P_TOTAL] = clock_now();
+  uint32_t sink = 0;
+
+  float c[MTW][NT][4];
+  float acc[Q4 ? MTW : 1][Q4 ? NT : 1][4];
+  int st = 0, ph = 0, used = 0;
+  for (int u = grp * gridDim.x + blockIdx.x; u < a.units; u += workers) {
+    int mat, rb, split, strip;
+    unit_of(a, u, mat, rb, split, strip);
+    const int r0 = split * a.per, r1 = min(a.K, r0 + a.per);
+#pragma unroll
+    for (int j = 0; j < MTW; ++j)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          c[j][nt][e] = 0.f;
+          if constexpr (Q4) acc[j][nt][e] = 0.f;
+        }
+    int next_end = (r0 / a.group + 1) * a.group;  // q4c: the next group's end
+    for (int r = r0; r < r1; r += KW) {
+      auto use = [&](auto probed) {
+        constexpr bool P = decltype(probed)::value;
+        auto mark = [&](int counter) {
+          if constexpr (P) {
+            const unsigned long long now = clock_now();
+            pc[counter] += now - tick;
+            tick = now;
+          }
+        };
+        if constexpr (P) tick = clock_now();
+        mbar_wait(&full[st], ph);
+        mark(P_WAIT);
+        const unsigned char* slot = ring + st * a.slot;
+        const unsigned char* xs = slot + W_BYTES;
+        const float* ss = reinterpret_cast<const float*>(xs + C::X_BYTES);
+        int ends = 0;  // q4c: the groups ended in this slot so far
+#pragma unroll
+        for (int s = 0; s < KW / 16; ++s) {
+          if constexpr (MODE != IDLE) {
+            if (r + 16 * s >= r1) break;
+            // weights: rows 2t (+ 8) in chunk g ^ 2t, rows 2t + 1 (+ 8) in g ^ (2t + 1)
+            const unsigned char* row = slot + (16 * s + 2 * t) * STRIP + q * LB;
+            const int c0 = (g ^ (2 * t)) << 4, c1 = (g ^ (2 * t + 1)) << 4;
+            uint32_t R[4][NW];
+            lds<LB>(R[0], row + c0);
+            lds<LB>(R[1], row + STRIP + c1);
+            lds<LB>(R[2], row + 8 * STRIP + c0);
+            lds<LB>(R[3], row + 9 * STRIP + c1);
+            // x: bx[nt] = rows 8 nt + g, columns 16 s + 2t (+ 8), by ldmatrix
+            // of two n-tiles at a time: lane L gives row 8 (nt + L / 16) + L % 8
+            // of chunk 2s + (L / 8) % 2, stored at chunk ^ (row % 8)
+            uint32_t bx[NT][2];
+#pragma unroll
+            for (int nt = 0; nt < NT; nt += 2) {
+              const int xr = 8 * (nt + lane / 16) + lane % 8;
+              const int ch = (2 * s + (lane / 8) % 2) ^ (xr & 7);
+              const uint32_t addr = smem_u32(xs + xr * 128 + (ch << 4));
+              if (nt + 1 == NT)
+                asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+                             : "=r"(bx[nt][0]), "=r"(bx[nt][1])
+                             : "r"(addr));
+              else
+                asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                             : "=r"(bx[nt][0]), "=r"(bx[nt][1]), "=r"(bx[nt + 1 < NT ? nt + 1 : nt][0]),
+                               "=r"(bx[nt + 1 < NT ? nt + 1 : nt][1])
+                             : "r"(addr));
+            }
+            if constexpr (P) {
+#pragma unroll
+              for (int k = 0; k < 4; ++k)
+#pragma unroll
+                for (int w = 0; w < NW; ++w) sink ^= R[k][w];
+#pragma unroll
+              for (int nt = 0; nt < NT; ++nt) sink ^= bx[nt][0] ^ bx[nt][1];
+              mark(P_LOAD);
+            }
+            if constexpr (MODE == READ) continue;
+            uint32_t fr[MTW][4];
+            if constexpr (Q4) {
+#pragma unroll
+              for (int w = 0; w < NW; ++w)
+#pragma unroll
+                for (int j = 0; j < (LB < 4 ? LB : 4); j += 2)
+                  q4_pair(R[0][w], R[1][w], R[2][w], R[3][w], j, fr[4 * w + j], fr[4 * w + j + 1]);
+            } else {
+#pragma unroll
+              for (int k = 0; k < 4; ++k)
+#pragma unroll
+                for (int w = 0; w < NW; ++w) R[k][w] ^= 0x80808080u;
+#pragma unroll
+              for (int j = 0; j < MTW; ++j) {
+                const int i = j + MTW;  // row g + 8's byte
+                fr[j][0] = q8_pair(R[0][j / 4], R[1][j / 4], j % 4);
+                fr[j][1] = q8_pair(R[0][i / 4], R[1][i / 4], i % 4);
+                fr[j][2] = q8_pair(R[2][j / 4], R[3][j / 4], j % 4);
+                fr[j][3] = q8_pair(R[2][i / 4], R[3][i / 4], i % 4);
+              }
+            }
+            if constexpr (P) {
+#pragma unroll
+              for (int j = 0; j < MTW; ++j) sink ^= fr[j][0] ^ fr[j][1] ^ fr[j][2] ^ fr[j][3];
+              mark(P_DECODE);
+            }
+            if constexpr (PRODUCTS) {
+#pragma unroll
+              for (int j = 0; j < MTW; ++j)
+#pragma unroll
+                for (int nt = 0; nt < NT; ++nt) mma<P>(c[j][nt], fr[j], bx[nt]);
+              mark(P_MMA);
+              if constexpr (Q4) {
+                // a group ends: acc += c * its scales, c = 0
+                if (r + 16 * (s + 1) == next_end) {
+                  next_end += a.group;
+                  // the slot's scale rows are its groups' in order
+                  const float* sl = ss + (ends++) * STRIP + 16 * g + q * LB;
+                  const float* sh = sl + a.sr * STRIP;
+#pragma unroll
+                  for (int j = 0; j < MTW; ++j) {
+                    const float lo = sl[j], hi = sh[j];
+#pragma unroll
+                    for (int nt = 0; nt < NT; ++nt) {
+                      acc[j][nt][0] = fmaf(c[j][nt][0], lo, acc[j][nt][0]);
+                      acc[j][nt][1] = fmaf(c[j][nt][1], lo, acc[j][nt][1]);
+                      acc[j][nt][2] = fmaf(c[j][nt][2], hi, acc[j][nt][2]);
+                      acc[j][nt][3] = fmaf(c[j][nt][3], hi, acc[j][nt][3]);
+#pragma unroll
+                      for (int e = 0; e < 4; ++e) c[j][nt][e] = 0.f;
+                    }
+                  }
+                  mark(P_FLUSH);
+                }
+              }
+            }
+          }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[st]);
+        mark(P_RELEASE);
+        if constexpr (P) ++pc[P_SAMPLED];
+      };
+      if constexpr (MODE == TIMED) {
+        if (used % SAMPLE == 0)
+          use(std::true_type{});
+        else
+          use(std::false_type{});
+      } else {
+        use(std::integral_constant<bool, MODE != RUN>{});
+      }
+      if (++st == a.stages) {
+        st = 0;
+        ph ^= 1;
+      }
+      ++used;
+    }
+    if constexpr (PRODUCTS) {
+      // row g's byte columns bc .. bc + MTW - 1 (a 16-byte chunk lies
+      // wholly inside or outside the matrix: cbytes is a multiple of 16);
+      // row g + 8's: q4c's high nibbles, n / 2 on; int8's next MTW bytes
+      float* __restrict__ out =
+          a.partial + static_cast<size_t>(mat * a.splits + split) * a.B * a.n;
+      const int bc = strip * STRIP + 16 * g + q * LB;
+      if (bc < a.cbytes) {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int xr = rb * N + 8 * nt + 2 * t + (e & 1);
+            if (xr >= a.B) continue;
+            float* dst = out + static_cast<size_t>(xr) * a.n + bc +
+                         (e < 2 ? 0 : (Q4 ? a.n / 2 : MTW));
+#pragma unroll
+            for (int j0 = 0; j0 < MTW; j0 += VEC) {
+              float v[VEC];
+#pragma unroll
+              for (int i = 0; i < VEC; ++i) {
+                if constexpr (Q4)
+                  v[i] = acc[j0 + i][nt][e];
+                else
+                  v[i] = c[j0 + i][nt][e];
+              }
+              if constexpr (VEC == 4)
+                *reinterpret_cast<float4*>(dst + j0) = make_float4(v[0], v[1], v[2], v[3]);
+              else if constexpr (VEC == 2)
+                *reinterpret_cast<float2*>(dst + j0) = make_float2(v[0], v[1]);
+              else
+                dst[j0] = v[0];
+            }
+          }
+      }
+    }
+  }
+  if constexpr (MODE != RUN) {
+    pc[P_SLOTS] = used;
+    pc[P_TOTAL] = clock_now() - pc[P_TOTAL];
+    pc[P_SINK] = sink;
+    if (lane == 0)
+      for (int i = 0; i < P_COUNT; ++i)
+        a.probe[(static_cast<size_t>(blockIdx.x) * WARPS + warp) * P_COUNT + i] = pc[i];
+  }
+}
+
+// x (B, K) bf16 @ the `mats` matrices (K, n) of the layout: each unit's fp32
+// partial result into `partial` (mats, splits, B, n). Returns 0 or a CUDA
+// error code.
+template <int LAYOUT, int N, int MODE>
+int launch(const void* x, const void* w0, const void* s0, const void* w1, const void* s1,
+           void* partial, unsigned long long* probe, int B, int K, int n, int group, int mats,
+           int splits, int per, int grid, cudaStream_t stream) {
+  using C = Cfg<LAYOUT, N>;
+  Args a;
+  a.partial = static_cast<float*>(partial);
+  a.probe = probe;
+  a.B = B;
+  a.K = K;
+  a.n = n;
+  a.cbytes = LAYOUT == Q4C ? n / 2 : n;
+  a.group = LAYOUT == Q4C ? group : K;
+  a.splits = splits;
+  a.per = per;
+  a.strips = (a.cbytes + STRIP - 1) / STRIP;
+  a.rblocks = (B + N - 1) / N;
+  a.units = mats * a.rblocks * splits * a.strips;
+  a.sr = LAYOUT == Q4C && group < KW ? KW / group : 1;
+  const int s_bytes = LAYOUT == Q4C ? 2 * a.sr * S_ROW : 0;
+  a.slot = (W_BYTES + C::X_BYTES + s_bytes + 1023) / 1024 * 1024;
+  const int bars = C::GPC * 2 * MAX_STAGES * 8;
+  a.stages = min(MAX_STAGES, (SMEM_BUDGET - 1024 - bars) / (C::GPC * a.slot));
+  if (a.stages < 2) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = C::GPC * a.stages * a.slot + bars + 1024;
+  CUtensorMap xm, wm[2], sm[2];
+  const cuuint64_t xdims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(B)};
+  const cuuint64_t xstrides[1] = {static_cast<cuuint64_t>(K) * 2};
+  const cuuint32_t xbox[2] = {KW, N};
+  int e = encode_map(&xm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, xdims, xstrides, xbox,
+                     CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B);
+  const cuuint64_t wdims[2] = {static_cast<cuuint64_t>(a.cbytes), static_cast<cuuint64_t>(K)};
+  const cuuint64_t wstrides[1] = {static_cast<cuuint64_t>(a.cbytes)};
+  const cuuint32_t wbox[2] = {STRIP, KW};
+  const cuuint64_t sdims[2] = {static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(K / a.group)};
+  const cuuint64_t sstrides[1] = {static_cast<cuuint64_t>(n) * 4};
+  const cuuint32_t sbox[2] = {STRIP, static_cast<cuuint32_t>(a.sr)};
+  const void* ws[2] = {w0, w1};
+  const void* ss[2] = {s0, s1};
+  for (int m = 0; m < 2 && e == 0; ++m) {
+    e = encode_map(&wm[m], CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, ws[m], wdims, wstrides, wbox,
+                   CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B);
+    if (e == 0 && LAYOUT == Q4C)
+      e = encode_map(&sm[m], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, ss[m], sdims, sstrides, sbox,
+                     CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B);
+    else
+      sm[m] = wm[m];  // int8: no scales in the kernel
+  }
+  if (e != 0) return e;
+  cudaError_t err = cudaFuncSetAttribute(wo_kernel<LAYOUT, N, MODE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  wo_kernel<LAYOUT, N, MODE><<<grid, THREADS, smem, stream>>>(xm, wm[0], wm[1], sm[0], sm[1], a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Checks the arguments and picks the instance: design is N (8, 16, 32 or 64,
+// and 24 for q4c; 64-row blocks above 64 rows).
+template <int MODE>
+int launch_design(int layout, int design, const void* x, const void* w0, const void* s0,
+                  const void* w1, const void* s1, void* partial, unsigned long long* probe, int B,
+                  int K, int n, int group, int mats, int splits, int per, int grid,
+                  cudaStream_t stream) {
+  const int cbytes = layout == Q4C ? n / 2 : n;
+  // splits start on a slot and (q4c) on a group: a multiple of the larger
+  // of KW and the group, one of which divides the other
+  const int align = layout == Q4C && group > KW ? group : KW;
+  if ((layout != Q4C && layout != Q8) || B < 1 || B > 128 || K < 16 || K % 16 || n < 2 ||
+      cbytes % 16 ||
+      (layout == Q4C &&
+       (n % 2 || group < 16 || group % 16 || K % group || (group % KW && KW % group))) ||
+      per < KW || per % KW || (splits > 1 && per % align) || splits < 1 ||
+      static_cast<long long>(splits) * per < K || static_cast<long long>(splits - 1) * per >= K ||
+      grid < 1 || mats < 1 || mats > 2 ||
+      (design < B && design != 64) ||
+      reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(w0) % 16 ||
+      reinterpret_cast<uintptr_t>(w1) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // a probe build's cut-down modes exist for the designs of 1 and 20 rows
+  constexpr bool ALL = MODE == RUN;
+#define WO_N(L, NN)                                                                              \
+  if (design == NN)                                                                              \
+  return launch<L, NN, MODE>(x, w0, s0, w1, s1, partial, probe, B, K, n, group, mats, splits, \
+                             per, grid, stream)
+  if (layout == Q4C) {
+    WO_N(Q4C, 8);
+    WO_N(Q4C, 24);
+    if constexpr (ALL) {
+      WO_N(Q4C, 16);
+      WO_N(Q4C, 32);
+      WO_N(Q4C, 64);
+    }
+  } else {
+    WO_N(Q8, 8);
+    WO_N(Q8, 32);
+    if constexpr (ALL) {
+      WO_N(Q8, 16);
+      WO_N(Q8, 64);
+    }
+  }
+#undef WO_N
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace wo
+
 }  // namespace
 
 // The SwiGLU MLP: out (B, D) fp32 = (silu(x @ Wg) * (x @ Wu)) @ Wd.
@@ -867,3 +1460,98 @@ extern "C" int fused_mlp_q4c(const void* x, const void* wg, const void* sg, cons
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// K5 on the streaming core (wo::): out (B, n) fp32 = x (B, K) bf16 @ the
+// column-packed int4 w (K, n / 2) with scales s (K / group, n); layout must
+// be 0 (q4c). partial: fp32 workspace of splits * B * n elements, or out
+// itself at one split (the kernel then writes the result and no merge
+// runs). design: N, the rows of x a unit serves (8, 16,
+// 32 or 64, and 24 for q4c; 64-row blocks above 64 rows). Returns the first
+// CUDA error, or 0.
+extern "C" int fused_mlp_wo_matmul(int layout, const void* x, const void* w, const void* s,
+                                   void* partial, void* out, int B, int K, int n, int group,
+                                   int splits, int per, int grid, int design, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (layout != Q4C || (partial == out && splits != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int e = wo::launch_design<wo::RUN>(layout, design, x, w, s, w, s, partial, nullptr, B, K, n,
+                                     group, 1, splits, per, grid, st);
+  if (e != 0 || partial == out) return e;
+  matmul_int4c_merge_kernel<<<merge_blocks(B, n), MERGE_THREADS, 0, st>>>(
+      static_cast<const float*>(partial), static_cast<float*>(out), splits, B, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K6 on the streaming core: the SwiGLU MLP over int8 (layout must be 2),
+// out (B, D) fp32 = (silu(x @ Wg) * (x @ Wu)) @ Wd with the column scales
+// applied by the merges. x (B, D) bf16; h: (B, F) bf16 workspace; partial:
+// fp32 workspace of max(2 * split1 * B * F, split2 * B * D) elements;
+// group_d / group_f as for fused_mlp_swiglu (D and F); splitN, perN, gridN:
+// product N's splits, reduction rows a split (a multiple of 64) and
+// persistent CTAs; design as above. Returns the first CUDA error, or 0.
+extern "C" int fused_mlp_wo_swiglu(int layout, const void* x, const void* wg, const void* sg,
+                                   const void* wu, const void* su, const void* wd,
+                                   const void* sd, void* h, void* partial, void* out, int B,
+                                   int D, int F, int group_d, int group_f, int split1, int per1,
+                                   int grid1, int split2, int per2, int grid2, int design,
+                                   void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (layout != Q8) return static_cast<int>(cudaErrorInvalidValue);
+  int e = wo::launch_design<wo::RUN>(layout, design, x, wg, sg, wu, su, partial, nullptr, B, D,
+                                     F, group_d, 2, split1, per1, grid1, st);
+  if (e != 0) return e;
+  swiglu_merge_kernel<<<merge_blocks(B, F), MERGE_THREADS, 0, st>>>(
+      static_cast<const float*>(partial), static_cast<const float*>(sg),
+      static_cast<const float*>(su), static_cast<bf16*>(h), split1, B, F);
+  e = static_cast<int>(cudaGetLastError());
+  if (e != 0) return e;
+  e = wo::launch_design<wo::RUN>(layout, design, h, wd, sd, wd, sd, partial, nullptr, B, F, D,
+                                 group_f, 1, split2, per2, grid2, st);
+  if (e != 0) return e;
+  fused_mlp_down_merge_kernel<<<merge_blocks(B, D), MERGE_THREADS, 0, st>>>(
+      static_cast<const float*>(partial), static_cast<const float*>(sd),
+      static_cast<float*>(out), split2, B, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
+#ifdef WO_PROBE
+// chip_smoke.py --phases wo_probe only (a library built with -DWO_PROBE):
+// one product on the streaming core in probe mode `mode` (wo::Mode; the
+// cut-down modes for the designs of 1 and 20 rows: q4c N 8 and 24, int8 N 8
+// and 32), its per-warp counters into `probe`
+// (grid * 8 * wo::P_COUNT uint64).
+extern "C" int wo_probe(int mode, int layout, int design, const void* x, const void* w,
+                        const void* s, void* partial, void* probe, int B, int K, int n, int group,
+                        int splits, int per, int grid, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  unsigned long long* pc = static_cast<unsigned long long*>(probe);
+#define WO_MODE(M)                                                                             \
+  case wo::M:                                                                                  \
+    return wo::launch_design<wo::M>(layout, design, x, w, s, w, s, partial, pc, B, K, n, group, \
+                                    1, splits, per, grid, st)
+  switch (mode) {
+    WO_MODE(RUN);
+    WO_MODE(TIMED);
+    WO_MODE(IDLE);
+    WO_MODE(READ);
+    WO_MODE(DECODE);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef WO_MODE
+}
+
+// The A/B of the products' issue: one q4c product on K4's wgmma kernel
+// (q4c::, weight-stationary wgmma with a full drain a slot) with `mats` 1,
+// then K5's merge. splits, per and grid from q4c_schedule.
+extern "C" int wo_probe_q4c_wgmma(const void* x, const void* w, const void* s, void* partial,
+                                  void* out, int B, int K, int n, int group, int splits, int per,
+                                  int grid, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int e = q4c::launch_rows(x, w, s, w, s, partial, B, K, n, group, 1, splits, per, grid, st);
+  if (e != 0) return e;
+  matmul_int4c_merge_kernel<<<merge_blocks(B, n), MERGE_THREADS, 0, st>>>(
+      static_cast<const float*>(partial), static_cast<float*>(out), splits, B, n);
+  return static_cast<int>(cudaGetLastError());
+}
+#endif

@@ -6,7 +6,10 @@ at the repository root (git-ignored). The library's file name carries a
 hash of the source, the shared ``csrc/*.cuh`` headers and the flags, so an
 edited source or header is rebuilt and an unchanged one is loaded as it is. Only the repository's own sources are
 built. ``nvcc``'s ``-Xptxas -v`` report (registers, shared memory, spills)
-is kept beside each library as ``<library>.log``.
+is kept beside each library as ``<library>.log``. A source may also be
+built with preprocessor macros defined (``defines``), into a library of its
+own: ``fused_mlp.cu`` with ``WO_PROBE`` adds the streaming core's probe
+instances, which only ``chip_smoke.py --phases wo_probe`` loads.
 """
 
 from __future__ import annotations
@@ -18,14 +21,14 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_loaded: Dict[str, ctypes.CDLL] = {}
+_loaded: Dict[tuple, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -39,26 +42,31 @@ def _nvcc() -> str:
                        "the port's kernels")
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, defines: Tuple[str, ...] = ()) -> Path:
     src = CSRC / f"{name}.cu"
     headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    flags = " ".join(NVCC_FLAGS + tuple(f"-D{d}" for d in defines))
     digest = hashlib.sha256(src.read_bytes() + headers
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+                            + flags.encode()).hexdigest()[:16]
+    tag = "".join(f"-{d.lower()}" for d in defines)
+    return BUILD_DIR / f"{name}{tag}-{digest}.so"
 
 
-def build(names: Iterable[str]) -> Dict[str, float]:
-    """Compile every named source that has no library yet, one ``nvcc``
-    per source, all started together. Returns seconds per source built;
-    raises with nvcc's output if any build fails."""
+def build(names: Iterable[str], defines: Tuple[str, ...] = ()
+          ) -> Dict[str, float]:
+    """Compile every named source that has no library yet (with the
+    macros ``defines``), one ``nvcc`` per source, all started together.
+    Returns seconds per source built; raises with nvcc's output if any
+    build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs: List = []
     for name in names:
-        out = library_path(name)
+        out = library_path(name, defines)
         if out.exists():
             continue
         tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o",
+               str(tmp), str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         jobs.append((name, out, tmp, proc, time.perf_counter()))
@@ -77,18 +85,19 @@ def build(names: Iterable[str]) -> Dict[str, float]:
     return seconds
 
 
-def build_log(name: str) -> str:
-    log = library_path(name).with_suffix(".so.log")
+def build_log(name: str, defines: Tuple[str, ...] = ()) -> str:
+    log = library_path(name, defines).with_suffix(".so.log")
     return log.read_text() if log.exists() else ""
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
-    lib = _loaded.get(name)
+def load(name: str, defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` (built with the macros
+    ``defines``), built first if needed."""
+    lib = _loaded.get((name, defines))
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(library_path(name)))
-        _loaded[name] = lib
+        build([name], defines)
+        lib = ctypes.CDLL(str(library_path(name, defines)))
+        _loaded[(name, defines)] = lib
     return lib
 
 

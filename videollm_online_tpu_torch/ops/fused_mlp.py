@@ -24,8 +24,12 @@ calls them.
 K4 runs the wgmma kernel (``fused_mlp_q4c_kernel``) where every byte row
 of its matrices is 16-byte aligned (D and F multiples of 32, as in every
 model); ``q4c_schedule`` and ``q4c_units`` are its work decomposition as
-the CUDA source walks it. Other shapes, K5, K6 and K7 run the ``mma.sync``
-family (``_split`` cuts its reduction).
+the CUDA source walks it. K5 and K6 run the streaming weight-only core
+(``wo_kernel``) where their byte rows are 16-byte aligned (it measured
+faster than the ``mma.sync`` family at every row count from 1 to 128 on
+the H100, PERF.md); ``wo_schedule`` and ``wo_units`` are its work
+decomposition. Other shapes, and K7, run the ``mma.sync`` family
+(``_split`` cuts its reduction).
 
 ``maybe_fused`` / ``maybe_matmul_int4c`` are the dispatch of
 ``models/llama._layer`` and ``models/quant.quantized_matmul``, the JAX
@@ -59,6 +63,10 @@ K_STEP = 16             # reduction rows per mma step
 LAYOUT_Q4C, LAYOUT_Q4P, LAYOUT_Q8 = 0, 1, 2
 Q4C_ALIGN = 32          # D and F multiples of this take K4's wgmma kernel
 Q4C_MAX_SPLITS = 32
+WO_KW = 64              # reduction rows a slot of the streaming core
+WO_STRIP = 128          # byte columns a group of its warps streams
+WO_WARPS = 8            # warps a CTA
+WO_MAX_SPLITS = 32
 
 
 # ------------------------------------------------------------ plain versions
@@ -136,7 +144,15 @@ def _kernels():
     q4c.restype = ctypes.c_int
     q4c.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 11
                     + [ctypes.c_void_p])
-    return mlp, mm, q4c
+    wo_mm = lib.fused_mlp_wo_matmul
+    wo_mm.restype = ctypes.c_int
+    wo_mm.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
+                      + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    wo_mlp = lib.fused_mlp_wo_swiglu
+    wo_mlp.restype = ctypes.c_int
+    wo_mlp.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
+                       + [ctypes.c_int] * 12 + [ctypes.c_void_p])
+    return mlp, mm, q4c, wo_mm, wo_mlp
 
 
 def _split(rows: int, group: int, byte_cols: int, B: int, n_mats: int,
@@ -207,6 +223,96 @@ def q4c_units(rows: int, byte_cols: int, B: int, n_mats: int, sms: int):
         work[u % grid].append((mat, ct * bc, min(byte_cols, (ct + 1) * bc),
                                split * per, min(rows, (split + 1) * per)))
     return work
+
+
+def wo_design(layout: int, B: int) -> int:
+    """N, the rows of x a unit of the streaming core serves: B rounded up
+    to 8, 16, 24 (q4c only: int8 measured slower there than at 32), 32 or
+    64; above 64 rows, units of 64-row blocks."""
+    sizes = (8, 16, 24, 32) if layout == LAYOUT_Q4C else (8, 16, 32)
+    return next((n for n in sizes if B <= n), 64)
+
+
+def wo_group_warps(layout: int, n: int) -> int:
+    """G, the warps of the streaming core that share one 128-byte strip:
+    each keeps (16 / G m-tiles for q4c, 8 / G for int8) x N / 8 n-tiles of
+    accumulators at 64 registers or fewer (twice for q4c's group sums)."""
+    nt = n // 8
+    if layout == LAYOUT_Q4C:
+        return 4 if nt == 3 else max(2, nt)
+    return nt // 2 if nt > 2 else 1
+
+
+def _wo_align(layout: int, group: int, splits: int) -> int:
+    """Rows a split of the streaming core is a multiple of: a slot, and for
+    q4c at more than one split a whole scale group (one of a slot and a
+    group divides the other)."""
+    if splits == 1 or layout == LAYOUT_Q8:
+        return WO_KW
+    return max(WO_KW, group)
+
+
+def wo_schedule(layout: int, rows: int, byte_cols: int, B: int, group: int,
+                n_mats: int, sms: int):
+    """How the streaming core cuts one product of `rows` reduction rows
+    and `byte_cols` byte columns: (N, splits, reduction rows per split,
+    persistent CTAs). Units are (matrix, row block, split, strip); the
+    split count minimises the bytes the busiest SM streams (its groups'
+    whole waves of units) plus the fp32 partial results written and read
+    again by the merges."""
+    n = wo_design(layout, B)
+    gpc = WO_WARPS // wo_group_warps(layout, n)
+    strips = -(-byte_cols // WO_STRIP)
+    rblocks = -(-B // n)
+    out_cols = 2 * byte_cols if layout == LAYOUT_Q4C else byte_cols
+    best = None
+    for splits in range(1, WO_MAX_SPLITS + 1):
+        align = _wo_align(layout, group, splits)
+        per = -(-(-(-rows // splits)) // align) * align
+        if -(-rows // per) != splits:
+            continue                    # a split would get no rows
+        units = n_mats * rblocks * splits * strips
+        grid = min(sms, -(-units // gpc))
+        waves = -(-units // (grid * gpc))
+        cost = (waves * gpc * per * WO_STRIP * sms
+                + 2 * n_mats * splits * B * out_cols * 4)
+        if best is None or cost < best[0]:
+            best = (cost, splits, per, grid)
+    _, splits, per, grid = best
+    return n, splits, per, grid
+
+
+def wo_units(layout: int, rows: int, byte_cols: int, B: int, group: int,
+             n_mats: int, sms: int):
+    """The streaming core's work units in the order the CUDA kernel takes
+    them: per worker w (group j of CTA c, w = j * grid + c), a list of
+    (matrix, x rows [b0, b1), byte columns [c0, c1), reduction rows
+    [r0, r1))."""
+    n, splits, per, grid = wo_schedule(layout, rows, byte_cols, B, group,
+                                       n_mats, sms)
+    workers = grid * (WO_WARPS // wo_group_warps(layout, n))
+    strips = -(-byte_cols // WO_STRIP)
+    rblocks = -(-B // n)
+    work = [[] for _ in range(workers)]
+    for u in range(n_mats * rblocks * splits * strips):
+        strip, rest = u % strips, u // strips
+        split, rest = rest % splits, rest // splits
+        rb, mat = rest % rblocks, rest // rblocks
+        work[u % workers].append(
+            (mat, rb * n, min(B, (rb + 1) * n), strip * WO_STRIP,
+             min(byte_cols, (strip + 1) * WO_STRIP), split * per,
+             min(rows, (split + 1) * per)))
+    return work
+
+
+def _wo_takes(layout: int, byte_cols, mats, group: int = 0) -> bool:
+    """Whether a product takes the streaming core: every byte row 16-byte
+    aligned (TMA reads them), and for q4c a group that divides a slot's
+    rows or is a multiple of them."""
+    return (all(c % 16 == 0 for c in byte_cols)
+            and all(w.data_ptr() % 16 == 0 for w in mats)
+            and (layout == LAYOUT_Q8 or group % WO_KW == 0
+                 or WO_KW % group == 0))
 
 
 def _check_weights(name, layout, x, w, s, K, N):
@@ -323,6 +429,36 @@ def _launch_q4c(x, wg, sg, wu, su, wd, sd):
     return out.to(x.dtype)
 
 
+def _launch_wo_mlp(x, wg, sg, wu, su, wd, sd):
+    """K6's int8 MLP on the streaming core."""
+    layout = LAYOUT_Q8
+    xb, D, F, group_d, group_f = _check_mlp(layout, x, wg, sg, wu, su, wd,
+                                            sd)
+    if xb.data_ptr() % 16:  # TMA reads x
+        xb = xb.clone()
+    B = xb.shape[0]
+    sms = _sm_count(x.device)
+    design, split1, per1, grid1 = wo_schedule(layout, D, wg.shape[1], B,
+                                              group_d, 2, sms)
+    _, split2, per2, grid2 = wo_schedule(layout, F, wd.shape[1], B, group_f,
+                                         1, sms)
+    dev = x.device
+    h = torch.empty((B, F), dtype=torch.bfloat16, device=dev)
+    part = torch.empty((max(2 * split1 * B * F, split2 * B * D),),
+                       dtype=torch.float32, device=dev)
+    out = torch.empty((B, D), dtype=torch.float32, device=dev)
+    err = _kernels()[4](layout, xb.data_ptr(), wg.data_ptr(), sg.data_ptr(),
+                        wu.data_ptr(), su.data_ptr(), wd.data_ptr(),
+                        sd.data_ptr(), h.data_ptr(), part.data_ptr(),
+                        out.data_ptr(), B, D, F, group_d, group_f, split1,
+                        per1, grid1, split2, per2, grid2, design,
+                        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_mlp_wo_swiglu launch failed: CUDA error "
+                           f"{err}")
+    return out.to(x.dtype)
+
+
 def fused_mlp_int4c(x, wg_p, wg_s, wu_p, wu_s, wd_p, wd_s):
     """K4. SwiGLU MLP over column-packed int4: x (B, D) -> (B, D) in x's
     dtype. wg_p/wu_p (D, F/2) bytes with scales (D/group, F); wd_p (F, D/2)
@@ -357,8 +493,49 @@ def fused_mlp_int8(x, wg_q, wg_s, wu_q, wu_s, wd_q, wd_s):
     if not x.is_cuda:
         return fused_mlp_int8_reference(x, wg_q, wg_s, wu_q, wu_s, wd_q,
                                         wd_s)
-    out = _launch_mlp(LAYOUT_Q8, x, wg_q, wg_s, wu_q, wu_s, wd_q, wd_s)
+    mats = (wg_q, wu_q, wd_q)
+    if _wo_takes(LAYOUT_Q8, (wg_q.shape[-1], wd_q.shape[-1]), mats):
+        out = _launch_wo_mlp(x, wg_q, wg_s, wu_q, wu_s, wd_q, wd_s)
+    else:
+        out = _launch_mlp(LAYOUT_Q8, x, wg_q, wg_s, wu_q, wu_s, wd_q, wd_s)
     fused_mlp_int8.launches += 1
+    return out
+
+
+def _launch_matmul(x, w_p, w_s, streaming: Optional[bool] = None):
+    """K5 on the streaming core, or on the mma.sync family; by default the
+    core wherever it takes the shape (``_wo_takes``)."""
+    K, N = w_p.shape[0], w_s.shape[-1]
+    xb = _check_x(x, K)
+    B = xb.shape[0]
+    group = _check_weights("w", LAYOUT_Q4C, x, w_p, w_s, K, N)
+    if streaming is None:
+        streaming = _wo_takes(LAYOUT_Q4C, (N // 2,), (w_p,), group)
+    sms = _sm_count(x.device)
+    out = torch.empty((B, N), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if streaming:
+        if xb.data_ptr() % 16:  # TMA reads x
+            xb = xb.clone()
+        design, split, per, grid = wo_schedule(LAYOUT_Q4C, K, N // 2, B,
+                                               group, 1, sms)
+        # at one split the kernel writes out itself and no merge runs
+        part = out if split == 1 else torch.empty(
+            (split * B * N,), dtype=torch.float32, device=x.device)
+        err = _kernels()[3](LAYOUT_Q4C, xb.data_ptr(), w_p.data_ptr(),
+                            w_s.data_ptr(), part.data_ptr(), out.data_ptr(),
+                            B, K, N, group, split, per, grid, design, stream)
+        name = "fused_mlp_wo_matmul"
+    else:
+        split, per = _split(K, group, N // 2, B, 1, sms)
+        part = torch.empty((split * B * N,), dtype=torch.float32,
+                           device=x.device)
+        err = _kernels()[1](xb.data_ptr(), w_p.data_ptr(), w_s.data_ptr(),
+                            part.data_ptr(), out.data_ptr(), B, K, N, group,
+                            split, per, stream)
+        name = "fused_mlp_matmul_int4c"
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     return out
 
 
@@ -367,21 +544,7 @@ def matmul_int4c(x, w_p, w_s):
     (K/group, N) -> (B, N) fp32."""
     if not x.is_cuda:
         return matmul_int4c_reference(x, w_p, w_s)
-    K, N = w_p.shape[0], w_s.shape[-1]
-    xb = _check_x(x, K)
-    B = xb.shape[0]
-    group = _check_weights("w", LAYOUT_Q4C, x, w_p, w_s, K, N)
-    split, per = _split(K, group, N // 2, B, 1, _sm_count(x.device))
-    part = torch.empty((split * B * N,), dtype=torch.float32,
-                       device=x.device)
-    out = torch.empty((B, N), dtype=torch.float32, device=x.device)
-    mm = _kernels()[1]
-    err = mm(xb.data_ptr(), w_p.data_ptr(), w_s.data_ptr(),
-             part.data_ptr(), out.data_ptr(), B, K, N, group, split, per,
-             torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fused_mlp_matmul_int4c launch failed: CUDA "
-                           f"error {err}")
+    out = _launch_matmul(x, w_p, w_s)
     matmul_int4c.launches += 1
     return out
 
