@@ -13,7 +13,7 @@ any failure raises and exits non-zero:
      -v log, its HGMMA (wgmma) and HMMA (mma.sync) instructions in the
      library's SASS (cuobjdump; "not measured" without one) and ptxas's
      wgmma notes, failing if a wgmma kernel (K2's three, K4's), the
-     streaming core of K5 and K6 or a tensor-core decode kernel spills,
+     streaming core of K5, K6 and K7 or a tensor-core decode kernel spills,
      has no such instruction or has its wgmma serialized;
   3. K1 (ring decode attention) against its plain PyTorch version at the 8B
      shapes (bf16, window, int8 K/V, fp32; S 1 / 7 / 14 / 20 / 21 / 64, so
@@ -51,12 +51,12 @@ any failure raises and exits non-zero:
      1, 20, 91 and 128 rows (K5 also 8) and on small odd cases (groups
      below 128, column tails, unaligned byte rows, fp32 and bf16 x), the
      same input twice giving equal bits, and each kernel's time beside the
-     plain version's, the dequantizing route's and the bound; K5 and K6 on
-     both of their routes (the streaming core, the mma.sync family) and
-     beside one library call for the same function (tinygemm's
-     _weight_int4pack_mm; _weight_int8pack_mm); then one call of K4, K5
-     and K6 launch by launch on each route: each launch's device time and
-     bytes moved;
+     plain version's, the dequantizing route's and the bound; K5, K6 and
+     K7 on both of their routes (the streaming core, the mma.sync family)
+     and K5 and K6 beside one library call for the same function
+     (tinygemm's _weight_int4pack_mm; _weight_int8pack_mm); then one call
+     of K4, K5, K6 and K7 launch by launch on each route: each launch's
+     device time and bytes moved;
  10. a small fp32 engine on mixed int4 weights twice, once through K4 and K5
      and once through their plain versions: transcripts equal, or equal up
      to a step that is shown to be a tie flip;
@@ -68,7 +68,8 @@ any failure raises and exits non-zero:
      ``cli.main`` itself on 8 frames;
  12. K6 and K7, which no serving main path reaches, through 8-layer engines
      at the 8B widths: int8 layers with the MLP routed to K6 (its A/B), and
-     row-packed q4p layers, which the dispatch sends to K7;
+     row-packed q4p layers, which the dispatch sends to K7 (on the
+     streaming core at these shapes);
  13. K3 (paged decode attention) against its plain PyTorch version at the
      8B shapes (8 streams, Hq 32, Hkv 8, d 128, pages of 512, a pool of 41
      pages under a shuffled table with a trash-page entry, ragged q_pos
@@ -102,9 +103,10 @@ seeds, the spread that phase 8's loss bound must hold;
 ``--phases tc_configs`` (in no default run either) holds and times each
 configuration of K1's and K3's tensor-core kernel at the main paths' chunk
 lengths, the A/B behind the wrapper's choice; ``--phases wo_probe`` (in no
-default run) builds the streaming core of K5 and K6 with per-warp clock64
-counters and prints its cycles a slot by phase, three cut-down consumers,
-the SASS of one slot's loop and the A/B against K4's wgmma kernel. The
+default run) builds the streaming core of K5, K6 and K7 with per-warp
+clock64 counters and prints its cycles a slot by phase, three cut-down
+consumers, the SASS of one slot's loop and the A/B against K4's wgmma
+kernel. The
 launch counts are set to 0 just before each main path and read just after
 it. The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
@@ -379,8 +381,8 @@ def phase_build():
         elif name in ("decode_attention", "paged_attention"):
             _tc_kernel_report(name, "decode_tc_kernel", ("HGMMA", "HMMA"))
         elif name == "fused_mlp":
-            # K4's wgmma instances (N 8 to 128) and the streaming core of K5
-            # and K6 (mma.sync, every layout and N)
+            # K4's wgmma instances (N 8 to 128) and the streaming core of K5,
+            # K6 and K7 (mma.sync, every layout and N)
             _tc_kernel_report(name, r"fused_mlp_q4c_kernelILi(8|16|32|64|128)E"
                               r"|wo_kernel", ("HGMMA", "HMMA"))
         else:
@@ -1599,24 +1601,25 @@ def _library_ms(label, x, per_layer, want):
 
 
 def _routes(label):
-    """K5's and K6's two routes called directly: the streaming core and
-    the mma.sync family."""
+    """K5's, K6's and K7's two routes called directly: the streaming core
+    and the mma.sync family."""
     from videollm_online_tpu_torch.ops import fused_mlp as fm
     if label == "K5":
         return {"streaming": lambda x, *m: fm._launch_matmul(x, *m, True),
                 "mma.sync": lambda x, *m: fm._launch_matmul(x, *m, False)}
-    if label == "K6":
-        return {"streaming": fm._launch_wo_mlp,
-                "mma.sync": lambda x, *m: fm._launch_mlp(fm.LAYOUT_Q8, x,
-                                                         *m)}
+    if label in ("K6", "K7"):
+        layout = fm.LAYOUT_Q8 if label == "K6" else fm.LAYOUT_Q4P
+        return {"streaming": lambda x, *m: fm._launch_wo_mlp(layout, x, *m),
+                "mma.sync": lambda x, *m: fm._launch_mlp(layout, x, *m)}
     return {}
 
 
 def _fused_small_cases(gen):
     """Odd shapes on real quantized weights: groups below 128, byte rows
     that are not a multiple of 16 or of the column tile, an odd number of
-    groups (row-packed halves that straddle a group), every row
-    configuration, fp32 and bf16 x."""
+    groups (row-packed halves that straddle a group: K7 on the mma.sync
+    family), K7 on the streaming core with groups of 64 and 32 and strip
+    tails, every row configuration, fp32 and bf16 x."""
     from videollm_online_tpu_torch.models import quant
 
     def rnd(*shape):
@@ -1641,6 +1644,8 @@ def _fused_small_cases(gen):
         ("K7", 2, 128, 192, 64, torch.bfloat16),     # 3 groups of F
         ("K7", 40, 384, 256, 128, torch.float32),    # 3 groups of D
         ("K7", 100, 96, 160, 32, torch.bfloat16),
+        ("K7", 3, 256, 512, 64, torch.bfloat16),     # the streaming core
+        ("K7", 7, 320, 1088, 32, torch.bfloat16),    # the core, strip tails
         ("K6", 4, 80, 176, 0, torch.bfloat16),
         ("K6", 64, 144, 48, 0, torch.float32),
     )
@@ -1754,7 +1759,7 @@ def _route_bytes(label, route, B, mats, sms):
     each output written once, for the route's split counts: K4 and K6 the
     gate/up product, the SwiGLU merge, the down product, the down merge;
     K5 the product and, past one split (or on the mma.sync family), the
-    merge."""
+    merge; K7 as K4, its scales read by the products."""
     from videollm_online_tpu_torch.ops import fused_mlp as fm
 
     def nbytes(*ts):
@@ -1774,7 +1779,19 @@ def _route_bytes(label, route, B, mats, sms):
         return (s1,), [nbytes(w, sc) + B * K * 2 + part, part + B * N * 4]
     wg, sg, wu, su, wd, sd = mats
     D, F = wg.shape[0], wd.shape[0]
-    if label == "K4":
+    if label == "K7":
+        D, F = 2 * D, 2 * F
+        group_d, group_f = D // sg.shape[0], F // sd.shape[0]
+        if route == "streaming":
+            s1 = fm.wo_schedule(fm.LAYOUT_Q4P, D // 2, F, B, group_d, 2,
+                                sms)[1]
+            s2 = fm.wo_schedule(fm.LAYOUT_Q4P, F // 2, D, B, group_f, 1,
+                                sms)[1]
+        else:
+            s1 = fm._split(D // 2, group_d, F, B, 2, sms)[0]
+            s2 = fm._split(F // 2, group_f, D, B, 1, sms)[0]
+        scales = ((sg, su), (wd, sd))
+    elif label == "K4":
         group_d, group_f = D // sg.shape[0], F // sd.shape[0]
         if route == "wgmma":
             s1 = fm.q4c_schedule(D, F // 2, B, 2, sms)[1]
@@ -1824,10 +1841,10 @@ def _kernel_sequence(fn, calls, per_call):
 
 
 def phase_k4_profile(rows=(1, 20, 91, 128)):
-    """One call each of K4, K5 and K6 at the 8B shapes, launch by launch,
-    on both routes of each, called directly: K4's wgmma kernel and K5's and
-    K6's streaming core (what the wrappers run at these shapes) and the
-    mma.sync family. Per launch its device time under torch.profiler
+    """One call each of K4, K5, K6 and K7 at the 8B shapes, launch by
+    launch, on both routes of each, called directly: K4's wgmma kernel and
+    K5's, K6's and K7's streaming core (what the wrappers run at these
+    shapes) and the mma.sync family. Per launch its device time under torch.profiler
     (mean of 6 calls on one layer's weights), the bytes it moves and their
     rate; per route the whole call by CUDA-graph replay over 2 layers'
     weights. K5 also at 8 rows."""
@@ -1836,7 +1853,7 @@ def phase_k4_profile(rows=(1, 20, 91, 128)):
     D, F, V, layers = 4096, 14336, 128256, 2
     sms = fm._sm_count(torch.device("cuda"))
     out = {}
-    for label in ("K4", "K5", "K6"):
+    for label in ("K4", "K5", "K6", "K7"):
         stacked = _fused_mats(label, D, F, V, gen, layers)
         per_layer = [[t[l] for pair in stacked for t in pair]
                      for l in range(layers)]
@@ -1934,10 +1951,11 @@ def _wo_loop_sass(lib_path, layout, n):
 
 
 def phase_wo_probe(rows=(1, 20)):
-    """The streaming core (K5's and K6's kernel) measured phase by phase
-    (--phases wo_probe; in no default run; its library is built with
-    -DWO_PROBE). For K5's head (K 4096, N 128256, q4c, groups of 128) and
-    one of K6's int8 products (K 4096, N 14336) at 1 and 20 rows: the
+    """The streaming core (K5's, K6's and K7's kernel) measured phase by
+    phase (--phases wo_probe; in no default run; its library is built with
+    -DWO_PROBE). For K5's head (K 4096, N 128256, q4c, groups of 128), one
+    of K6's int8 products (K 4096, N 14336) and one of K7's q4p gate/up
+    products (K 4096, N 14336, groups of 128) at 1 and 20 rows: the
     product as built (mode run) against the plain version; its time per
     call (CUDA-graph replay over 2 layers' weights) as built and with every
     warp timing the phases of each slot in registers (clock64, written once
@@ -1951,6 +1969,7 @@ def phase_wo_probe(rows=(1, 20)):
     from videollm_online_tpu_torch.ops import _build
     from videollm_online_tpu_torch.ops import fused_mlp as fm
     lib = _build.load("fused_mlp", ("WO_PROBE",))
+    _build.build(["fused_mlp"])  # the library as built, whose SASS is read
     raw, _ = _ptxas_report_log(_build.build_log("fused_mlp", ("WO_PROBE",)))
     labels = _demangled(sorted(n for n in raw if "wo_kernel" in n))
     for mangled in sorted(labels, key=labels.get):
@@ -1971,16 +1990,19 @@ def phase_wo_probe(rows=(1, 20)):
     log(f"wo probe: SM clock (now, max) {clock}")
     out = {}
     for label, layout, K, n, group in (("K5", fm.LAYOUT_Q4C, 4096, 128256, 128),
-                                       ("K6", fm.LAYOUT_Q8, 4096, 14336, 0)):
-        key = "q4c" if layout == fm.LAYOUT_Q4C else "q8"
+                                       ("K6", fm.LAYOUT_Q8, 4096, 14336, 0),
+                                       ("K7", fm.LAYOUT_Q4P, 4096, 14336, 128)):
+        key = {fm.LAYOUT_Q4C: "q4c", fm.LAYOUT_Q4P: "q4p",
+               fm.LAYOUT_Q8: "q8"}[layout]
         w, sc = _rand_quantized(key, K, n, gen, layers=2)
         group = group or K
-        cbytes = w.shape[-1]
+        byte_rows, cbytes = w.shape[-2:]
         for B in rows:
             x = torch.randn((B, K), generator=gen, device="cuda").to(
                 torch.bfloat16)
-            design, splits, per, grid = fm.wo_schedule(layout, K, cbytes, B,
-                                                       group, 1, sms)
+            design, splits, per, grid = fm.wo_schedule(layout, byte_rows,
+                                                       cbytes, B, group, 1,
+                                                       sms)
             sass = _wo_loop_sass(_build.library_path("fused_mlp"), layout,
                                  design)
             log(f"{label} {B} rows: one slot's consumer loop of wo_kernel<"
@@ -2004,6 +2026,8 @@ def phase_wo_probe(rows=(1, 20)):
             got = part.view(splits, B, n).sum(0)
             if layout == fm.LAYOUT_Q4C:
                 want = fm.matmul_int4c_reference(x, w[0], sc[0])
+            elif layout == fm.LAYOUT_Q4P:
+                want = fm._group_matmul(x, fm._q4p(w[0]), sc[0])
             else:
                 want = x.float() @ w[0].float()
             torch.cuda.synchronize()
@@ -2011,7 +2035,7 @@ def phase_wo_probe(rows=(1, 20)):
             if not err <= 1e-3 * float(want.abs().max()):
                 raise AssertionError(f"{label} {B} rows: probe build run "
                                      f"differs from the plain version by {err}")
-            bytes_ = w[0].numel() + (sc[0].numel() * 4 if layout == fm.LAYOUT_Q4C
+            bytes_ = w[0].numel() + (sc[0].numel() * 4 if layout != fm.LAYOUT_Q8
                                      else 0)
             # clocks up first; then run and timed in turns (run, timed,
             # timed, run), each mode's mean
@@ -2343,7 +2367,8 @@ def phase_ab_paths(n_layers: int = 8, n_frames: int = 16):
     layers. No quantizer emits row-packed q4p layers and the dispatch sends
     int8 layers to the dequantizing matmuls, so neither kernel is on a
     serving main path; these are the runs they exist for. K7: an engine
-    whose MLP matrices are q4p, which ``maybe_fused`` sends to K7. K6: the
+    whose MLP matrices are q4p, which ``maybe_fused`` sends to K7, whose
+    wrapper takes the streaming core at these shapes (asserted). K6: the
     A/B of the int8 engine, its MLP routed to K6 by a dispatch that this
     script puts in place of ``maybe_fused`` for the run. Each engine serves
     a short stream; then a 1-token and a 20-token forward are timed through
@@ -2386,6 +2411,13 @@ def phase_ab_paths(n_layers: int = 8, n_frames: int = 16):
                                  ("w_down", (F, D))):
                 w, sc = _rand_quantized("q4p", k, n, gen, n_layers)
                 llama_params["layers"][name] = {"q4p": w, "scale": sc}
+            layer = [(llama_params["layers"][m]["q4p"][i],
+                      llama_params["layers"][m]["scale"][i])
+                     for m in ("w_gate", "w_up", "w_down")
+                     for i in range(n_layers)]
+            if not fm._wo_takes(fm.LAYOUT_Q4P, layer):
+                raise AssertionError("K7's layers do not take the streaming "
+                                     "core")
         params = {"llama": llama_params,
                   "connector": live.init_connector(gen, cfg, device="cuda")}
         engine = LiveInferEngine(params, tok, cfg, kv_capacity=4096,
@@ -2412,7 +2444,8 @@ def phase_ab_paths(n_layers: int = 8, n_frames: int = 16):
             raise AssertionError(f"{label} path: responses "
                                  f"{len(transcript)}, launches {counts}")
         log(f"{label} through the engine (8B widths, {n_layers} layers, "
-            f"{key} MLP, {n_frames} frames): {len(transcript)} responses, "
+            f"{key} MLP on the streaming core, {n_frames} frames): "
+            f"{len(transcript)} responses, "
             f"launches {counts}; one forward through {label} / through the "
             f"dequantizing route, ms: 1 token {kernel_ms[1]:.3f} / "
             f"{route_ms[1]:.3f}, 20 tokens {kernel_ms[20]:.3f} / "

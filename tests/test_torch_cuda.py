@@ -530,10 +530,10 @@ def test_fused_mlp_int8_streaming_core_matches_plain_on_card(card, rows, D,
     x = torch.from_numpy(rng.randn(rows, D).astype(np.float32)).to(
         torch.bfloat16).to(card)
     want = fm.fused_mlp_int8_reference(x, *mats)
-    got = fm._launch_wo_mlp(x, *mats)
+    got = fm._launch_wo_mlp(fm.LAYOUT_Q8, x, *mats)
     assert got.dtype == x.dtype and got.shape == x.shape
     _held(got, want, "bf16")
-    assert torch.equal(got, fm._launch_wo_mlp(x, *mats))
+    assert torch.equal(got, fm._launch_wo_mlp(fm.LAYOUT_Q8, x, *mats))
     before = fm.fused_mlp_int8.launches
     _held(fm.fused_mlp_int8(x, *mats), want, "bf16")
     assert fm.fused_mlp_int8.launches == before + 1
@@ -558,18 +558,85 @@ def test_fused_mlp_int8_streaming_core_is_exact_on_card(card):
     for ks in (list(range(128)), list(range(128, 256)), [255]):
         x = torch.zeros((len(ks), n), device=card)
         x[torch.arange(len(ks)), torch.tensor(ks)] = 1.0
-        got = fm._launch_wo_mlp(x, wg, ones, wu, ones, wd, ones)
+        got = fm._launch_wo_mlp(fm.LAYOUT_Q8, x, wg, ones, wu, ones, wd, ones)
         k = torch.tensor(ks, device=card)
         want = 32.0 * val[k].float()[:, None] * wd[k].float()
         assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("rows", [1, 7, 8, 20, 24, 64, 91, 128])
+@pytest.mark.parametrize("D,F,group", [(512, 1024, 32), (512, 1024, 64),
+                                       (512, 1024, 128), (512, 1024, 256),
+                                       (320, 1088, 32)])
+def test_fused_mlp_int4_streaming_core_matches_plain_on_card(card, rows, D,
+                                                             F, group):
+    """K7 on the streaming core against its plain version: groups of 32
+    (two a slot), 64, 128 and 256 (two slots a group), at every N the core
+    instantiates (8, 24, 64-row blocks; 7, 8, 20, 24 and 64 rows fill a
+    design or fall one short), splits of the reduction (more than one at
+    1 row for every group below 256, K7's schedule at 132 SMs), and D 320,
+    F 1088 (strips of 64 byte columns past the last whole one, a last slot
+    of 32 byte rows); bf16 x of unit scale and weights of a layer's scale;
+    chip_smoke.py's bf16 tolerance; the wrapper takes the core, launches
+    one call and two calls give equal bits."""
+    mats, rng = _quantized("q4p", [(D, F), (D, F), (F, D)], group, card,
+                           D + F + rows + group, std=1.0)
+    pairs = (mats[0:2], mats[2:4], mats[4:6])
+    assert fm._wo_takes(fm.LAYOUT_Q4P, pairs)
+    if rows == 1 and group < 256:
+        sms = fm._sm_count(card)
+        assert fm.wo_schedule(fm.LAYOUT_Q4P, D // 2, F, 1, group, 2,
+                              sms)[1] > 1
+    x = torch.from_numpy(rng.randn(rows, D).astype(np.float32)).to(
+        torch.bfloat16).to(card)
+    want = fm.fused_mlp_int4_reference(x, *mats)
+    got = fm._launch_wo_mlp(fm.LAYOUT_Q4P, x, *mats)
+    assert got.dtype == x.dtype and got.shape == x.shape
+    _held(got, want, "bf16")
+    assert torch.equal(got, fm._launch_wo_mlp(fm.LAYOUT_Q4P, x, *mats))
+    before = fm.fused_mlp_int4.launches
+    assert torch.equal(fm.fused_mlp_int4(x, *mats), got)
+    assert fm.fused_mlp_int4.launches == before + 1
+
+
+def test_fused_mlp_int4_streaming_core_is_exact_on_card(card):
+    """K7 on the streaming core with q4p weights that hold every nibble
+    value in both halves of the reduction, scales 8 (gate) and 1 and
+    one-hot x rows gives exact integers: x row i selects reduction row k
+    (low nibbles for k < 128, high for k >= 128), the gate there is 7 * 8
+    = 56 on the diagonal (silu(56) is 56 in fp32), the up matrix holds
+    v_k = k % 16 - 8 on its diagonal and zeros elsewhere, so h is 56 v_k
+    at f = k (exact in bf16) and 0 elsewhere, and out[i, d] = 56 v_k
+    wd[k, d] (at most 3584 in magnitude, exact in fp32)."""
+    n = 256
+    idx = torch.arange(n, device=card)
+    q_g = ((idx[:, None] + idx[None, :]) % 16 - 8).to(torch.int8)
+    q_g[idx, idx] = 7
+    q_u = torch.zeros((n, n), dtype=torch.int8, device=card)
+    q_u[idx, idx] = (idx % 16 - 8).to(torch.int8)
+    q_d = ((idx[:, None] + 3 * idx[None, :]) % 16 - 8).to(torch.int8)
+    wg, wu, wd = (quant._pack_nibbles(q) for q in (q_g, q_u, q_d))
+    ones = torch.ones((2, n), device=card)
+    mats = (wg, 8 * ones, wu, ones, wd, ones)
+    assert fm._wo_takes(fm.LAYOUT_Q4P, (mats[0:2], mats[2:4], mats[4:6]))
+    for ks in (list(range(128)), list(range(128, 256)), [255]):
+        x = torch.zeros((len(ks), n), device=card)
+        x[torch.arange(len(ks)), torch.tensor(ks)] = 1.0
+        got = fm._launch_wo_mlp(fm.LAYOUT_Q4P, x, *mats)
+        k = torch.tensor(ks, device=card)
+        want = 56.0 * q_u[k, k].float()[:, None] * q_d[k].float()
+        assert torch.equal(got, want)
+
+
 def test_streaming_core_refuses_other_layouts_and_designs_on_card(card):
     """The streaming core's entry points refuse another layout than
-    their own (K5's q4c, K6's int8: q4p, an unknown code, the other's), a
-    design (N) that is not 8, 16, 32 or 64 (or 24 for q4c) or serves fewer
-    rows than x has, and out as the workspace at more than one split; they
-    launch nothing then."""
+    their own (K5's q4c: q4p, an unknown code, int8; the MLP's int8 and
+    q4p: q4c, an unknown code), a design (N) that is not 8, 16, 32 or 64
+    (or 24 for int4) or serves fewer rows than x has, out as the workspace
+    at more than one split, and q4p shapes the core does not take (half
+    the reduction dim not a multiple of the group, or of 16; a group that
+    neither divides a slot nor is a multiple of one); they launch nothing
+    then, and K7's streaming route raises on such a shape."""
     (w, s), _ = _quantized("q4c", [(256, 2048)], 128, card, 3)
     x = torch.zeros((4, 256), dtype=torch.bfloat16, device=card)
     out = torch.zeros((4, 2048), device=card)
@@ -587,13 +654,35 @@ def test_streaming_core_refuses_other_layouts_and_designs_on_card(card):
                   ws.data_ptr(), out.data_ptr(), 4, 256, 2048, 128, splits,
                   per, 4, design, stream) != 0
     h = torch.zeros((4, 2048), dtype=torch.bfloat16, device=card)
-    for layout in (0, 1):
+    # (layout, D, group, design): q4c and an unknown code; q4p with D / 2 =
+    # 128 not a multiple of the group 256, D / 2 = 120 not a multiple of
+    # 16, a group of 48 (neither dividing a slot of 64 rows nor a multiple
+    # of one), design 40 (no instance) and design 2 (fewer rows than x's 4)
+    for layout, D, group, design in ((0, 256, 128, 8), (5, 256, 128, 8),
+                                     (1, 256, 256, 8), (1, 240, 16, 8),
+                                     (1, 192, 48, 8), (1, 256, 128, 40),
+                                     (1, 256, 128, 2)):
         assert mlp(layout, x.data_ptr(), w.data_ptr(), s.data_ptr(),
                    w.data_ptr(), s.data_ptr(), w.data_ptr(), s.data_ptr(),
-                   h.data_ptr(), part.data_ptr(), out.data_ptr(), 4, 256,
-                   2048, 128, 128, 1, 256, 4, 1, 2048, 4, 8, stream) != 0
+                   h.data_ptr(), part.data_ptr(), out.data_ptr(), 4, D,
+                   2048, group, 128, 1, 256, 4, 1, 2048, 4, design,
+                   stream) != 0
     torch.cuda.synchronize()
     assert not out.any()
+    # K7's streaming route called on a shape the core does not take raises
+    # (the wrapper itself takes the mma.sync family there, a shape rule)
+    mats, rng = _quantized("q4p", [(384, 256), (384, 256), (256, 384)], 128,
+                           card, 4)
+    assert not fm._wo_takes(fm.LAYOUT_Q4P, (mats[0:2], mats[2:4],
+                                            mats[4:6]))
+    xq = torch.from_numpy(rng.randn(4, 384).astype(np.float32)).to(
+        torch.bfloat16).to(card)
+    with pytest.raises(RuntimeError, match="fused_mlp_wo_swiglu"):
+        fm._launch_wo_mlp(fm.LAYOUT_Q4P, xq, *mats)
+    before = fm.fused_mlp_int4.launches
+    _held(fm.fused_mlp_int4(xq, *mats), fm.fused_mlp_int4_reference(xq, *mats),
+          "bf16")
+    assert fm.fused_mlp_int4.launches == before + 1
 
 
 def test_int4_forward_dispatches_the_kernels_on_card(card, monkeypatch):

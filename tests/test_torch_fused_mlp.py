@@ -284,9 +284,9 @@ def test_quantized_matmul_matches_jax_fallback(layout, dtype):
 
 
 # ------------------------------------------------------------------ dispatch
-def _layer_params(layout, D=64, F=128):
-    fn = {"q4c": quant.quantize_weight_int4c,
-          "q4p": quant.quantize_weight_int4,
+def _layer_params(layout, D=64, F=128, group=128):
+    fn = {"q4c": lambda w: quant.quantize_weight_int4c(w, group=group),
+          "q4p": lambda w: quant.quantize_weight_int4(w, group=group),
           "q8": lambda w: quant.quantize_weight(w, axis=-2),
           "plain": lambda w: w}[layout]
     rng = np.random.RandomState(1)
@@ -323,16 +323,24 @@ DISPATCH = [
     ("q8", (1, 1), None, None),
     ("plain", (1, 1), None, None),
     ("mixed", (1, 1), None, None),
+    # groups of 8 rows, which the kernels do not take (the JAX rule sends
+    # q4c at this shape to its Pallas kernel): the dequantizing route
+    ("q4c/8", (1, 1), None, None),
+    ("q4p/8", (1, 20), None, None),
 ]
 
 
 @pytest.mark.parametrize("layout,rows,lora,want", DISPATCH)
 def test_maybe_fused_dispatch_table(recorder, layout, rows, lora, want):
+    """The dispatch of one layer's MLP (layout "key/group" for a group other
+    than 128): a shape the kernels do not take returns None, never
+    raises."""
+    layout, _, group = layout.partition("/")
     if layout == "mixed":
         lp = _layer_params("q4c")
         lp["w_down"] = _layer_params("q4p")["w_down"]
     else:
-        lp = _layer_params(layout)
+        lp = _layer_params(layout, group=int(group or 128))
     x = torch.ones(rows + (64,), dtype=torch.bfloat16)
     out = fused_mlp.maybe_fused(x, lp, lora)
     assert recorder == ([want] if want else [])
@@ -363,11 +371,14 @@ def test_maybe_matmul_int4c_dispatch(recorder, lead, want):
     assert (y is not None) == want == (recorder == ["matmul_int4c"])
     if want:
         assert y.shape == lead + (32,) and y.dtype == torch.float32
-    # a stacked (L, K, N/2) leaf and an int8 leaf are not K5's
+    # a stacked (L, K, N/2) leaf, an int8 leaf and groups of 8 rows (which
+    # the kernel does not take) are not K5's
     stacked = {"q4c": head["q4c"][None], "scale": head["scale"][None]}
     assert fused_mlp.maybe_matmul_int4c(x, stacked) is None
     assert fused_mlp.maybe_matmul_int4c(
         x, quant.quantize_weight(torch.ones((64, 32)))) is None
+    assert fused_mlp.maybe_matmul_int4c(
+        x, quant.quantize_weight_int4c(torch.ones((64, 32)), group=8)) is None
 
 
 def test_cuda_only_wrapper_takes_plain_version_only_for_cpu_tensors():
@@ -437,15 +448,20 @@ def test_q4c_rows_and_tiles():
         assert mt * fused_mlp.q4c_rows(b) <= 128 and mt in (1, 2, 4)
 
 
-# The streaming core of K5 and K6: (label, layout, reduction rows, byte
-# columns, group, matrices) of the 8B head (V 128256: 501 strips of 128 byte
-# columns, the last of them its tail), K6's gate/up and down products, and
-# odd shapes with a strip tail (N 2080 at groups of 64; D 80, F 176)
+# The streaming core of K5, K6 and K7: (label, layout, byte rows (the
+# reduction rows; half of them for q4p), byte columns, group, matrices) of
+# the 8B head (V 128256: 501 strips of 128 byte columns, the last of them
+# its tail), K6's and K7's gate/up and down products, and odd shapes with a
+# strip tail (N 2080 at groups of 64; D 80, F 176; K7 at D 384, F 1040,
+# groups of 64)
 WO_SHAPES = [("K5 8B", 0, 4096, 64128, 128, 1),
              ("K6 gate/up 8B", 2, 4096, 14336, 4096, 2),
              ("K6 down 8B", 2, 14336, 4096, 14336, 1),
              ("K5 N 2080", 0, 256, 1040, 64, 1),
-             ("K6 D 80 F 176", 2, 80, 176, 80, 2)]
+             ("K6 D 80 F 176", 2, 80, 176, 80, 2),
+             ("K7 gate/up 8B", 1, 2048, 14336, 128, 2),
+             ("K7 down 8B", 1, 7168, 4096, 128, 1),
+             ("K7 D 384 F 1040", 1, 192, 1040, 64, 2)]
 
 
 @pytest.mark.parametrize("shape", WO_SHAPES, ids=[s[0] for s in WO_SHAPES])
@@ -455,9 +471,9 @@ def test_wo_work_units_cover_every_byte_column_and_row_once(shape, B):
     CUDA kernel walks) covers every (matrix, x row, byte column, reduction
     row) exactly once: per matrix the units are the product of partitions
     of the x rows (blocks of N), the byte columns (strips of 128)
-    and the reduction rows (splits on a slot, and for q4c at more than one
-    split on a group); no unit twice; every CTA has work; on 132 SMs and
-    on 5."""
+    and the byte rows (splits on a slot, and for int4 at more than one
+    split on a group; for q4p the high half's split, K / 2 further, too);
+    no unit twice; every CTA has work; on 132 SMs and on 5."""
     _, layout, rows, cols, group, mats = shape
     for sms in (132, 5):
         n, splits, per, grid = fused_mlp.wo_schedule(layout, rows, cols, B,
@@ -465,8 +481,11 @@ def test_wo_work_units_cover_every_byte_column_and_row_once(shape, B):
         assert n == fused_mlp.wo_design(layout, B)
         assert B <= n or n == 64
         assert per % fused_mlp.WO_KW == 0 and splits * per >= rows
-        if splits > 1 and layout == fused_mlp.LAYOUT_Q4C:
+        if splits > 1 and layout != fused_mlp.LAYOUT_Q8:
             assert per % group == 0
+        if splits > 1 and layout == fused_mlp.LAYOUT_Q4P:
+            assert all((r0 + rows) % group == 0
+                       for r0 in range(0, rows, per))
         work = fused_mlp.wo_units(layout, rows, cols, B, group, mats, sms)
         gpc = fused_mlp.WO_WARPS // fused_mlp.wo_group_warps(layout, n)
         assert len(work) == grid * gpc and grid <= sms
@@ -488,22 +507,109 @@ def test_wo_work_units_cover_every_byte_column_and_row_once(shape, B):
         assert {u[0] for u in units} == set(range(mats))
 
 
+@pytest.mark.parametrize("layout,K,N,group,want", [
+    ("q4p", 4096, 14336, 128, True),     # K7's 8B gate/up
+    ("q4p", 14336, 4096, 128, True),     # K7's 8B down
+    ("q4p", 384, 1040, 64, True),        # a strip tail
+    ("q4p", 512, 1024, 256, True),       # two slots a group
+    ("q4p", 320, 1088, 32, True),        # two groups a slot
+    ("q4p", 64, 128, 64, False),         # one group spans both halves
+    ("q4p", 384, 256, 128, False),       # K / 2 = 192: not a multiple
+    ("q4p", 96, 160, 32, False),         # K / 2 = 48: not a multiple
+    ("q4p", 240, 256, 16, False),        # K / 2 = 120: not 16-aligned
+    ("q4p", 192, 256, 48, False),        # a group that does not tile a slot
+    ("q4p", 256, 1000, 128, False),      # byte rows not 16-byte aligned
+    ("q4c", 4096, 128256, 128, True),    # K5's 8B head
+    ("q4c", 256, 1000, 64, False),       # 500-byte rows
+    ("q8", 80, 176, 0, True),
+    ("q8", 80, 100, 0, False)])
+def test_wo_takes_shape_rule(layout, K, N, group, want):
+    """_wo_takes, the rule the wrappers apply before any launch (and
+    csrc/fused_mlp.cu's launch_design holds): byte rows 16-byte aligned;
+    an int4 group a multiple of 16 that divides a 64-row slot or is a
+    multiple of one; for q4p half the reduction dim a multiple of 16 and
+    of the group, so a low-half group and its high-half partner end in
+    one slot."""
+    code = {"q4c": fused_mlp.LAYOUT_Q4C, "q4p": fused_mlp.LAYOUT_Q4P,
+            "q8": fused_mlp.LAYOUT_Q8}[layout]
+    w = torch.zeros({"q4c": (K, N // 2), "q4p": (K // 2, N),
+                     "q8": (K, N)}[layout], dtype=torch.int8)
+    s = torch.ones((N,) if layout == "q8" else (K // group, N))
+    assert w.data_ptr() % 16 == 0
+    assert fused_mlp._wo_takes(code, ((w, s),)) == want
+
+
 def _bf16_bits(bits):
     """int32 tensor of 16-bit patterns -> the bf16 values they encode."""
     return bits.to(torch.int16).view(torch.bfloat16)
 
 
-@pytest.mark.parametrize("layout", ["q8", "q4c"])
+def _byte_perm(x, y, sel):
+    """CUDA's __byte_perm on int64 tensors of 32-bit words: byte i of the
+    result is byte (sel >> 4 i) & 7 of the eight bytes of y:x."""
+    xy = x | (y << 32)
+    out = torch.zeros_like(x)
+    for i in range(4):
+        out |= ((xy >> (8 * ((sel >> (4 * i)) & 7))) & 0xFF) << (8 * i)
+    return out
+
+
+def _q4_hi(v):
+    """csrc/fused_mlp.cu's q4_hi: the two's-complement nibbles at bits 0-3
+    and 16-19 of v, bit 3 flipped into 0x43XX (bf16 128 + v + 8), less bf16
+    136: the bf16 pair as (low half, high half)."""
+    w = (v & 0x000F000F) ^ 0x43084308
+    bias = torch.tensor(136.0, dtype=torch.bfloat16)
+    return (_bf16_bits(w & 0xFFFF) - bias).float(), \
+        (_bf16_bits((w >> 16) & 0xFFFF) - bias).float()
+
+
+def _q4p_pair(r0, r1, r2, r3, j):
+    """csrc/fused_mlp.cu's q4p_pair step for step: the low half's and the
+    high half's A fragments (four bf16 pairs each) of bytes j, j + 1."""
+    sel = j | ((j + 1) << 4) | ((j + 4) << 8) | ((j + 5) << 12)
+    p, q = _byte_perm(r0, r1, sel), _byte_perm(r2, r3, sel)
+    lo = [_q4_hi(p), _q4_hi(p >> 8), _q4_hi(q), _q4_hi(q >> 8)]
+    hi = [_q4_hi(p >> 4), _q4_hi(p >> 12), _q4_hi(q >> 4), _q4_hi(q >> 12)]
+    return lo, hi
+
+
+@pytest.mark.parametrize("layout", ["q8", "q4c", "q4p"])
 def test_streaming_core_decode_is_exact_for_every_byte(layout):
     """A model of the streaming core's decode, step for step on int32
     tensors, gives every one of the 256 byte values exactly: int8 by
     __byte_perm into 0x4B0000XX (the byte xored with 0x80), one fp32
     subtraction of 2^23 + 128 and the high half as bf16 (no I2F); q4c's
     low nibble as 0x43XX (bf16 128 + v + 8) and its high nibble with bit 3
-    flipped, each less bf16 136."""
+    flipped, each less bf16 136; q4p's two nibbles both as q4c's high
+    nibble, gathered by q4p_pair into the A fragments of rows g and g + 8
+    (bytes j, j + 1) for the low half's k-step and the high half's, equal
+    to quant._unpack_nibbles."""
     b = torch.arange(256, dtype=torch.int32)
     signed = torch.arange(256, dtype=torch.int32).to(torch.uint8).view(
         torch.int8).to(torch.int32)
+    if layout == "q4p":
+        # four words (byte rows 2t, 2t + 1, 2t + 8, 2t + 9) whose bytes
+        # take every value at every position, no two bytes alike in a lane
+        v = torch.arange(256, dtype=torch.int64)
+        byte = [[(v + 64 * k + 16 * i + 5 * k * i) % 256 for i in range(4)]
+                for k in range(4)]
+        words = [sum(byte[k][i] << (8 * i) for i in range(4))
+                 for k in range(4)]
+        for j in (0, 2):
+            lo, hi = _q4p_pair(*words, j)
+            for half, frag in enumerate((lo, hi)):
+                for reg in range(4):
+                    # register reg: rows g (even reg) or g + 8 (odd), i.e.
+                    # byte j or j + 1; k 2t, 2t + 1 (reg < 2) or + 8, + 9
+                    i, k0 = j + reg % 2, 2 * (reg // 2)
+                    for e in range(2):
+                        packed = byte[k0 + e][i].to(torch.uint8).view(
+                            torch.int8)[None, :]
+                        want = quant._unpack_nibbles(packed, torch.float32)
+                        np.testing.assert_array_equal(
+                            frag[reg][e].numpy(), want[half].numpy())
+        return
     if layout == "q8":
         f = (0x4B000000 | (b ^ 0x80)).view(torch.float32) - 8388736.0
         got = _bf16_bits(f.view(torch.int32) >> 16).float()

@@ -38,10 +38,16 @@
 // the products. Byte rows that are not 16-byte aligned (D or F not a
 // multiple of 32; no model has one) take the mma.sync design below.
 //
-// K5 and K6 (wo::, below): one streaming weight-only core on mma.sync.
+// K5, K6 and K7 (wo::, below): one streaming weight-only core on mma.sync,
+// a template over the three layouts. K7 takes it where half its reduction
+// dim is a multiple of 16 and of the scale group (every model at group
+// 128), and the group is a multiple of 16 that divides a 64-row slot or is
+// a multiple of one.
 //
-// K7, and K4, K5, K6 at shapes whose byte rows are not 16-byte aligned (no
-// model has one): one family, qgemm_partial_kernel, computes
+// K4, K5, K6 at shapes whose byte rows are not 16-byte aligned (no model
+// has one), and K7 at shapes the core does not take (a matrix shorter than
+// its group, whose one group spans both halves): one family,
+// qgemm_partial_kernel, computes
 // x @ W for one tile of byte columns and one range of reduction rows, with
 // the layout as a template parameter that says how a byte becomes values.
 // The TPU kernels walk the MLP's inner dimension F on a sequential grid axis
@@ -797,13 +803,15 @@ int launch_rows(const void* x, const void* w0, const void* s0, const void* w1, c
 }  // namespace q4c
 
 // ---------------------------------------------------------------------------
-// K5 and K6 for Hopper: one streaming weight-only core (wo::), a template
-// over the layout (q4c: two int4 a byte, a scale per group of `group`
-// reduction rows; q8: one int8 a byte, the column's scale applied by the
-// merge) and over N, the rows of x a unit serves (8, 16, 32 or 64, and 24
-// for q4c; above 64 rows a unit serves one 64-row block of x).
+// K5, K6 and K7 for Hopper: one streaming weight-only core (wo::), a
+// template over the layout (q4c: two int4 a byte, two output columns, a
+// scale per group of `group` reduction rows; q4p: two int4 a byte, one
+// output column and two reduction rows, i and i + K / 2, scales as q4c;
+// q8: one int8 a byte, the column's scale applied by the merge) and over N,
+// the rows of x a unit serves (8, 16, 32 or 64, and 24 for int4; above 64
+// rows a unit serves one 64-row block of x).
 //
-// Bound: the weight bytes (q4c up to about 74 rows, int8 up to 128), so the
+// Bound: the weight bytes (int4 up to about 74 rows, int8 up to 128), so the
 // core is a stream of weight tiles past consumers that must keep up with the
 // card's memory rate. chip_smoke.py --phases wo_probe times its phases per
 // slot (readings in PERF.md). Its design:
@@ -829,6 +837,27 @@ int launch_rows(const void* x, const void* w0, const void* s0, const void* w1, c
 //   8), two m-tiles a __byte_perm, and one bf16 subtraction; an int8 byte
 //   by __byte_perm into 0x4B0000XX (fp32 2^23 + v + 128), one FADD and the
 //   high half.
+// - q4p (K7) reads its bytes as stored, no repacking. A slot's 64 byte rows
+//   hold reduction rows [r, r + 64) in the low nibbles and [r + K / 2,
+//   r + K / 2 + 64) in the high ones, so it brings two boxes of x (columns
+//   r and r + K / 2). A lane's byte columns 2j and 2j + 1 are rows g and
+//   g + 8 of m-tile j: the low nibbles are its A fragment for the low
+//   half's k-step, the high nibbles for the high half's, two mma.sync an
+//   m-tile and 16-row step (as many products a byte as q4c). Both nibbles
+//   are two's complement (q4c's high-nibble decode). The core takes q4p
+//   where K / 2 is a multiple of the group: a low-half group and its
+//   high-half partner (group index + K / (2 group)) then end in the same
+//   slot, which brings both scale rows by TMA, and each m-tile keeps three
+//   sets of sums (the two halves' group sums and the scaled total), fewer
+//   registers than q4c's two sets of twice the m-tiles. The same bound
+//   holds: the bytes, 94 MB for an 8B layer's MLP, up to about 74 rows.
+//   G and N as q4c's. wo_kernel<1, N> at N 8 / 16 / 24 / 32 / 64: 96 /
+//   135 / 115 / 139 / 154 registers, no spills, 32 / 64 / 48 / 64 / 64
+//   HMMA (chip_smoke.py phase 2, H100). The probe (PERF.md) finds
+//   its decode (about 1500 cycles a slot at 1 row, as q4c's) as long as a
+//   group's slot takes to stream, so at 1 row an 8B gate/up product runs
+//   about a quarter over idle consumers: the consumers, not the stream,
+//   bound it, and 64-row blocks re-read the weights above 64 rows.
 // - Persistent CTAs (at most one a SM) of 8 consumer warps and the loading
 //   warp (so at most 168 registers a thread). Worker w (group j of CTA
 //   c, w = j * grid + c) takes units w, w + workers, ...: (matrix, row
@@ -864,23 +893,33 @@ template <int LAYOUT, int N>
 struct Cfg {
   static_assert(N == 8 || N == 16 || N == 24 || N == 32 || N == 64, "N");
   static constexpr int NT = N / 8;  // n-tiles of x rows
-  // warps a strip: each keeps MTW * NT * 4 accumulators, 64 for int8 and
-  // twice 64 for q4c's group sums, within the 168 registers a thread of 9
-  // warps has (ptxas spilled int8 at 128)
-  static constexpr int G = LAYOUT == Q4C ? (NT == 3 ? 4 : NT > 2 ? NT : 2) : (NT > 2 ? NT / 2 : 1);
+  // warps a strip: each keeps MTW * NT * 4 accumulators, 64 for int8,
+  // twice 64 for q4c's group sums and three times 48 for q4p's (half q4c's
+  // m-tiles), within the 168 registers a thread of 9 warps has (ptxas
+  // spilled int8 at 128)
+  static constexpr int G = LAYOUT != Q8 ? (NT == 3 ? 4 : NT > 2 ? NT : 2) : (NT > 2 ? NT / 2 : 1);
   static constexpr int GPC = WARPS / G;                    // groups a CTA
   static constexpr int LB = 16 / G;                        // bytes a lane reads of a row
   static constexpr int MTW = LAYOUT == Q4C ? LB : LB / 2;  // m-tiles a warp
-  static constexpr int VEC = MTW < 4 ? MTW : 4;            // fp32 a store
-  static constexpr int X_BYTES = N * KW * 2;               // N rows of 128 bytes
+  // fp32 a lane stores of one x row: q4p's LB byte columns, or MTW columns
+  // twice (q4c's low and high nibbles, int8's rows g and g + 8)
+  static constexpr int SPAN = LAYOUT == Q4P ? LB : MTW;
+  static constexpr int VEC = SPAN < 4 ? SPAN : 4;          // fp32 a store
+  static constexpr int XB = LAYOUT == Q4P ? 2 : 1;         // boxes of x a slot
+  static constexpr int X_BOX = N * KW * 2;                 // N rows of 128 bytes
+  static constexpr int X_BYTES = XB * X_BOX;
 };
 
 struct Args {
   float* partial;             // (mats, splits, B, n) fp32
   unsigned long long* probe;  // probe builds: P_COUNT counters a warp
-  int B, K, n, cbytes, group;
+  int B, rows, n, cbytes, group;  // rows: the byte matrix's (K / 2 for q4p)
   int splits, per, strips, rblocks, units;
-  int stages, slot, sr;  // ring slots a group, bytes a slot, q4c scale rows a slot
+  int stages, slot, sr;  // ring slots a group, bytes a slot, int4 scale rows a slot
+  // where a slot's second box of x and of scales start: q4p's x at column
+  // xhi = K / 2 and its scales at row shi = K / (2 group) further; q4c's
+  // scales at column scol = n / 2
+  int xhi, shi, scol;
 };
 
 __device__ __forceinline__ void unit_of(const Args& a, int u, int& mat, int& rb, int& split,
@@ -893,7 +932,7 @@ __device__ __forceinline__ void unit_of(const Args& a, int u, int& mat, int& rb,
   mat = u / a.rblocks;
 }
 
-// The first q4c scale row the slot of rows [r, r + KW) needs: every group
+// The first int4 scale row the slot of rows [r, r + KW) needs: every group
 // ending in it (sr rows from it when groups are shorter than a slot), or -1.
 __device__ __forceinline__ int scale_row(const Args& a, int r) {
   const int grp = r / a.group;
@@ -980,6 +1019,24 @@ __device__ __forceinline__ void q4_pair(uint32_t r0, uint32_t r1, uint32_t r2, u
   fb[3] = q4_hi(q >> 12);
 }
 
+// q4p: the A fragments of m-tile j / 2 (bytes j, j + 1 of words r0..r3 of
+// byte rows 2t, 2t + 1, 2t + 8, 2t + 9 are its rows g and g + 8) for the
+// low half's k-step (lo: the low nibbles) and the high half's (hi). Both
+// nibbles are two's complement. j is 0 or 2, known after unrolling.
+__device__ __forceinline__ void q4p_pair(uint32_t r0, uint32_t r1, uint32_t r2, uint32_t r3, int j,
+                                         uint32_t (&lo)[4], uint32_t (&hi)[4]) {
+  const uint32_t sel = j | ((j + 1) << 4) | ((j + 4) << 8) | ((j + 5) << 12);
+  const uint32_t p = __byte_perm(r0, r1, sel), q = __byte_perm(r2, r3, sel);
+  lo[0] = q4_hi(p);
+  lo[1] = q4_hi(p >> 8);
+  lo[2] = q4_hi(q);
+  lo[3] = q4_hi(q >> 8);
+  hi[0] = q4_hi(p >> 4);
+  hi[1] = q4_hi(p >> 12);
+  hi[2] = q4_hi(q >> 4);
+  hi[3] = q4_hi(q >> 12);
+}
+
 // Byte i of x and of y (words xored with 0x80808080, so a byte is v + 128)
 // as the bf16 pair (x's, y's), exact: fp32 0x4B0000XX is 2^23 + v + 128.
 __device__ __forceinline__ uint32_t q8_pair(uint32_t x, uint32_t y, int i) {
@@ -996,8 +1053,8 @@ __global__ void __launch_bounds__(THREADS, 1)
               const __grid_constant__ CUtensorMap s1map, const Args a) {
   using C = Cfg<LAYOUT, N>;
   constexpr int NT = C::NT, G = C::G, LB = C::LB, MTW = C::MTW, NW = (LB + 3) / 4;
-  constexpr int VEC = C::VEC;
-  constexpr bool Q4 = LAYOUT == Q4C;
+  constexpr int SPAN = C::SPAN, VEC = C::VEC;
+  constexpr bool Q4 = LAYOUT == Q4C, P4 = LAYOUT == Q4P, INT4 = LAYOUT != Q8;
   constexpr bool PRODUCTS = MODE == RUN || MODE == TIMED;
   extern __shared__ unsigned char wo_raw[];
   // 1024-aligned by an offset from the shared array, so loads stay LDS
@@ -1031,7 +1088,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         int split;
         unit_of(a, u, mat, rb, split, strip);
         r = split * a.per;
-        r1 = min(a.K, r + a.per);
+        r1 = min(a.rows, r + a.per);
       }
     };
     start();
@@ -1040,15 +1097,18 @@ __global__ void __launch_bounds__(THREADS, 1)
       bool issued = false;
       if (more && mbar_test(&empty[st], ph ^ 1)) {
         unsigned char* slot = ring + st * a.slot;
-        const int srow = Q4 ? scale_row(a, r) : -1;
+        const int srow = INT4 ? scale_row(a, r) : -1;
         mbar_expect_tx(&full[st], W_BYTES + C::X_BYTES + (srow >= 0 ? 2 * a.sr * S_ROW : 0));
         tma_2d(slot, mat ? &w1map : &w0map, &full[st], strip * STRIP, r);
         tma_2d(slot + W_BYTES, &xmap, &full[st], r, rb * N);
+        if constexpr (P4)  // the high nibbles' reduction rows
+          tma_2d(slot + W_BYTES + C::X_BOX, &xmap, &full[st], a.xhi + r, rb * N);
         if (srow >= 0) {
+          // q4c: the low and high nibbles' columns; q4p: the two halves' groups
           const CUtensorMap* sm = mat ? &s1map : &s0map;
           unsigned char* dst = slot + W_BYTES + C::X_BYTES;
           tma_2d(dst, sm, &full[st], strip * STRIP, srow);
-          tma_2d(dst + a.sr * S_ROW, sm, &full[st], a.n / 2 + strip * STRIP, srow);
+          tma_2d(dst + a.sr * S_ROW, sm, &full[st], a.scol + strip * STRIP, a.shi + srow);
         }
         if (++st == a.stages) {
           st = 0;
@@ -1078,13 +1138,16 @@ __global__ void __launch_bounds__(THREADS, 1)
   if constexpr (MODE != RUN) pc[P_TOTAL] = clock_now();
   uint32_t sink = 0;
 
+  // c: the running group's sums (q4p: its low half's, c2 its high half's);
+  // acc: the int4 groups' scaled sums
   float c[MTW][NT][4];
-  float acc[Q4 ? MTW : 1][Q4 ? NT : 1][4];
+  float c2[P4 ? MTW : 1][P4 ? NT : 1][4];
+  float acc[INT4 ? MTW : 1][INT4 ? NT : 1][4];
   int st = 0, ph = 0, used = 0;
   for (int u = grp * gridDim.x + blockIdx.x; u < a.units; u += workers) {
     int mat, rb, split, strip;
     unit_of(a, u, mat, rb, split, strip);
-    const int r0 = split * a.per, r1 = min(a.K, r0 + a.per);
+    const int r0 = split * a.per, r1 = min(a.rows, r0 + a.per);
 #pragma unroll
     for (int j = 0; j < MTW; ++j)
 #pragma unroll
@@ -1092,9 +1155,10 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           c[j][nt][e] = 0.f;
-          if constexpr (Q4) acc[j][nt][e] = 0.f;
+          if constexpr (P4) c2[j][nt][e] = 0.f;
+          if constexpr (INT4) acc[j][nt][e] = 0.f;
         }
-    int next_end = (r0 / a.group + 1) * a.group;  // q4c: the next group's end
+    int next_end = (r0 / a.group + 1) * a.group;  // int4: the next group's end
     for (int r = r0; r < r1; r += KW) {
       auto use = [&](auto probed) {
         constexpr bool P = decltype(probed)::value;
@@ -1111,7 +1175,7 @@ __global__ void __launch_bounds__(THREADS, 1)
         const unsigned char* slot = ring + st * a.slot;
         const unsigned char* xs = slot + W_BYTES;
         const float* ss = reinterpret_cast<const float*>(xs + C::X_BYTES);
-        int ends = 0;  // q4c: the groups ended in this slot so far
+        int ends = 0;  // int4: the groups ended in this slot so far
 #pragma unroll
         for (int s = 0; s < KW / 16; ++s) {
           if constexpr (MODE != IDLE) {
@@ -1124,42 +1188,56 @@ __global__ void __launch_bounds__(THREADS, 1)
             lds<LB>(R[1], row + STRIP + c1);
             lds<LB>(R[2], row + 8 * STRIP + c0);
             lds<LB>(R[3], row + 9 * STRIP + c1);
-            // x: bx[nt] = rows 8 nt + g, columns 16 s + 2t (+ 8), by ldmatrix
-            // of two n-tiles at a time: lane L gives row 8 (nt + L / 16) + L % 8
-            // of chunk 2s + (L / 8) % 2, stored at chunk ^ (row % 8)
-            uint32_t bx[NT][2];
+            // x: bx[h][nt] = rows 8 nt + g, columns 16 s + 2t (+ 8) of box h
+            // (q4p's box 1: the high half), by ldmatrix of two n-tiles at a
+            // time: lane L gives row 8 (nt + L / 16) + L % 8 of chunk
+            // 2s + (L / 8) % 2, stored at chunk ^ (row % 8)
+            uint32_t bx[C::XB][NT][2];
 #pragma unroll
-            for (int nt = 0; nt < NT; nt += 2) {
-              const int xr = 8 * (nt + lane / 16) + lane % 8;
-              const int ch = (2 * s + (lane / 8) % 2) ^ (xr & 7);
-              const uint32_t addr = smem_u32(xs + xr * 128 + (ch << 4));
-              if (nt + 1 == NT)
-                asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-                             : "=r"(bx[nt][0]), "=r"(bx[nt][1])
-                             : "r"(addr));
-              else
-                asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                             : "=r"(bx[nt][0]), "=r"(bx[nt][1]), "=r"(bx[nt + 1 < NT ? nt + 1 : nt][0]),
-                               "=r"(bx[nt + 1 < NT ? nt + 1 : nt][1])
-                             : "r"(addr));
-            }
+            for (int h = 0; h < C::XB; ++h)
+#pragma unroll
+              for (int nt = 0; nt < NT; nt += 2) {
+                const int xr = 8 * (nt + lane / 16) + lane % 8;
+                const int ch = (2 * s + (lane / 8) % 2) ^ (xr & 7);
+                const uint32_t addr = smem_u32(xs + h * C::X_BOX + xr * 128 + (ch << 4));
+                if (nt + 1 == NT)
+                  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+                               : "=r"(bx[h][nt][0]), "=r"(bx[h][nt][1])
+                               : "r"(addr));
+                else
+                  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                               : "=r"(bx[h][nt][0]), "=r"(bx[h][nt][1]),
+                                 "=r"(bx[h][nt + 1 < NT ? nt + 1 : nt][0]),
+                                 "=r"(bx[h][nt + 1 < NT ? nt + 1 : nt][1])
+                               : "r"(addr));
+              }
             if constexpr (P) {
 #pragma unroll
               for (int k = 0; k < 4; ++k)
 #pragma unroll
                 for (int w = 0; w < NW; ++w) sink ^= R[k][w];
 #pragma unroll
-              for (int nt = 0; nt < NT; ++nt) sink ^= bx[nt][0] ^ bx[nt][1];
+              for (int h = 0; h < C::XB; ++h)
+#pragma unroll
+                for (int nt = 0; nt < NT; ++nt) sink ^= bx[h][nt][0] ^ bx[h][nt][1];
               mark(P_LOAD);
             }
             if constexpr (MODE == READ) continue;
             uint32_t fr[MTW][4];
+            uint32_t fr2[P4 ? MTW : 1][4];  // q4p: the high half's fragments
             if constexpr (Q4) {
 #pragma unroll
               for (int w = 0; w < NW; ++w)
 #pragma unroll
                 for (int j = 0; j < (LB < 4 ? LB : 4); j += 2)
                   q4_pair(R[0][w], R[1][w], R[2][w], R[3][w], j, fr[4 * w + j], fr[4 * w + j + 1]);
+            } else if constexpr (P4) {
+#pragma unroll
+              for (int w = 0; w < NW; ++w)
+#pragma unroll
+                for (int j = 0; j < (LB < 4 ? LB : 4); j += 2)
+                  q4p_pair(R[0][w], R[1][w], R[2][w], R[3][w], j, fr[(4 * w + j) / 2],
+                           fr2[(4 * w + j) / 2]);
             } else {
 #pragma unroll
               for (int k = 0; k < 4; ++k)
@@ -1176,31 +1254,52 @@ __global__ void __launch_bounds__(THREADS, 1)
             }
             if constexpr (P) {
 #pragma unroll
-              for (int j = 0; j < MTW; ++j) sink ^= fr[j][0] ^ fr[j][1] ^ fr[j][2] ^ fr[j][3];
+              for (int j = 0; j < MTW; ++j) {
+                sink ^= fr[j][0] ^ fr[j][1] ^ fr[j][2] ^ fr[j][3];
+                if constexpr (P4) sink ^= fr2[j][0] ^ fr2[j][1] ^ fr2[j][2] ^ fr2[j][3];
+              }
               mark(P_DECODE);
             }
             if constexpr (PRODUCTS) {
 #pragma unroll
               for (int j = 0; j < MTW; ++j)
 #pragma unroll
-                for (int nt = 0; nt < NT; ++nt) mma<P>(c[j][nt], fr[j], bx[nt]);
+                for (int nt = 0; nt < NT; ++nt) {
+                  mma<P>(c[j][nt], fr[j], bx[0][nt]);
+                  if constexpr (P4) mma<P>(c2[j][nt], fr2[j], bx[C::XB - 1][nt]);
+                }
               mark(P_MMA);
-              if constexpr (Q4) {
+              if constexpr (INT4) {
                 // a group ends: acc += c * its scales, c = 0
                 if (r + 16 * (s + 1) == next_end) {
                   next_end += a.group;
-                  // the slot's scale rows are its groups' in order
+                  // the slot's scale rows are its groups' in order: q4c's low
+                  // nibbles' (sl) and high nibbles' (sh) columns, q4p's low
+                  // half's group (sl) and high half's (sh)
                   const float* sl = ss + (ends++) * STRIP + 16 * g + q * LB;
                   const float* sh = sl + a.sr * STRIP;
 #pragma unroll
                   for (int j = 0; j < MTW; ++j) {
-                    const float lo = sl[j], hi = sh[j];
+                    // the scales of rows g and g + 8 of m-tile j: q4c's byte
+                    // column j in the two halves of the columns; q4p's byte
+                    // columns 2j and 2j + 1, each in the two halves of K
+                    const float lo = Q4 ? sl[j] : sl[2 * j], hi = Q4 ? sh[j] : sl[2 * j + 1];
+                    const float lo2 = P4 ? sh[2 * j] : 0.f, hi2 = P4 ? sh[2 * j + 1] : 0.f;
 #pragma unroll
                     for (int nt = 0; nt < NT; ++nt) {
-                      acc[j][nt][0] = fmaf(c[j][nt][0], lo, acc[j][nt][0]);
-                      acc[j][nt][1] = fmaf(c[j][nt][1], lo, acc[j][nt][1]);
-                      acc[j][nt][2] = fmaf(c[j][nt][2], hi, acc[j][nt][2]);
-                      acc[j][nt][3] = fmaf(c[j][nt][3], hi, acc[j][nt][3]);
+                      if constexpr (P4) {
+                        acc[j][nt][0] = fmaf(c2[j][nt][0], lo2, fmaf(c[j][nt][0], lo, acc[j][nt][0]));
+                        acc[j][nt][1] = fmaf(c2[j][nt][1], lo2, fmaf(c[j][nt][1], lo, acc[j][nt][1]));
+                        acc[j][nt][2] = fmaf(c2[j][nt][2], hi2, fmaf(c[j][nt][2], hi, acc[j][nt][2]));
+                        acc[j][nt][3] = fmaf(c2[j][nt][3], hi2, fmaf(c[j][nt][3], hi, acc[j][nt][3]));
+#pragma unroll
+                        for (int e = 0; e < 4; ++e) c2[j][nt][e] = 0.f;
+                      } else {
+                        acc[j][nt][0] = fmaf(c[j][nt][0], lo, acc[j][nt][0]);
+                        acc[j][nt][1] = fmaf(c[j][nt][1], lo, acc[j][nt][1]);
+                        acc[j][nt][2] = fmaf(c[j][nt][2], hi, acc[j][nt][2]);
+                        acc[j][nt][3] = fmaf(c[j][nt][3], hi, acc[j][nt][3]);
+                      }
 #pragma unroll
                       for (int e = 0; e < 4; ++e) c[j][nt][e] = 0.f;
                     }
@@ -1231,9 +1330,12 @@ __global__ void __launch_bounds__(THREADS, 1)
       ++used;
     }
     if constexpr (PRODUCTS) {
-      // row g's byte columns bc .. bc + MTW - 1 (a 16-byte chunk lies
-      // wholly inside or outside the matrix: cbytes is a multiple of 16);
-      // row g + 8's: q4c's high nibbles, n / 2 on; int8's next MTW bytes
+      // x row xr's SPAN columns from bc (a 16-byte chunk lies wholly inside
+      // or outside the matrix: cbytes is a multiple of 16): accumulators e
+      // 0, 1 hold row g's (q4c: the low nibbles' columns, bc + j; int8: byte
+      // bc + j; q4p: byte bc + 2j), e 2, 3 row g + 8's (q4c: the high
+      // nibbles', n / 2 + bc + j; int8: bc + MTW + j; q4p: bc + 2j + 1,
+      // stored with row g's)
       float* __restrict__ out =
           a.partial + static_cast<size_t>(mat * a.splits + split) * a.B * a.n;
       const int bc = strip * STRIP + 16 * g + q * LB;
@@ -1241,17 +1343,19 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
+          for (int e = 0; e < (P4 ? 2 : 4); ++e) {
             const int xr = rb * N + 8 * nt + 2 * t + (e & 1);
             if (xr >= a.B) continue;
             float* dst = out + static_cast<size_t>(xr) * a.n + bc +
                          (e < 2 ? 0 : (Q4 ? a.n / 2 : MTW));
 #pragma unroll
-            for (int j0 = 0; j0 < MTW; j0 += VEC) {
+            for (int j0 = 0; j0 < SPAN; j0 += VEC) {
               float v[VEC];
 #pragma unroll
               for (int i = 0; i < VEC; ++i) {
-                if constexpr (Q4)
+                if constexpr (P4)
+                  v[i] = acc[(j0 + i) / 2][nt][e + 2 * ((j0 + i) % 2)];
+                else if constexpr (Q4)
                   v[i] = acc[j0 + i][nt][e];
                 else
                   v[i] = c[j0 + i][nt][e];
@@ -1278,28 +1382,33 @@ __global__ void __launch_bounds__(THREADS, 1)
 }
 
 // x (B, K) bf16 @ the `mats` matrices (K, n) of the layout: each unit's fp32
-// partial result into `partial` (mats, splits, B, n). Returns 0 or a CUDA
-// error code.
+// partial result into `partial` (mats, splits, B, n). K is the reduction
+// dim (the byte matrix has K / 2 rows for q4p), per a split's byte rows.
+// Returns 0 or a CUDA error code.
 template <int LAYOUT, int N, int MODE>
 int launch(const void* x, const void* w0, const void* s0, const void* w1, const void* s1,
            void* partial, unsigned long long* probe, int B, int K, int n, int group, int mats,
            int splits, int per, int grid, cudaStream_t stream) {
   using C = Cfg<LAYOUT, N>;
+  constexpr bool INT4 = LAYOUT != Q8;
   Args a;
   a.partial = static_cast<float*>(partial);
   a.probe = probe;
   a.B = B;
-  a.K = K;
+  a.rows = LAYOUT == Q4P ? K / 2 : K;
   a.n = n;
   a.cbytes = LAYOUT == Q4C ? n / 2 : n;
-  a.group = LAYOUT == Q4C ? group : K;
+  a.group = INT4 ? group : K;
+  a.xhi = LAYOUT == Q4P ? K / 2 : 0;
+  a.shi = LAYOUT == Q4P ? K / 2 / group : 0;
+  a.scol = LAYOUT == Q4C ? n / 2 : 0;
   a.splits = splits;
   a.per = per;
   a.strips = (a.cbytes + STRIP - 1) / STRIP;
   a.rblocks = (B + N - 1) / N;
   a.units = mats * a.rblocks * splits * a.strips;
-  a.sr = LAYOUT == Q4C && group < KW ? KW / group : 1;
-  const int s_bytes = LAYOUT == Q4C ? 2 * a.sr * S_ROW : 0;
+  a.sr = INT4 && group < KW ? KW / group : 1;
+  const int s_bytes = INT4 ? 2 * a.sr * S_ROW : 0;
   a.slot = (W_BYTES + C::X_BYTES + s_bytes + 1023) / 1024 * 1024;
   const int bars = C::GPC * 2 * MAX_STAGES * 8;
   a.stages = min(MAX_STAGES, (SMEM_BUDGET - 1024 - bars) / (C::GPC * a.slot));
@@ -1311,7 +1420,8 @@ int launch(const void* x, const void* w0, const void* s0, const void* w1, const 
   const cuuint32_t xbox[2] = {KW, N};
   int e = encode_map(&xm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, xdims, xstrides, xbox,
                      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B);
-  const cuuint64_t wdims[2] = {static_cast<cuuint64_t>(a.cbytes), static_cast<cuuint64_t>(K)};
+  const cuuint64_t wdims[2] = {static_cast<cuuint64_t>(a.cbytes),
+                               static_cast<cuuint64_t>(a.rows)};
   const cuuint64_t wstrides[1] = {static_cast<cuuint64_t>(a.cbytes)};
   const cuuint32_t wbox[2] = {STRIP, KW};
   const cuuint64_t sdims[2] = {static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(K / a.group)};
@@ -1322,7 +1432,7 @@ int launch(const void* x, const void* w0, const void* s0, const void* w1, const 
   for (int m = 0; m < 2 && e == 0; ++m) {
     e = encode_map(&wm[m], CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, ws[m], wdims, wstrides, wbox,
                    CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B);
-    if (e == 0 && LAYOUT == Q4C)
+    if (e == 0 && INT4)
       e = encode_map(&sm[m], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, ss[m], sdims, sstrides, sbox,
                      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B);
     else
@@ -1337,23 +1447,28 @@ int launch(const void* x, const void* w0, const void* s0, const void* w1, const 
 }
 
 // Checks the arguments and picks the instance: design is N (8, 16, 32 or 64,
-// and 24 for q4c; 64-row blocks above 64 rows).
+// and 24 for int4; 64-row blocks above 64 rows). The byte rows (K, or K / 2
+// for q4p) are a multiple of 16; an int4 group is a multiple of 16 that
+// divides a slot or is a multiple of one, and divides the byte rows (for
+// q4p: a low-half group and its high-half partner end in one slot).
+// ops/fused_mlp.py::_wo_takes holds the same rule before any launch.
 template <int MODE>
 int launch_design(int layout, int design, const void* x, const void* w0, const void* s0,
                   const void* w1, const void* s1, void* partial, unsigned long long* probe, int B,
                   int K, int n, int group, int mats, int splits, int per, int grid,
                   cudaStream_t stream) {
+  const bool int4 = layout == Q4C || layout == Q4P;
   const int cbytes = layout == Q4C ? n / 2 : n;
-  // splits start on a slot and (q4c) on a group: a multiple of the larger
+  const int rows = layout == Q4P ? K / 2 : K;
+  // splits start on a slot and (int4) on a group: a multiple of the larger
   // of KW and the group, one of which divides the other
-  const int align = layout == Q4C && group > KW ? group : KW;
-  if ((layout != Q4C && layout != Q8) || B < 1 || B > 128 || K < 16 || K % 16 || n < 2 ||
+  const int align = int4 && group > KW ? group : KW;
+  if ((!int4 && layout != Q8) || B < 1 || B > 128 || K % 2 || rows < 16 || rows % 16 || n < 2 ||
       cbytes % 16 ||
-      (layout == Q4C &&
-       (n % 2 || group < 16 || group % 16 || K % group || (group % KW && KW % group))) ||
+      (int4 && (n % 2 || group < 16 || group % 16 || rows % group || (group % KW && KW % group))) ||
       per < KW || per % KW || (splits > 1 && per % align) || splits < 1 ||
-      static_cast<long long>(splits) * per < K || static_cast<long long>(splits - 1) * per >= K ||
-      grid < 1 || mats < 1 || mats > 2 ||
+      static_cast<long long>(splits) * per < rows ||
+      static_cast<long long>(splits - 1) * per >= rows || grid < 1 || mats < 1 || mats > 2 ||
       (design < B && design != 64) ||
       reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(w0) % 16 ||
       reinterpret_cast<uintptr_t>(w1) % 16)
@@ -1371,6 +1486,14 @@ int launch_design(int layout, int design, const void* x, const void* w0, const v
       WO_N(Q4C, 16);
       WO_N(Q4C, 32);
       WO_N(Q4C, 64);
+    }
+  } else if (layout == Q4P) {
+    WO_N(Q4P, 8);
+    WO_N(Q4P, 24);
+    if constexpr (ALL) {
+      WO_N(Q4P, 16);
+      WO_N(Q4P, 32);
+      WO_N(Q4P, 64);
     }
   } else {
     WO_N(Q8, 8);
@@ -1482,13 +1605,15 @@ extern "C" int fused_mlp_wo_matmul(int layout, const void* x, const void* w, con
   return static_cast<int>(cudaGetLastError());
 }
 
-// K6 on the streaming core: the SwiGLU MLP over int8 (layout must be 2),
-// out (B, D) fp32 = (silu(x @ Wg) * (x @ Wu)) @ Wd with the column scales
-// applied by the merges. x (B, D) bf16; h: (B, F) bf16 workspace; partial:
-// fp32 workspace of max(2 * split1 * B * F, split2 * B * D) elements;
-// group_d / group_f as for fused_mlp_swiglu (D and F); splitN, perN, gridN:
-// product N's splits, reduction rows a split (a multiple of 64) and
-// persistent CTAs; design as above. Returns the first CUDA error, or 0.
+// K6 and K7 on the streaming core: the SwiGLU MLP over int8 (layout 2) or
+// row-packed int4 (layout 1), out (B, D) fp32 = (silu(x @ Wg) * (x @ Wu)) @
+// Wd; int8's column scales are applied by the merges, q4p's group scales
+// are in the partial sums. x (B, D) bf16; h: (B, F) bf16 workspace;
+// partial: fp32 workspace of max(2 * split1 * B * F, split2 * B * D)
+// elements; group_d / group_f as for fused_mlp_swiglu (int8: D and F);
+// splitN, perN, gridN: product N's splits, byte rows a split (a multiple of
+// 64) and persistent CTAs; design as above. Returns the first CUDA error,
+// or 0.
 extern "C" int fused_mlp_wo_swiglu(int layout, const void* x, const void* wg, const void* sg,
                                    const void* wu, const void* su, const void* wd,
                                    const void* sd, void* h, void* partial, void* out, int B,
@@ -1496,20 +1621,21 @@ extern "C" int fused_mlp_wo_swiglu(int layout, const void* x, const void* wg, co
                                    int grid1, int split2, int per2, int grid2, int design,
                                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (layout != Q8) return static_cast<int>(cudaErrorInvalidValue);
+  if (layout != Q8 && layout != Q4P) return static_cast<int>(cudaErrorInvalidValue);
+  const bool int8 = layout == Q8;
   int e = wo::launch_design<wo::RUN>(layout, design, x, wg, sg, wu, su, partial, nullptr, B, D,
                                      F, group_d, 2, split1, per1, grid1, st);
   if (e != 0) return e;
   swiglu_merge_kernel<<<merge_blocks(B, F), MERGE_THREADS, 0, st>>>(
-      static_cast<const float*>(partial), static_cast<const float*>(sg),
-      static_cast<const float*>(su), static_cast<bf16*>(h), split1, B, F);
+      static_cast<const float*>(partial), int8 ? static_cast<const float*>(sg) : nullptr,
+      int8 ? static_cast<const float*>(su) : nullptr, static_cast<bf16*>(h), split1, B, F);
   e = static_cast<int>(cudaGetLastError());
   if (e != 0) return e;
   e = wo::launch_design<wo::RUN>(layout, design, h, wd, sd, wd, sd, partial, nullptr, B, F, D,
                                  group_f, 1, split2, per2, grid2, st);
   if (e != 0) return e;
   fused_mlp_down_merge_kernel<<<merge_blocks(B, D), MERGE_THREADS, 0, st>>>(
-      static_cast<const float*>(partial), static_cast<const float*>(sd),
+      static_cast<const float*>(partial), int8 ? static_cast<const float*>(sd) : nullptr,
       static_cast<float*>(out), split2, B, D);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1517,8 +1643,8 @@ extern "C" int fused_mlp_wo_swiglu(int layout, const void* x, const void* wg, co
 #ifdef WO_PROBE
 // chip_smoke.py --phases wo_probe only (a library built with -DWO_PROBE):
 // one product on the streaming core in probe mode `mode` (wo::Mode; the
-// cut-down modes for the designs of 1 and 20 rows: q4c N 8 and 24, int8 N 8
-// and 32), its per-warp counters into `probe`
+// cut-down modes for the designs of 1 and 20 rows: q4c and q4p N 8 and 24,
+// int8 N 8 and 32), its per-warp counters into `probe`
 // (grid * 8 * wo::P_COUNT uint64).
 extern "C" int wo_probe(int mode, int layout, int design, const void* x, const void* w,
                         const void* s, void* partial, void* probe, int B, int K, int n, int group,

@@ -24,20 +24,27 @@ calls them.
 K4 runs the wgmma kernel (``fused_mlp_q4c_kernel``) where every byte row
 of its matrices is 16-byte aligned (D and F multiples of 32, as in every
 model); ``q4c_schedule`` and ``q4c_units`` are its work decomposition as
-the CUDA source walks it. K5 and K6 run the streaming weight-only core
-(``wo_kernel``) where their byte rows are 16-byte aligned (it measured
+the CUDA source walks it. K5, K6 and K7 run the streaming weight-only core
+(``wo_kernel``) where ``_wo_takes`` holds: byte rows 16-byte aligned, and
+for the int4 layouts a group that is a multiple of 16 and divides a 64-row
+slot or is a multiple of one; for K7 also half the reduction dim a
+multiple of 16 and of the group (every model at group 128). It measured
 faster than the ``mma.sync`` family at every row count from 1 to 128 on
-the H100, PERF.md); ``wo_schedule`` and ``wo_units`` are its work
-decomposition. Other shapes, and K7, run the ``mma.sync`` family
-(``_split`` cuts its reduction).
+the H100 (PERF.md); ``wo_schedule`` and ``wo_units`` are its work
+decomposition. Other shapes (for K7 a matrix shorter than its group, whose
+one group spans both halves) run the ``mma.sync`` family (``_split`` cuts
+its reduction): a rule on the shapes, decided before any launch.
 
 ``maybe_fused`` / ``maybe_matmul_int4c`` are the dispatch of
 ``models/llama._layer`` and ``models/quant.quantized_matmul``, the JAX
 package's rule with "on a TPU" read as "on a CUDA tensor": at most
 ``MAX_FUSED_TOKENS`` rows, no LoRA on the MLP, all three matrices of one
 int4 layout (``q4c`` -> K4, ``q4p`` -> K7; int8 is not dispatched, K6 stays
-an A/B kernel as in the JAX package). Where the dispatch declines, the
-caller takes the dequantizing route (``quant.quantized_matmul``).
+an A/B kernel as in the JAX package) and of a shape the kernels take
+(``_kernel_takes``: an even output dim, a group that is a multiple of 16,
+for q4p a reduction dim that is a multiple of 32). Where the dispatch
+declines, the caller takes the dequantizing route
+(``quant.quantized_matmul``).
 ``VLO_FUSED_MLP=0`` switches the dispatch off.
 """
 
@@ -227,26 +234,28 @@ def q4c_units(rows: int, byte_cols: int, B: int, n_mats: int, sms: int):
 
 def wo_design(layout: int, B: int) -> int:
     """N, the rows of x a unit of the streaming core serves: B rounded up
-    to 8, 16, 24 (q4c only: int8 measured slower there than at 32), 32 or
+    to 8, 16, 24 (int4 only: int8 measured slower there than at 32), 32 or
     64; above 64 rows, units of 64-row blocks."""
-    sizes = (8, 16, 24, 32) if layout == LAYOUT_Q4C else (8, 16, 32)
+    sizes = (8, 16, 24, 32) if layout != LAYOUT_Q8 else (8, 16, 32)
     return next((n for n in sizes if B <= n), 64)
 
 
 def wo_group_warps(layout: int, n: int) -> int:
     """G, the warps of the streaming core that share one 128-byte strip:
-    each keeps (16 / G m-tiles for q4c, 8 / G for int8) x N / 8 n-tiles of
-    accumulators at 64 registers or fewer (twice for q4c's group sums)."""
+    each keeps (16 / G m-tiles for q4c, 8 / G for int8 and q4p) x N / 8
+    n-tiles of accumulators at 64 registers or fewer (twice for q4c's group
+    sums, three times for q4p's two halves' group sums)."""
     nt = n // 8
-    if layout == LAYOUT_Q4C:
+    if layout != LAYOUT_Q8:
         return 4 if nt == 3 else max(2, nt)
     return nt // 2 if nt > 2 else 1
 
 
 def _wo_align(layout: int, group: int, splits: int) -> int:
-    """Rows a split of the streaming core is a multiple of: a slot, and for
-    q4c at more than one split a whole scale group (one of a slot and a
-    group divides the other)."""
+    """Byte rows a split of the streaming core is a multiple of: a slot,
+    and for int4 at more than one split a whole scale group (one of a slot
+    and a group divides the other; for q4p the high half's split then
+    starts on a group too, K / 2 being a multiple of the group)."""
     if splits == 1 or layout == LAYOUT_Q8:
         return WO_KW
     return max(WO_KW, group)
@@ -254,12 +263,12 @@ def _wo_align(layout: int, group: int, splits: int) -> int:
 
 def wo_schedule(layout: int, rows: int, byte_cols: int, B: int, group: int,
                 n_mats: int, sms: int):
-    """How the streaming core cuts one product of `rows` reduction rows
-    and `byte_cols` byte columns: (N, splits, reduction rows per split,
-    persistent CTAs). Units are (matrix, row block, split, strip); the
-    split count minimises the bytes the busiest SM streams (its groups'
-    whole waves of units) plus the fp32 partial results written and read
-    again by the merges."""
+    """How the streaming core cuts one product of `rows` byte rows (the
+    reduction rows, or for q4p half of them) and `byte_cols` byte columns:
+    (N, splits, byte rows per split, persistent CTAs). Units are (matrix,
+    row block, split, strip); the split count minimises the bytes the
+    busiest SM streams (its groups' whole waves of units) plus the fp32
+    partial results written and read again by the merges."""
     n = wo_design(layout, B)
     gpc = WO_WARPS // wo_group_warps(layout, n)
     strips = -(-byte_cols // WO_STRIP)
@@ -286,8 +295,7 @@ def wo_units(layout: int, rows: int, byte_cols: int, B: int, group: int,
              n_mats: int, sms: int):
     """The streaming core's work units in the order the CUDA kernel takes
     them: per worker w (group j of CTA c, w = j * grid + c), a list of
-    (matrix, x rows [b0, b1), byte columns [c0, c1), reduction rows
-    [r0, r1))."""
+    (matrix, x rows [b0, b1), byte columns [c0, c1), byte rows [r0, r1))."""
     n, splits, per, grid = wo_schedule(layout, rows, byte_cols, B, group,
                                        n_mats, sms)
     workers = grid * (WO_WARPS // wo_group_warps(layout, n))
@@ -305,14 +313,51 @@ def wo_units(layout: int, rows: int, byte_cols: int, B: int, group: int,
     return work
 
 
-def _wo_takes(layout: int, byte_cols, mats, group: int = 0) -> bool:
-    """Whether a product takes the streaming core: every byte row 16-byte
-    aligned (TMA reads them), and for q4c a group that divides a slot's
-    rows or is a multiple of them."""
-    return (all(c % 16 == 0 for c in byte_cols)
-            and all(w.data_ptr() % 16 == 0 for w in mats)
-            and (layout == LAYOUT_Q8 or group % WO_KW == 0
-                 or WO_KW % group == 0))
+def _int4_groups(layout: int, w, s):
+    """(K, group) of an int4 matrix's bytes ``w`` and scales ``s`` (the
+    reduction dim and the rows a scale covers), or None unless both are 2-D
+    and the scale rows cut K into whole groups."""
+    if w.ndim != 2 or s is None or s.ndim != 2 or s.shape[0] == 0:
+        return None
+    K = 2 * w.shape[0] if layout == LAYOUT_Q4P else w.shape[0]
+    return None if K % s.shape[0] else (K, K // s.shape[0])
+
+
+def _wo_takes(layout: int, pairs) -> bool:
+    """Whether the products of the (weight bytes, scales) ``pairs`` take the
+    streaming core, the rule ``launch_design`` in csrc/fused_mlp.cu holds:
+    every byte row 16-byte aligned (TMA reads them); for the int4 layouts
+    a group that is a multiple of 16 and divides a slot's rows or is a
+    multiple of them; for q4p byte rows (half the reduction dim) that are
+    a multiple of 16 and of the group, so that a low-half group and its
+    high-half partner end in one slot."""
+    for w, s in pairs:
+        if w.ndim != 2:
+            return False
+        rows, cols = w.shape
+        if cols % 16 or w.data_ptr() % 16:
+            return False
+        if layout == LAYOUT_Q8:
+            continue
+        kg = _int4_groups(layout, w, s)
+        if kg is None:
+            return False
+        group = kg[1]
+        if group % K_STEP or (group % WO_KW and WO_KW % group):
+            return False
+        if layout == LAYOUT_Q4P and (rows % K_STEP or rows % group):
+            return False
+    return True
+
+
+def _kernel_takes(layout: int, K: int, N: int, group: int) -> bool:
+    """Whether the kernels take a (K, N) matrix of the layout with scale
+    groups of ``group`` reduction rows: an even N, a group that is a
+    multiple of K_STEP and, for q4p, half of K a multiple of K_STEP. The
+    wrappers raise on any other shape (``_check_weights``), and the
+    dispatch sends it to the dequantizing route."""
+    return (N % 2 == 0 and group % K_STEP == 0
+            and (layout != LAYOUT_Q4P or K % (2 * K_STEP) == 0))
 
 
 def _check_weights(name, layout, x, w, s, K, N):
@@ -337,7 +382,7 @@ def _check_weights(name, layout, x, w, s, K, N):
             raise ValueError(f"{name}: int4 scales must be (K/group, {N}) "
                              f"with K = {K}, got {tuple(s.shape)}")
         group = K // s.shape[0]
-    if N % 2 or group % K_STEP or (layout == LAYOUT_Q4P and K % (2 * K_STEP)):
+    if not _kernel_takes(layout, K, N, group):
         raise ValueError(f"{name}: the kernel takes an even output dim and "
                          f"a group (and for row-packed int4 half the "
                          f"reduction dim) that is a multiple of {K_STEP}; "
@@ -429,19 +474,19 @@ def _launch_q4c(x, wg, sg, wu, su, wd, sd):
     return out.to(x.dtype)
 
 
-def _launch_wo_mlp(x, wg, sg, wu, su, wd, sd):
-    """K6's int8 MLP on the streaming core."""
-    layout = LAYOUT_Q8
+def _launch_wo_mlp(layout, x, wg, sg, wu, su, wd, sd):
+    """K6's int8 MLP (LAYOUT_Q8) or K7's q4p MLP (LAYOUT_Q4P) on the
+    streaming core; a shape the core does not take raises."""
     xb, D, F, group_d, group_f = _check_mlp(layout, x, wg, sg, wu, su, wd,
                                             sd)
     if xb.data_ptr() % 16:  # TMA reads x
         xb = xb.clone()
     B = xb.shape[0]
     sms = _sm_count(x.device)
-    design, split1, per1, grid1 = wo_schedule(layout, D, wg.shape[1], B,
-                                              group_d, 2, sms)
-    _, split2, per2, grid2 = wo_schedule(layout, F, wd.shape[1], B, group_f,
-                                         1, sms)
+    design, split1, per1, grid1 = wo_schedule(layout, wg.shape[0],
+                                              wg.shape[1], B, group_d, 2, sms)
+    _, split2, per2, grid2 = wo_schedule(layout, wd.shape[0], wd.shape[1], B,
+                                         group_f, 1, sms)
     dev = x.device
     h = torch.empty((B, F), dtype=torch.bfloat16, device=dev)
     part = torch.empty((max(2 * split1 * B * F, split2 * B * D),),
@@ -482,7 +527,12 @@ def fused_mlp_int4(x, wg_p, wg_s, wu_p, wu_s, wd_p, wd_s):
     if not x.is_cuda:
         return fused_mlp_int4_reference(x, wg_p, wg_s, wu_p, wu_s, wd_p,
                                         wd_s)
-    out = _launch_mlp(LAYOUT_Q4P, x, wg_p, wg_s, wu_p, wu_s, wd_p, wd_s)
+    pairs = ((wg_p, wg_s), (wu_p, wu_s), (wd_p, wd_s))
+    if _wo_takes(LAYOUT_Q4P, pairs):
+        out = _launch_wo_mlp(LAYOUT_Q4P, x, wg_p, wg_s, wu_p, wu_s, wd_p,
+                             wd_s)
+    else:
+        out = _launch_mlp(LAYOUT_Q4P, x, wg_p, wg_s, wu_p, wu_s, wd_p, wd_s)
     fused_mlp_int4.launches += 1
     return out
 
@@ -493,9 +543,10 @@ def fused_mlp_int8(x, wg_q, wg_s, wu_q, wu_s, wd_q, wd_s):
     if not x.is_cuda:
         return fused_mlp_int8_reference(x, wg_q, wg_s, wu_q, wu_s, wd_q,
                                         wd_s)
-    mats = (wg_q, wu_q, wd_q)
-    if _wo_takes(LAYOUT_Q8, (wg_q.shape[-1], wd_q.shape[-1]), mats):
-        out = _launch_wo_mlp(x, wg_q, wg_s, wu_q, wu_s, wd_q, wd_s)
+    pairs = ((wg_q, wg_s), (wu_q, wu_s), (wd_q, wd_s))
+    if _wo_takes(LAYOUT_Q8, pairs):
+        out = _launch_wo_mlp(LAYOUT_Q8, x, wg_q, wg_s, wu_q, wu_s, wd_q,
+                             wd_s)
     else:
         out = _launch_mlp(LAYOUT_Q8, x, wg_q, wg_s, wu_q, wu_s, wd_q, wd_s)
     fused_mlp_int8.launches += 1
@@ -510,7 +561,7 @@ def _launch_matmul(x, w_p, w_s, streaming: Optional[bool] = None):
     B = xb.shape[0]
     group = _check_weights("w", LAYOUT_Q4C, x, w_p, w_s, K, N)
     if streaming is None:
-        streaming = _wo_takes(LAYOUT_Q4C, (N // 2,), (w_p,), group)
+        streaming = _wo_takes(LAYOUT_Q4C, ((w_p, w_s),))
     sms = _sm_count(x.device)
     out = torch.empty((B, N), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -605,17 +656,32 @@ def maybe_matmul_int4c(x, qw) -> Optional[torch.Tensor]:
         B *= d
     if B == 0 or B > MAX_FUSED_TOKENS:
         return None
-    if K != w_p.shape[0] or K % w_s.shape[0]:
+    kg = _int4_groups(LAYOUT_Q4C, w_p, w_s)
+    if (kg is None or kg[0] != K
+            or not _kernel_takes(LAYOUT_Q4C, K, w_s.shape[1], kg[1])):
         return None
     y = matmul_int4c(x.reshape(B, K), w_p, w_s)
     return y.reshape(*lead, y.shape[-1])
 
 
+def _layer_takes(key: str, mats) -> bool:
+    """Whether the kernels take all of one layer's MLP matrices in the int4
+    layout ``key`` (``_kernel_takes`` on each matrix's shape and group)."""
+    layout = LAYOUT_Q4C if key == "q4c" else LAYOUT_Q4P
+    for m in mats:
+        kg = _int4_groups(layout, m[key], m.get("scale"))
+        if kg is None or not _kernel_takes(layout, kg[0],
+                                           m["scale"].shape[1], kg[1]):
+            return False
+    return True
+
+
 def maybe_fused(x, layer_params, layer_lora) -> Optional[torch.Tensor]:
     """Dispatch for one layer's MLP: the whole-MLP kernel when x (B, S, D)
     is a CUDA tensor of at most MAX_FUSED_TOKENS rows, the MLP carries no
-    LoRA and its three matrices share one int4 layout. Returns the MLP's
-    output, or None (the caller takes the three dequantizing matmuls)."""
+    LoRA and its three matrices share one int4 layout in a shape the
+    kernels take. Returns the MLP's output, or None (the caller takes the
+    three dequantizing matmuls)."""
     if not _enabled() or not _on_card(x):
         return None
     B, S, _ = x.shape
@@ -629,8 +695,7 @@ def maybe_fused(x, layer_params, layer_lora) -> Optional[torch.Tensor]:
     if not all(isinstance(m, dict) for m in mats):
         return None
     # int8 is not dispatched, as in the JAX package: K6 stays an A/B kernel
-    if all("q4c" in m for m in mats):
-        return mlp_int4c(x, layer_params)
-    if all("q4p" in m for m in mats):
-        return mlp_int4(x, layer_params)
+    for key, fn in (("q4c", mlp_int4c), ("q4p", mlp_int4)):
+        if all(key in m for m in mats):
+            return fn(x, layer_params) if _layer_takes(key, mats) else None
     return None
