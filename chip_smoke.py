@@ -65,7 +65,7 @@ any failure raises and exits non-zero:
      the stream of phase 5: frames/s, ms/token, parameter bytes, launches of
      K1 / K4 / K5 per forward (K4 32, K5 1 up to 128 rows; none above), a
      profile of a 1-token and a 20-token forward by kernel class, then
-     ``cli.main`` itself on 8 frames;
+     ``cli.main`` itself on 8 frames (20-token responses);
  12. K6 and K7, which no serving main path reaches, through 8-layer engines
      at the 8B widths: int8 layers with the MLP routed to K6 (its A/B), and
      row-packed q4p layers, which the dispatch sends to K7 (on the
@@ -94,7 +94,23 @@ any failure raises and exits non-zero:
      ticks, stats(), K3 32 launches a forward and no K1 asserted, a profile
      of one batched forward of 1, 20, 91 and 128 tokens; then the same traffic with int8 KV and spec
      decode, and on the batched ring (K1 and the plain attention); then a
-     close, a re-admission and a fork.
+     close, a re-admission and a fork;
+ 16. a small fp32 engine with every option of the demo path at once (a
+     SigLIP tower on raw uint8 frames, the int8 KV ring compacted to a
+     stream_window, 4-token segments through on_delta, spec decode) through
+     K1 and through the plain attention: transcripts and segments equal,
+     K1's int8 form launched after the first compaction;
+ 17. the upstream demo's path at full width: a 64-frame 384 px .avi
+     written by the port's write_avi, served by serve/cli.py with
+     ``--model_size 8b --with_vision --spec_decode``, once with
+     ``--quantize int8 --kv_quant int8 --stream_tokens 4`` and once with
+     ``--quantize int4`` (random SigLIP-large and 8B weights built on the
+     card; the main paths' 20-token responses and gate bias of 30, so each
+     engine answers the opening query and stays silent through the video):
+     Average Processing FPS, K1 / K4 / K5 launches and on_delta segments
+     of that run, the encoder's ms a frame, the wall against the device
+     time of one tick, and the tower's bf16 features against the same
+     weights in fp32 (DEMO_ENC_REL).
 
 ``--phases a,b`` runs the named phases alone and prints no summary;
 ``--phases train_seeds`` (in no default run) prints the 2-layer step's loss
@@ -108,13 +124,14 @@ clock64 counters and prints its cycles a slot by phase, three cut-down
 consumers, the SASS of one slot's loop and the A/B against K4's wgmma
 kernel. The
 launch counts are set to 0 just before each main path and read just after
-it. The line before the last is the kernels' JSON summary; the last line is
+it; each phase's time is printed after it. The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device the script exits
 non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -267,17 +284,29 @@ def _ptxas_report_log(text):
     return report, notes
 
 
+_SASS = {}
+
+
+def _sass(source):
+    """cuobjdump -sass of csrc/<source>.cu's library, dumped once, or None
+    without cuobjdump."""
+    from videollm_online_tpu_torch.ops import _build
+    if source not in _SASS:
+        tool = _cuobjdump()
+        _SASS[source] = tool and subprocess.run(
+            [tool, "-sass", str(_build.library_path(source))],
+            capture_output=True, text=True, check=True).stdout
+    return _SASS[source]
+
+
 def _sass_count(source, op):
     """Per kernel (mangled name), the SASS instructions of csrc/<source>.cu
     whose line holds ``op`` (cuobjdump -sass), or None without
     cuobjdump."""
     import re
-    from videollm_online_tpu_torch.ops import _build
-    tool = _cuobjdump()
-    if not tool:
+    sass = _sass(source)
+    if not sass:
         return None
-    sass = subprocess.run([tool, "-sass", str(_build.library_path(source))],
-                          capture_output=True, text=True, check=True).stdout
     counts, fn = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
@@ -375,6 +404,10 @@ def phase_build():
     seconds = _build.build(names)
     log(f"build: {names} in {time.perf_counter() - t0:.2f} s "
         f"(per source {seconds})")
+    # the SASS of every library, dumped side by side for the reports
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(_sass, names))
     for name in names:
         if name == "flash_attention":
             _k2_kernel_report()
@@ -2331,15 +2364,17 @@ def phase_main_path_int4(n_frames: int = 64):
     del engine, cache, params
     torch.cuda.empty_cache()
 
-    # the command a user types, end to end (parameters built again)
+    # the command a user types, end to end (parameters built again), with
+    # the main path's response length
     import os
     out_dir = _out_dir("cli_int4")
     video = os.path.join(out_dir, "features.npy")
     np.save(video, feats[:8])
     history = os.path.join(out_dir, "history.json")
-    cli.main(["--video", video, "--model_size", "8b", "--quantize", "int4",
-              "--spec_decode", "--kv_capacity", "8192", "--num_ticks", "8",
-              "--output", history])
+    with _cli_config(max_response_tokens=resp_tokens):
+        cli.main(["--video", video, "--model_size", "8b", "--quantize",
+                  "int4", "--spec_decode", "--kv_capacity", "8192",
+                  "--num_ticks", "8", "--output", history])
     with open(history) as f:
         fps = json.load(f)["average_processing_fps"]
     if not fps > 0:
@@ -3024,6 +3059,309 @@ def phase_main_path_multistream(n_streams: int = 8, n_frames: int = 64):
     return results
 
 
+# --------------------------------------------------------------- phase 16
+# the demo's options together, on a ring small enough to compact: the
+# window, one chunk and one response turn fit (128 + 4 + 8 x 11 + 256 + 16
+# <= 640)
+DEMO_WINDOW, DEMO_RING = 128, 640
+
+
+def small_demo_setup(device="cuda"):
+    """(cfg, tok, params, vision_params) of the small fp32 demo engine: a
+    2-layer LLM (d 64, G 4) and a 2-layer SigLIP at 64 px, from seed 0 on
+    ``device`` (tests/test_torch_cuda.py serves the same engine)."""
+    from videollm_online_tpu_torch.core.config import (LiveConfig,
+                                                       LlamaConfig,
+                                                       VisionConfig)
+    from videollm_online_tpu_torch.models import live, llama, siglip
+    from videollm_online_tpu_torch.tokenizer.live_tokenizer import (
+        LiveTokenizer)
+    from videollm_online_tpu_torch.tokenizer.tiny import ByteTokenizer
+    lcfg = LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                       num_layers=2, num_heads=8, num_kv_heads=2, head_dim=64,
+                       dtype="float32")
+    vcfg = VisionConfig(image_size=64, patch_size=16, hidden_size=64,
+                        intermediate_size=128, num_layers=2, num_heads=4,
+                        dtype="float32")
+    cfg = LiveConfig(llama=lcfg, vision=vcfg, lora=None,
+                     vision_hidden_size=64, frame_resolution=64)
+    tok = LiveTokenizer(ByteTokenizer(), cfg)
+    cfg = tok.cfg.replace(max_response_tokens=16)
+    gen = torch.Generator(device=device).manual_seed(0)
+    params = {"llama": llama.init_params(gen, cfg.llama, device=device),
+              "connector": live.init_connector(gen, cfg, device=device)}
+    return cfg, tok, params, siglip.init_params(gen, vcfg, device=device)
+
+
+def small_demo_drive(setup, frames, *, video_every, device="cuda", **kw):
+    """Serve uint8 ``frames`` (T, 3, 64, 64) through a LiveInferEngine with
+    every option of the demo path at once (the SigLIP tower on raw frames,
+    the int8 KV ring of DEMO_RING compacted to windows of DEMO_WINDOW,
+    4-token segments, spec decode): a query every 8 frames, a frame every
+    ``video_every``. Returns (transcript, on_delta segments, engine, K1's
+    launch count when the ring first compacted, or None)."""
+    from videollm_online_tpu_torch.ops.decode_attention import (
+        ring_decode_attention_layered as k1)
+    from videollm_online_tpu_torch.serve.engine import LiveInferEngine
+    cfg, tok, params, vparams = setup
+    deltas = []
+    eng = LiveInferEngine(
+        params, tok, cfg, kv_capacity=DEMO_RING, vision_params=vparams,
+        kv_quant="int8", stream_window=DEMO_WINDOW, stream_tokens=4,
+        spec_decode=True, device=device,
+        on_delta=lambda d, done: deltas.append((d, done)), **kw)
+    eng.load_video(frames)
+    out, at_compaction = [], None
+    for i in range(len(frames)):
+        if i % 8 == 0:
+            eng.input_query_stream("What happens now?",
+                                   video_time=i / eng.frame_fps)
+        if i % video_every == video_every - 1:
+            eng.input_video_stream(i / eng.frame_fps)
+        while True:
+            q, r = eng()
+            if at_compaction is None and int(eng.cache.pos_base[0]):
+                at_compaction = k1.launches
+            if r is None:
+                break
+            out.append((q, r))
+    return out, deltas, eng, at_compaction
+
+
+def phase_small_demo():
+    """The small fp32 engine with every option of the demo path at once,
+    run through the kernels and through the plain attention: the
+    transcripts and every on_delta segment must be equal, the ring must
+    have compacted, and K1 (its int8 form, FMA design at fp32 queries) must
+    launch after the first compaction."""
+    from videollm_online_tpu_torch.models import llama
+    from videollm_online_tpu_torch.ops.decode_attention import (
+        ring_decode_attention_layered as k1)
+    setup = small_demo_setup()
+    res = setup[0].vision.image_size
+    frames = np.random.RandomState(0).randint(
+        0, 256, (48, 3, res, res)).astype(np.uint8)
+    k1.launches = 0
+    got, got_deltas, eng, at_compaction = small_demo_drive(
+        setup, frames, video_every=2)
+    n_k1 = k1.launches
+    plain, plain_deltas, _, _ = small_demo_drive(
+        setup, frames, video_every=2, attn_impl=llama._attention)
+    if got != plain or got_deltas != plain_deltas:
+        raise AssertionError(f"kernel and plain runs differ:\n{got}\n{plain}")
+    if eng.cache.k.dtype != torch.int8 or at_compaction is None:
+        raise AssertionError(f"ring {eng.cache.k.dtype}, compacted "
+                             f"{at_compaction is not None}")
+    if not got or n_k1 - at_compaction == 0:
+        raise AssertionError(f"responses {len(got)}, K1 launches {n_k1}, "
+                             f"{n_k1 - (at_compaction or 0)} after the first "
+                             f"compaction")
+    segments = sum(not done for _, done in got_deltas)
+    log(f"small demo (fp32, SigLIP {res} px on raw frames, int8 KV ring of "
+        f"{DEMO_RING} compacted to windows of {DEMO_WINDOW}, 4-token "
+        f"segments, spec decode): {len(got)} responses, "
+        f"{len(got_deltas)} on_delta segments ({segments} not final), "
+        f"pos_base {int(eng.cache.pos_base[0])}; equal transcripts and "
+        f"segments through K1's int8 form ({n_k1} launches, "
+        f"{n_k1 - at_compaction} after the first compaction) and the plain "
+        f"attention")
+
+
+# --------------------------------------------------------------- phase 17
+# SigLIP-large on the card: bf16 frame features against the same weights
+# in fp32, relative norm over 16 demo frames. The first readings, over 64
+# frames in batches of 16, were 3.25e-3 at most (3.22e-3 mean); the bound
+# is about three times that.
+DEMO_ENC_REL = 1e-2
+# the main paths' response length and gate bias (phases 5, 11, 15): random
+# weights fire the gate on every frame, and a bias of 30 holds it silent
+# but for the opening query, as a trained model is silent most of the time
+DEMO_RESPONSE_TOKENS, DEMO_GATE_BIAS = 20, 30.0
+
+
+@contextlib.contextmanager
+def _cli_config(**fields):
+    """serve/cli.py builds its LiveConfig with these fields replaced, so
+    the engine derives its response budget, segments and draft length
+    from them as for any config."""
+    from videollm_online_tpu_torch.serve import cli
+    make = cli.live1_plus_config
+    cli.live1_plus_config = lambda **kw: make(**kw).replace(**fields)
+    try:
+        yield
+    finally:
+        cli.live1_plus_config = make
+
+
+def _demo_frames(n, res, seed):
+    """n RGB frames (n, res, res, 3) uint8 from seed: a noise field that
+    drifts right by 6 px a frame and a white square crossing it."""
+    rng = np.random.RandomState(seed)
+    field = rng.randint(0, 256, (res, res, 3)).astype(np.uint8)
+    yy, xx = np.mgrid[:res, :res]
+    out = np.empty((n, res, res, 3), np.uint8)
+    for i in range(n):
+        out[i] = np.roll(field, 6 * i, axis=1)
+        cx = (i * res) // n
+        out[i][(abs(yy - res // 2) < res // 8) & (abs(xx - cx) < res // 8)] = 255
+    return out
+
+
+def _device_us(fn):
+    """fn()'s device time under torch.profiler (us), and its host wall."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e6
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if "CUDA" in str(e.device_type))
+    return busy, wall, out
+
+
+def _cast_tree(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _cast_tree(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype)
+
+
+def phase_main_path_demo(n_frames: int = 64, seed: int = 0):
+    """The upstream demo's path at full width: a synthetic .avi of n_frames
+    384 px frames written by the port's write_avi, served by serve/cli.py
+    (build_engine, then the loop of main) with --model_size 8b
+    --with_vision --spec_decode: once --quantize int8 --kv_quant int8
+    --stream_tokens 4, once --quantize int4. Random SigLIP-large and 8B
+    weights are built on the card; the config carries the main paths'
+    20-token responses and gate bias, so the engine answers the opening
+    query (in 4-token segments on the int8 run) and stays silent through
+    the video. Prints Average Processing FPS, the K1 / K4 / K5 launches of
+    that run, the encoder's ms a frame (CUDA events) and device time, and
+    the wall against the device time of one tick; holds the tower's bf16
+    features to the same weights in fp32."""
+    import os
+
+    from videollm_online_tpu_torch.data import avi
+    from videollm_online_tpu_torch.models import live, quant, siglip
+    from videollm_online_tpu_torch.serve import cli
+
+    out_dir = _out_dir("demo")
+    video = os.path.join(out_dir, "demo.avi")
+    res = 384
+    avi.write_avi(video, _demo_frames(n_frames, res, seed), fps=2.0)
+    log(f"demo video: {n_frames} frames of {res} px, "
+        f"{os.path.getsize(video) / 2**20:.1f} MiB rawvideo .avi")
+    results = {}
+    for label, extra in (("int8", ["--quantize", "int8", "--kv_quant", "int8",
+                                   "--stream_tokens", "4"]),
+                         ("int4", ["--quantize", "int4"])):
+        args = cli.parse_args(
+            ["--video", video, "--model_size", "8b", "--with_vision",
+             "--spec_decode", "--seed", str(seed), "--num_ticks",
+             str(n_frames + 1), "--output",
+             os.path.join(out_dir, f"history_{label}.json")] + extra)
+        t0 = time.perf_counter()
+        with _cli_config(max_response_tokens=DEMO_RESPONSE_TOKENS,
+                         gate_logit_bias=DEMO_GATE_BIAS):
+            engine, cfg = cli.build_engine(args)
+        torch.cuda.synchronize()
+        log(f"demo {label}: engine built by serve/cli.py in "
+            f"{time.perf_counter() - t0:.2f} s: 8B parameters "
+            f"{quant.param_bytes(engine.params) / 2**30:.2f} GiB, SigLIP-large "
+            f"{quant.param_bytes(engine.vision_params) / 2**30:.3f} GiB "
+            f"({cfg.vision.dtype}), KV ring {engine.kv_capacity} "
+            f"({engine.cache.k.dtype}), responses of {engine.max_new} "
+            f"tokens a call")
+        segments = []
+        if engine.on_delta is not None:
+            printed = engine.on_delta
+            engine.on_delta = lambda d, done: (segments.append(done),
+                                               printed(d, done))
+        _zero_launches()
+        t0 = time.perf_counter()
+        history, ticks = cli.run(engine, args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _read_launches()
+        responses = [m["content"] for m in history["messages"]
+                     if m["role"] == "assistant"]
+        want = ("K1",) + (("K4", "K5") if label == "int4" else ())
+        if not responses or min(counts[k] for k in want) == 0:
+            raise AssertionError(f"demo {label}: responses {len(responses)},"
+                                 f" launches {counts}")
+        if not all("Assistant:" in r for r in responses):
+            raise AssertionError(f"malformed responses: {responses[:2]}")
+        kv_dtype = torch.int8 if label == "int8" else torch.bfloat16
+        if engine.cache.k.dtype != kv_dtype:
+            raise AssertionError(f"KV ring {engine.cache.k.dtype}")
+        if label == "int8" and segments.count(False) < 1:
+            raise AssertionError(f"on_delta segments {segments}: want the "
+                                 f"response in more than one")
+        fps = history["average_processing_fps"]
+        silent = [dt for dt, spoke in ticks if not spoke]
+        tick_ms = 1e3 * np.mean(silent) if silent else float("nan")
+        steps, emitted = (int(x) for x in engine.spec_stats())
+        log(f"demo {label}: Average Processing FPS {fps:.3f} over "
+            f"{len(ticks)} ticks ({wall:.2f} s in all), {len(responses)} "
+            f"responses ({len(ticks) - len(silent)} in the timed ticks), "
+            f"{len(segments)} on_delta segments, silent ticks at "
+            f"{tick_ms:.2f} ms; spec {steps} verify steps -> {emitted} "
+            f"tokens")
+        log(f"demo {label} launches: {counts}")
+        log(f"demo {label} first response: {responses[0]!r}")
+
+        # the encoder on one frame, as each tick runs it
+        frames_np = engine.video_tensor
+        px = torch.from_numpy(frames_np[:1]).cuda()
+        enc_ms = cuda_ms(lambda i: live.pixels_to_embeds(
+            engine.vision_params, engine.params, px, cfg), 20)
+        enc_dev_us, _, _ = _device_us(lambda: live.pixels_to_embeds(
+            engine.vision_params, engine.params, px, cfg))
+        # one silent tick of a fresh dialogue on the same engine, profiled:
+        # the fifth, after the query's answer and three more
+        engine.reset()
+        engine.load_video(frames_np)
+        engine.input_query_stream(args.query, video_time=0.0)
+        for i in range(4):
+            engine.input_video_stream(i / engine.frame_fps)
+            engine()
+        tick_busy, tick_wall, (_, r) = _device_us(lambda: (
+            engine.input_video_stream(4 / engine.frame_fps), engine())[1])
+        log(f"demo {label}: encoder (SigLIP-large + connector, 1 frame) "
+            f"{enc_ms:.3f} ms a frame by CUDA events, device "
+            f"{enc_dev_us / 1e3:.3f} ms: {100 * enc_ms / tick_ms:.1f} % of "
+            f"a silent tick; one profiled tick "
+            f"({'a response' if r else 'silent'}): wall "
+            f"{tick_wall / 1e3:.2f} ms, device busy {tick_busy / 1e3:.2f} ms "
+            f"({100 * tick_busy / tick_wall:.1f} %)")
+        results[label] = {"launches": counts, "fps": fps, "enc_ms": enc_ms}
+
+        if label == "int8":
+            # the tower's bf16 features against the same weights in fp32
+            x = siglip.preprocess(torch.from_numpy(frames_np[:16]).cuda(),
+                                  cfg.vision)
+            v32 = _cast_tree(engine.vision_params, torch.float32)
+            got = siglip.frame_features(engine.vision_params, x, cfg.vision,
+                                        cfg).float()
+            ref = siglip.frame_features(v32, x, cfg.vision, cfg)
+            if got.shape != (len(x), cfg.frame_num_tokens,
+                             cfg.vision_hidden_size) or not bool(
+                    torch.isfinite(got).all()):
+                raise AssertionError(f"bad features {tuple(got.shape)}")
+            rel = float((got - ref).norm() / ref.norm())
+            log(f"demo SigLIP-large features, bf16 vs fp32 weights on "
+                f"{len(x)} frames: relative norm error {rel:.3e} (bound "
+                f"{DEMO_ENC_REL:.0e})")
+            if not rel <= DEMO_ENC_REL:
+                raise AssertionError(f"features {rel:.3e} from fp32")
+            del v32
+        del engine
+        torch.cuda.empty_cache()
+    return results
+
+
 PHASES = {"toolchain": phase_toolchain, "build": phase_build,
           "k1": phase_k1, "small_engine": phase_small_engine,
           "main_path": phase_main_path, "k2": phase_k2,
@@ -3036,7 +3374,17 @@ PHASES = {"toolchain": phase_toolchain, "build": phase_build,
           "ab_paths": phase_ab_paths, "k3": phase_k3,
           "tc_configs": phase_tc_configs,
           "small_multistream": phase_small_multistream,
-          "main_path_multistream": phase_main_path_multistream}
+          "main_path_multistream": phase_main_path_multistream,
+          "small_demo": phase_small_demo,
+          "main_path_demo": phase_main_path_demo}
+
+
+# the default run's phases, in order
+DEFAULT_RUN = ("toolchain", "build", "k1", "small_engine", "main_path", "k2",
+               "small_trainer", "main_training", "fused", "k4_profile",
+               "small_int4_engine", "main_path_int4", "ab_paths", "k3",
+               "small_multistream", "main_path_multistream", "small_demo",
+               "main_path_demo")
 
 
 def main(argv=None) -> int:
@@ -3060,22 +3408,16 @@ def main(argv=None) -> int:
             PHASES[name]()
             log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
         return 0
-    smi = phase_toolchain()
-    phase_build()
-    k1 = phase_k1()
-    phase_small_engine()
-    main_path = phase_main_path()
-    k2 = phase_k2()
-    phase_small_trainer()
-    training = phase_main_training()
-    fused = phase_fused()
-    phase_k4_profile()
-    phase_small_int4_engine()
-    int4_path = phase_main_path_int4()
-    ab = phase_ab_paths()
-    k3 = phase_k3()
-    phase_small_multistream()
-    multistream = phase_main_path_multistream()
+    out = {}
+    for name in DEFAULT_RUN:
+        t0 = time.perf_counter()
+        out[name] = PHASES[name]()
+        log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+    smi, k1, main_path, k2, training, fused, int4_path, ab, k3, \
+        multistream, demo = (out[n] for n in (
+            "toolchain", "k1", "main_path", "k2", "main_training", "fused",
+            "main_path_int4", "ab_paths", "k3", "main_path_multistream",
+            "main_path_demo"))
     log(f"card: {smi}; total {time.perf_counter() - t_start:.1f} s")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     k2_source = "videollm_online_tpu_torch/csrc/flash_attention.cu"
@@ -3085,7 +3427,8 @@ def main(argv=None) -> int:
         "source": "videollm_online_tpu_torch/csrc/decode_attention.cu",
         "replaces": "videollm_online_tpu/ops/decode_attention.py:249",
         "launches": (main_path["launches"] + int4_path["launches"]["K1"]
-                     + multistream["ring, bf16 KV"]["launches"]["K1"]),
+                     + multistream["ring, bf16 KV"]["launches"]["K1"]
+                     + sum(r["launches"]["K1"] for r in demo.values())),
         "max_abs_err": max(k1["max_abs_err"], main_path["ring_err"]),
         **{key: k1[key] for key in keys},
     }, {
@@ -3109,9 +3452,11 @@ def main(argv=None) -> int:
                         "launches": training["launches"][label],
                         "max_abs_err": k2[part]["max_abs_err"],
                         **{key: k2[part][key] for key in keys}})
-    # K4 and K5 count the int4 main path's launches; K6 and K7, which no
-    # serving main path reaches, those of their own engine runs (phase 12)
-    fused_launches = {**int4_path["launches"], **ab}
+    # K4 and K5 count the int4 main paths' launches (phases 11 and 17); K6
+    # and K7, which no serving main path reaches, those of their own engine
+    # runs (phase 12)
+    fused_launches = {**{k: n + demo["int4"]["launches"][k]
+                         for k, n in int4_path["launches"].items()}, **ab}
     for label, (name, _, replaces) in FUSED_KERNELS.items():
         kernels.append({"name": name, "route": "cuda",
                         "source": "videollm_online_tpu_torch/csrc/fused_mlp.cu",

@@ -832,3 +832,98 @@ def test_multistream_paged_through_k3_equals_plain_on_card(card,
     assert pa.paged_decode_attention.launches % lcfg.num_layers == 0
     monkeypatch.setattr(pa, "paged_attention", pa.paged_attention_reference)
     assert run() == got
+
+
+# ----------------------------------------------- the demo path's options
+def _chip_smoke():
+    """chip_smoke.py at the repository's root, as a module."""
+    import importlib.util
+    from pathlib import Path
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_engine_options_kernel_equal_plain_on_card(card):
+    """Raw uint8 frames through a small fp32 SigLIP tower, the int8 KV ring
+    compacted to a stream_window, 4-token segments and spec decode, all at
+    once (chip_smoke.py's small demo engine, a frame every tick): the same
+    transcripts and on_delta segments through K1 (its int8 form) as
+    through the plain attention, with K1 launched on the compacted
+    ring."""
+    cs = _chip_smoke()
+    setup = cs.small_demo_setup(card)
+    frames = np.random.RandomState(0).randint(0, 256, (32, 3, 64, 64)
+                                              ).astype(np.uint8)
+    da.ring_decode_attention_layered.launches = 0
+    got, got_deltas, eng, at_compaction = cs.small_demo_drive(
+        setup, frames, video_every=1, device=card)
+    assert eng.cache.k.dtype == torch.int8 and at_compaction is not None
+    assert da.ring_decode_attention_layered.launches > at_compaction
+    plain, plain_deltas, _, _ = cs.small_demo_drive(
+        setup, frames, video_every=1, device=card, attn_impl=llama._attention)
+    assert got == plain and got_deltas == plain_deltas and got
+
+
+def test_vision_tower_bf16_near_fp32_on_card(card):
+    """SigLIP at the large tower's widths (D 1024, F 4096, 16 heads) and 2
+    layers: bf16 frame features within a relative norm of 1e-2 of the same
+    weights in fp32, about three times the readings on an H100 (3.14e-3 to
+    3.21e-3 over 16 draws of 4 frames of these weights); chip_smoke.py's
+    DEMO_ENC_REL holds the 24-layer tower at the same bound."""
+    from videollm_online_tpu_torch.core.config import (VisionConfig,
+                                                       live1_plus_config)
+    from videollm_online_tpu_torch.models import siglip
+    vcfg = VisionConfig(num_layers=2, dtype="bfloat16")
+    cfg = live1_plus_config(vision=vcfg)
+    p16 = siglip.init_params(torch.Generator(device=card).manual_seed(0),
+                             vcfg, device=card)
+
+    def f32(t):
+        return ({k: f32(v) for k, v in t.items()} if isinstance(t, dict)
+                else t.float())
+
+    px = torch.randint(0, 256, (4, 3, 384, 384), dtype=torch.uint8,
+                       device=card)
+    x = siglip.preprocess(px, vcfg)
+    got = siglip.frame_features(p16, x, vcfg, cfg)
+    want = siglip.frame_features(f32(p16), x, vcfg, cfg)
+    assert got.dtype == torch.bfloat16 and got.shape == (4, 10, 1024)
+    rel = float((got.float() - want).norm() / want.norm())
+    assert rel < 1e-2, rel
+
+
+@pytest.mark.parametrize("S,window,q_dtype,d", [
+    (1, None, torch.bfloat16, 128), (4, None, torch.bfloat16, 128),
+    (14, None, torch.bfloat16, 128), (1, 128, torch.float32, 64),
+    (4, 128, torch.float32, 64), (14, 128, torch.float32, 64)])
+def test_k1_int8_ring_shapes_of_the_demo_on_card(card, S, window, q_dtype,
+                                                   d):
+    """K1's int8 form at the shapes the demo path gives it: the 8B
+    --kv_quant int8 ring (Hq 32, Hkv 8, d 128, a ring of 16384, bf16
+    queries; S 1 decode, 4 a 4-token segment's verify step, 14 a frame
+    step) and the small engine's compacted window (fp32 queries, d 64,
+    window 128 on a ring of 640), against the plain version at K1_TOL."""
+    Hq, Hkv, C = (32, 8, 16384) if d == 128 else (8, 2, 640)
+    rng = np.random.RandomState(S)
+    L = 2
+    k, v = (torch.from_numpy(rng.randint(-127, 128, (L, 1, Hkv, C, d)
+                                         ).astype(np.int8)).to(card)
+            for _ in range(2))
+    sc = {n: torch.from_numpy((rng.rand(L, 1, Hkv, C) / 64).astype(
+        np.float32)).to(card) for n in ("k_scale", "v_scale")}
+    q = torch.from_numpy(rng.randn(1, Hq, S, d).astype(np.float32)).to(
+        q_dtype).to(card)
+    start = 3000 if d == 128 else 500
+    q_pos = torch.arange(start, start + S, dtype=torch.int32,
+                         device=card)[None]
+    got = da.ring_decode_attention_layered(q, k, v, q_pos, 1, window=window,
+                                           **sc)
+    want = da.ring_decode_attention_layered_reference(q, k, v, q_pos, 1,
+                                                      window=window, **sc)
+    atol, rtol = ((1e-6, 1e-5) if q_dtype == torch.float32
+                  else (2e-3, 2e-2))
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)

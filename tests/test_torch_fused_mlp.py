@@ -777,8 +777,25 @@ def test_cli_build_model_layouts(small_sizes):
     {"with_vision": True}, {"vision_checkpoint": "x"}, {"kv_quant": "int8"},
     {"speculative": True}, {"pipelined": True}, {"stream_tokens": 4}])
 def test_cli_refuses_what_the_engine_does_not_carry(flag):
-    with pytest.raises(NotImplementedError):
-        cli.build_engine(_cli_args(**flag))
+    """The JAX engine's dispatch modes (--speculative, --pipelined) are
+    still refused; the engine options the port now carries build."""
+    if "speculative" in flag or "pipelined" in flag:
+        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+            cli.build_engine(_cli_args(**flag))
+        return
+    if "vision_checkpoint" in flag:
+        with pytest.raises(FileNotFoundError):
+            cli.build_engine(_cli_args(**flag))
+        return
+    engine, cfg = cli.build_engine(_cli_args(**flag))
+    if "with_vision" in flag:
+        assert engine.vision_params["layers"]["q"]["w"].shape[0] == \
+            cfg.vision.num_layers
+    if "kv_quant" in flag:
+        assert engine.cache.k.dtype == torch.int8
+    if "stream_tokens" in flag:
+        assert engine.stream_tokens == 4 and engine.max_new == 4
+        assert cfg.max_response_tokens % 4 == 0
 
 
 def test_cli_main_runs_int4_and_writes_history(tmp_path, capsys):
@@ -825,7 +842,13 @@ def test_cli_checkpoint_loads_adapter_and_quantizes(tmp_path):
 
 
 def test_engine_load_video_reads_feature_files(tmp_path):
-    from videollm_online_tpu_torch.serve.engine import _load_features
+    """load_video reads feature files through data/video_io (as the JAX
+    engine does); a container it cannot decode says so."""
+    from videollm_online_tpu_torch.data.video_io import read_video_frames
+
+    def _load_features(path):
+        return read_video_frames(path)
+
     feats = np.random.RandomState(0).randn(3, 10, 8).astype(np.float32)
     np.save(tmp_path / "a.npy", feats)
     np.savez(tmp_path / "a.npz", feats)
@@ -837,5 +860,10 @@ def test_engine_load_video_reads_feature_files(tmp_path):
     np.testing.assert_array_equal(
         _load_features(str(tmp_path / "a.pt")),
         torch.from_numpy(feats).to(torch.bfloat16).float().numpy())
-    with pytest.raises(NotImplementedError):
-        _load_features("clip.mp4")
+    from videollm_online_tpu_torch.data import video_io
+    old, video_io._FFMPEG = video_io._FFMPEG, ""
+    try:
+        with pytest.raises(RuntimeError, match="ffmpeg"):
+            _load_features("clip.mp4")
+    finally:
+        video_io._FFMPEG = old

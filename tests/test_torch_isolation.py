@@ -62,3 +62,36 @@ def test_package_imports_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 13
+
+
+def test_entry_points_take_the_cpu_only_when_asked():
+    """Without a card, the cli's ``--device cpu`` (or ``device="cpu"``) is
+    the only way onto the CPU: every entry point of the demo path refuses
+    a silent fallback."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("checks the refusal on a machine without a card")
+
+    from videollm_online_tpu_torch.core.config import (live1_plus_config,
+                                                       tiny_live_config)
+    from videollm_online_tpu_torch.models import builder, convert
+    from videollm_online_tpu_torch.serve import cli
+    from videollm_online_tpu_torch.serve.engine import LiveInferEngine
+    from videollm_online_tpu_torch.serve.multistream import MultiStreamEngine
+    from videollm_online_tpu_torch.tokenizer.live_tokenizer import (
+        LiveTokenizer)
+    from videollm_online_tpu_torch.tokenizer.tiny import ByteTokenizer
+
+    args = cli.parse_args(["--video", "x.avi", "--with_vision"])
+    assert args.device == ""
+    tok = LiveTokenizer(ByteTokenizer(), tiny_live_config())
+    calls = [
+        lambda: cli.build_engine(args),
+        lambda: builder.build_vision_params(live1_plus_config()),
+        lambda: convert.llama_params_from_state_dict({}, tok.cfg.llama),
+        lambda: LiveInferEngine({}, tok),
+        lambda: MultiStreamEngine({}, tok),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()

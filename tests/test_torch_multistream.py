@@ -263,9 +263,14 @@ def test_ring_window_compaction_equal_jax(ring_window_run):
 
 
 def test_refused_options_raise():
+    """The pipelined mode is still refused (ROADMAP Queue 1 item 2);
+    segmented responses need a segment length that divides the budget.
+    stream_tokens, on_delta and vision_params are carried now
+    (tests/test_torch_engine_options.py holds them against JAX)."""
     cfg = tiny_live_config()
     tok = LiveTokenizer(ByteTokenizer(), cfg)
-    for kw in (dict(pipelined=True), dict(stream_tokens=4),
-               dict(on_delta=print), dict(vision_params={})):
-        with pytest.raises(NotImplementedError):
-            MultiStreamEngine({"llama": {}}, tok, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+        MultiStreamEngine({"llama": {}}, tok, device="cpu", pipelined=True)
+    with pytest.raises(ValueError, match="divide"):
+        MultiStreamEngine({"llama": {}}, tok, device="cpu",
+                          max_new_tokens=8, stream_tokens=3)

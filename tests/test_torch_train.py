@@ -485,11 +485,17 @@ def test_trainer_and_builder_refuse_what_later_slices_bring(setup, tmp_path):
     with pytest.raises(NotImplementedError, match="eval"):
         LiveTrainer(params=params, cfg=cfg, tokenizer=tok,
                     args=args).evaluate()
-    for extra, match in ((["--llm_weights", "x"], "convert"),
-                         (["--mlp_chunk", "64"], "16 GiB")):
-        with pytest.raises(NotImplementedError, match=match):
-            builder.build_model_and_tokenizer(
-                arguments.parse_args(base + extra), device="cpu")
+    with pytest.raises(NotImplementedError, match="16 GiB"):
+        builder.build_model_and_tokenizer(
+            arguments.parse_args(base + ["--mlp_chunk", "64"]), device="cpu")
+    # llm_weights is no longer refused: it reads safetensors through
+    # models/convert.py (tests/test_torch_convert.py), and a missing path
+    # says so
+    with pytest.raises(FileNotFoundError, match="safetensors"):
+        builder.build_model_and_tokenizer(
+            arguments.parse_args(base + ["--llm_weights",
+                                         str(tmp_path / "none")]),
+            device="cpu")
 
 
 @pytest.mark.parametrize("qbase", ["", "int8"])

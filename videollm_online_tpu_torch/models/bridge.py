@@ -8,7 +8,8 @@ arrays, map one to one onto the port's tree: stacked ``layers`` leaves,
 int8 bytes and fp32 ``(in/group, out)`` scales, the int8 ``embed`` with
 per-row scales, ``lm_head``, ``final_norm``, ``connector`` and the optional
 ``lora`` tree. The byte layouts are the JAX package's, so a
-``quantize_llama_params(bits=4)`` tree crosses unchanged.
+``quantize_llama_params(bits=4)`` tree crosses unchanged. The vision
+towers' trees (SigLIP, CLIP) cross with ``vision_params_from_numpy``.
 """
 
 from __future__ import annotations
@@ -46,6 +47,22 @@ def params_from_numpy(tree: Any, device=None,
         if isinstance(node, dict):
             return {k: walk(v, k) for k, v in node.items()}
         return _tensor(node, device, dtype, keep=key == "scale")
+
+    return walk(tree)
+
+
+def vision_params_from_numpy(tree: Any, device=None,
+                             dtype: Optional[torch.dtype] = None) -> Any:
+    """A JAX SigLIP or CLIP tree (nested dicts of numpy arrays) -> the same
+    dicts of tensors on ``device``. Unlike ``params_from_numpy`` no key is
+    kept out of ``dtype``: a vision tree's ``"scale"`` leaves are layer-norm
+    weights, not quantization scales."""
+    device = resolve_device(device)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        return _tensor(node, device, dtype, keep=False)
 
     return walk(tree)
 

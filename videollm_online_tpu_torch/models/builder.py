@@ -2,12 +2,13 @@
 
 Counterpart of ``videollm_online_tpu/models/builder.py`` (reference
 ``build_model_and_tokenizer``, models/modeling_live.py:184-222): resolves
-the tokenizer (adding ``<v>``), builds the random base (a proxy size or the
-configured one), attaches LoRA + connector, optionally restores an adapter
-checkpoint (the port's format, train/checkpoints.py) and, with
-``--quantize_base int8``, stores the frozen base as weight-only int8.
-Loading converted HF weights (``llm_weights``) needs ``models/convert.py``
-and is refused until ROADMAP Queue 1 item 12.
+the tokenizer (adding ``<v>``), loads the base from HF safetensors
+(``llm_weights``, through models/convert.py) or builds it at random (a
+proxy size or the configured one), attaches LoRA + connector, optionally
+restores an adapter checkpoint (the port's format, train/checkpoints.py)
+and, with ``--quantize_base int8``, stores the frozen base as weight-only
+int8. ``build_vision_params`` gives the SigLIP tower's weights: converted
+from an HF checkpoint, restored from a saved tree, or random.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from ..core.device import resolve_device
 from ..tokenizer.live_tokenizer import LiveTokenizer, build_live_tokenizer
 from ..tokenizer.tiny import ByteTokenizer
 from ..train import checkpoints
-from . import live, quant
+from . import convert, live, llama, quant, siglip
 
 PROXY_SIZES = {
     "tiny": dict(vocab_size=2048, hidden_size=256, intermediate_size=512,
@@ -40,10 +41,6 @@ def build_model_and_tokenizer(args: LiveTrainingArguments, *, seed: int = 0,
                                          LiveConfig]:
     """(params, tokenizer, cfg) with random weights drawn from ``seed`` on
     ``device`` (the card unless the caller asks for the CPU)."""
-    if args.llm_weights:
-        raise NotImplementedError(
-            "llm_weights needs models/convert.py, which comes with ROADMAP "
-            "Queue 1 item 12 (weights and build)")
     if args.mlp_chunk:
         raise NotImplementedError(
             "mlp_chunk fits 8B into one 16 GiB chip; the port drops it "
@@ -68,7 +65,16 @@ def build_model_and_tokenizer(args: LiveTrainingArguments, *, seed: int = 0,
     cfg = tok.cfg
 
     gen = torch.Generator(device=device).manual_seed(seed)
-    params = live.init_params(gen, cfg, device=device)
+    if args.llm_weights:
+        sd = convert.load_safetensors_state_dict(args.llm_weights)
+        params = {"llama": convert.llama_params_from_state_dict(
+                      sd, cfg.llama, device=device),
+                  "connector": live.init_connector(gen, cfg, device=device)}
+        if cfg.lora is not None:
+            params["lora"] = llama.init_lora_params(gen, cfg.llama, cfg.lora,
+                                                    device)
+    else:
+        params = live.init_params(gen, cfg, device=device)
     if args.resume_from_checkpoint:
         path = args.resume_from_checkpoint
         if os.path.isdir(os.path.join(path, "adapter")):
@@ -83,3 +89,28 @@ def build_model_and_tokenizer(args: LiveTrainingArguments, *, seed: int = 0,
                              "cannot take gradient updates itself")
         params["llama"] = quant.quantize_llama_params(params["llama"])
     return params, tok, cfg
+
+
+def build_vision_params(cfg: LiveConfig, *, checkpoint: str = "",
+                        seed: int = 1, device=None) -> Dict[str, Any]:
+    """The SigLIP tower's weights on ``device``, in ``cfg.vision.dtype``: an
+    HF checkpoint (a ``.safetensors`` file or a directory of them), a tree
+    saved with ``torch.save`` (``.pt``), or, without a checkpoint, random
+    weights drawn from ``seed``. The engines encode frames with SigLIP
+    (``live.pixels_to_embeds``), so this builds no other family."""
+    device = resolve_device(device)
+    if checkpoint.endswith(".pt"):
+        tree = torch.load(checkpoint, map_location=device, weights_only=True)
+        return _cast_floats(tree, cfg.vision.dtype)
+    if checkpoint:
+        sd = convert.load_safetensors_state_dict(checkpoint)
+        return convert.siglip_params_from_state_dict(sd, cfg.vision,
+                                                     device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return siglip.init_params(gen, cfg.vision, device=device)
+
+
+def _cast_floats(tree, dtype: str):
+    if isinstance(tree, dict):
+        return {k: _cast_floats(v, dtype) for k, v in tree.items()}
+    return tree.to(getattr(torch, dtype)) if tree.is_floating_point() else tree

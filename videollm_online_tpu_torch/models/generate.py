@@ -130,12 +130,19 @@ def ngram_speculative_generate(
     draft_len: int = SPEC_DRAFT,
     draft_mode: str = "ngram",
     attn_impl=None,
+    forced_ids: Optional[torch.Tensor] = None,
 ):
     """``greedy_generate`` with n-gram speculative verification: the same
     token stream, length and cache invariant, up to ``draft_len + 1``
     tokens per forward. ``draft_mode="zero"`` drafts constant zeros (the
-    adversarial worst case). Returns (output_ids (1, max_new), length (1,),
-    cache, hist, hist_count, stats) with stats = [verify_steps, emitted]."""
+    adversarial worst case). ``forced_ids`` ((max_new,) int32) replays a
+    script: the token emitted at index i is ``forced_ids[i]`` instead of
+    the argmax, while every forward and acceptance comparison runs as
+    before (acceptance is a property of the emitted stream, so a script of
+    narration-like text measures the tokens per verify step a trained
+    model would see; pad a row with EOS to end it early). Returns
+    (output_ids (1, max_new), length (1,), cache, hist, hist_count, stats)
+    with stats = [verify_steps, emitted]."""
     if draft_mode not in ("ngram", "zero"):
         raise ValueError(f"draft_mode {draft_mode!r}")
     max_new = max_new_tokens or cfg.max_response_tokens
@@ -148,6 +155,9 @@ def ngram_speculative_generate(
                                            prompt_ids.reshape(-1), pn)
 
     first, cache = _prompt_forward(fwd, cache, prompt_embeds, num_valid)
+    if forced_ids is not None:
+        forced_ids = torch.as_tensor(forced_ids, dtype=torch.int32).cpu()
+        first = int(forced_ids[0])
     out = torch.zeros((1, max_new), dtype=torch.int32)
     out[0, 0] = first
     hist, hist_count = hist_append_ids(hist, hist_count,
@@ -164,6 +174,9 @@ def ngram_speculative_generate(
                             num_valid=torch.tensor([K + 1], dtype=torch.int32),
                             logit_gather_positions=gather)
         preds = torch.argmax(logits[0], dim=-1).to(torch.int32).cpu()
+        if forced_ids is not None:
+            preds = forced_ids[torch.clamp(i + torch.arange(K + 1), 0,
+                                           max_new - 1)]
         mism = (preds[:K] != drafts).nonzero()
         emit = (int(mism[0]) if len(mism) else K) + 1   # preds[0..accepted]
         eos_at = (preds[:emit] == eos).nonzero()

@@ -67,6 +67,20 @@ def visual_embed(params: Params, frames: torch.Tensor, cfg: LiveConfig
     return out.reshape(-1, out.shape[-1])
 
 
+def pixels_to_embeds(vision_params: Params, params: Params,
+                     pixels: torch.Tensor, cfg: LiveConfig) -> torch.Tensor:
+    """Raw uint8 frames (T, 3, H, W) -> per-frame LLM embeddings
+    (T, frame_num_tokens, hidden): the SigLIP tower, then the connector
+    (the reference's set_vision_inside path, modeling_live.py:12-27). Both
+    serving engines' raw-pixel ingest runs it on the tower's device."""
+    from . import siglip
+    feats = siglip.frame_features(
+        vision_params, siglip.preprocess(pixels, cfg.vision), cfg.vision,
+        cfg)
+    flat = visual_embed(params, feats, cfg)
+    return flat.reshape(-1, cfg.frame_num_tokens, flat.shape[-1])
+
+
 def init_params(generator: torch.Generator, cfg: LiveConfig, device=None
                 ) -> Params:
     """Random decoder, connector and (when ``cfg.lora``) LoRA, drawn in

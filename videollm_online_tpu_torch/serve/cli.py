@@ -1,13 +1,16 @@
 """CLI streaming demo: paced frame feed, live dialogue, FPS accounting.
 
 Counterpart of ``videollm_online_tpu/serve/cli.py`` (reference
-demo/cli.py): load pre-extracted features, seed an initial query, then tick
-frame by frame calling the engine and timing each tick ("Average Processing
-FPS"); the conversation history is written as JSON at the end.
+demo/cli.py): load a video (or its pre-extracted features), seed an initial
+query, then tick frame by frame calling the engine and timing each tick,
+frame encoding included ("Average Processing FPS"); the conversation
+history is written as JSON at the end.
 
 Usage:
-  python -m videollm_online_tpu_torch.serve.cli --video feats.{npy,pt} \\
+  python -m videollm_online_tpu_torch.serve.cli \\
+      --video clip.{avi,mp4} --with_vision | --video feats.{npy,pt} \\
       [--model_size tiny|1b|8b] [--quantize int8|int4] [--spec_decode] \\
+      [--kv_quant int8] [--stream_tokens S] [--vision_checkpoint PATH] \\
       [--checkpoint DIR] [--device cpu] [--num_ticks 100] [--output out.json]
 
 The model runs on the card unless ``--device cpu`` asks for the CPU. Without
@@ -15,10 +18,14 @@ a checkpoint the weights are random, drawn from ``--seed`` (smoke and
 performance runs); ``--model_size 8b`` is then built quantized in place
 (int8, or the mixed int4 layout with ``--quantize int4``). ``--checkpoint``
 takes an adapter directory as ``train/checkpoints.save_adapter`` writes it
-(LoRA and connector) over a random base. The flags of the options the
-engine does not carry yet (``--with_vision``, ``--vision_checkpoint``,
-``--kv_quant``, ``--speculative``, ``--pipelined``, ``--stream_tokens``) are
-parsed and raise ``NotImplementedError``.
+(LoRA and connector) over a random base. A video file (``.avi`` read by the
+first-party reader, other containers through an ``ffmpeg`` binary when one
+is found) needs the SigLIP tower: ``--with_vision`` builds it at random,
+``--vision_checkpoint`` loads it (HF safetensors, or a ``.pt`` tree).
+``--kv_quant int8`` serves over the int8 KV ring; ``--stream_tokens S``
+prints each response in segments of S tokens. ``--speculative`` and
+``--pipelined`` (dispatch modes of the JAX engine) raise
+``NotImplementedError``: ROADMAP Queue 1 item 2.
 """
 
 from __future__ import annotations
@@ -33,7 +40,7 @@ import torch
 from ..core.config import LlamaConfig, LoraConfig, live1_plus_config
 from ..core.device import resolve_device
 from ..models import live, quant
-from ..models.builder import PROXY_SIZES
+from ..models.builder import PROXY_SIZES, build_vision_params
 from ..tokenizer.live_tokenizer import LiveTokenizer
 from ..tokenizer.tiny import ByteTokenizer
 
@@ -75,12 +82,8 @@ def _adapter_lora_config(adapter) -> LoraConfig:
 
 def build_model(args):
     """(params, tokenizer, cfg, vision_params) for every serving surface,
-    without allocating any engine state. ``vision_params`` is always None:
-    the vision tower is a later slice."""
-    if args.with_vision or args.vision_checkpoint:
-        raise NotImplementedError(
-            "--with_vision / --vision_checkpoint need the vision slice; the "
-            "port serves pre-extracted features")
+    without allocating any engine state; ``vision_params`` is None unless
+    ``--with_vision`` or ``--vision_checkpoint`` asks for the tower."""
     device = resolve_device(getattr(args, "device", None) or None)
     quantize = getattr(args, "quantize", "")
     bits = {"": 0, "int8": 8, "int4": 4}[quantize]
@@ -113,7 +116,11 @@ def build_model(args):
         }
     else:
         params = live.init_params(gen, cfg, device=device)
-    return params, tok, cfg, None
+    vision_params = None
+    if args.vision_checkpoint or args.with_vision:
+        vision_params = build_vision_params(
+            cfg, checkpoint=args.vision_checkpoint, seed=1, device=device)
+    return params, tok, cfg, vision_params
 
 
 def build_engine(args):
@@ -123,6 +130,11 @@ def build_engine(args):
     stream_tokens = getattr(args, "stream_tokens", 0) or None
     on_delta = None
     if stream_tokens:
+        # the budget rounded down to a multiple of the segment length
+        if cfg.max_response_tokens % stream_tokens:
+            cfg = cfg.replace(max_response_tokens=(
+                cfg.max_response_tokens // stream_tokens) * stream_tokens)
+
         def on_delta(delta, done):
             print(delta, end="\n" if done else "", flush=True)
     return LiveInferEngine(
@@ -140,10 +152,14 @@ def build_engine(args):
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--video", required=True,
-                   help=".npy / .npz / .pt pre-extracted features")
+                   help=".avi (first-party reader) or another container "
+                        "(needs ffmpeg) with --with_vision, or .npy / .npz "
+                        "/ .pt pre-extracted features")
     p.add_argument("--checkpoint", default="",
                    help="adapter directory (train/checkpoints.save_adapter)")
-    p.add_argument("--vision_checkpoint", default="")
+    p.add_argument("--vision_checkpoint", default="",
+                   help="SigLIP weights: HF safetensors (a file or a "
+                        "directory) or a .pt tree")
     p.add_argument("--tokenizer", default="",
                    help="HF tokenizer path (omit for the byte test tokenizer)")
     p.add_argument("--model_size", default="tiny",
@@ -155,14 +171,18 @@ def parse_args(argv=None):
     p.add_argument("--device", default="",
                    help="torch device; the card unless given (cpu runs the "
                         "plain PyTorch path)")
-    p.add_argument("--with_vision", action="store_true")
+    p.add_argument("--with_vision", action="store_true",
+                   help="random SigLIP-large tower (seed 1) to encode raw "
+                        "frames")
     p.add_argument("--query", default="Please narrate the video in real time.")
     p.add_argument("--num_ticks", type=int, default=100)
     p.add_argument("--warmup_ticks", type=int, default=2,
                    help="ticks excluded from the FPS average (the first "
                         "calls build the kernels)")
     p.add_argument("--kv_capacity", type=int, default=16384)
-    p.add_argument("--kv_quant", default="", choices=["", "int8"])
+    p.add_argument("--kv_quant", default="", choices=["", "int8"],
+                   help="int8 KV ring: half the KV memory and reads; slight "
+                        "quantization noise on transcripts")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--output", default="cli_history.json")
     p.add_argument("--speculative", action="store_true")
@@ -172,20 +192,30 @@ def parse_args(argv=None):
     p.add_argument("--spec_draft", type=int, default=0,
                    help="drafted tokens per verify step (0 = default)")
     p.add_argument("--pipelined", action="store_true")
-    p.add_argument("--stream_tokens", type=int, default=0)
+    p.add_argument("--stream_tokens", type=int, default=0,
+                   help="S > 0: print each response in segments of S "
+                        "decoded tokens (composes with --spec_decode)")
     return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
-    engine, cfg = build_engine(args)
+    engine, _ = build_engine(args)
+    return run(engine, args)[0]
+
+
+def run(engine, args):
+    """The demo loop of ``main`` on a built engine: load the video, ask the
+    query, tick frame by frame, print the dialogue and "Average Processing
+    FPS", write the history JSON. Returns (history, ticks) with ticks the
+    (seconds, responded) of every timed tick."""
     engine.load_video(args.video)
     engine.input_query_stream(args.query, video_time=0.0)
     on_card = engine.device.type == "cuda"
 
     fps = engine.frame_fps
     history = {"video": args.video, "messages": []}
-    times = []
+    ticks = []
     max_time = engine.num_video_frames / fps
     for i in range(args.num_ticks):
         t = i / fps
@@ -198,17 +228,24 @@ def main(argv=None):
             torch.cuda.synchronize(engine.device)
         dt = time.perf_counter() - start
         if i >= args.warmup_ticks:
-            times.append(dt)
+            ticks.append((dt, response is not None))
         for role, msg in (("user", query), ("assistant", response)):
             if msg:
                 history["messages"].append(
                     {"role": role, "content": msg, "fps": 1.0 / dt})
                 print(msg)
-    avg_fps = len(times) / sum(times) if times else 0.0
+    for query, response in engine.flush():  # nothing on the blocking path
+        for role, msg in (("user", query), ("assistant", response)):
+            if msg:
+                history["messages"].append({"role": role, "content": msg})
+                print(msg)
+    total = sum(dt for dt, _ in ticks)
+    avg_fps = len(ticks) / total if ticks else 0.0
     history["average_processing_fps"] = avg_fps
     print(f"Average Processing FPS: {avg_fps:.2f}")
     with open(args.output, "w") as f:
         json.dump(history, f, indent=1)
+    return history, ticks
 
 
 if __name__ == "__main__":

@@ -3,23 +3,37 @@
 Counterpart of the blocking path of
 ``videollm_online_tpu/serve/engine.py`` (``fused_respond=False``): the same
 public API (``load_video`` / ``input_video_stream`` / ``input_query_stream``
-/ ``__call__`` / ``reset``) and the same transcripts. Frames are ingested
-one forward per frame, or ``CHUNK_FRAMES`` frames in one forward when a
-burst holds several; the response gate (P(interval) against the threshold)
-is read at every frame's last token; a fire rewinds the ring offset to the
-end of the fired frame. Responses are greedy, or n-gram speculative when
-``spec_decode`` is on (the same transcripts).
+/ ``__call__`` / ``reset`` / ``stats`` / ``set_threshold`` /
+``swap_params`` / ``maybe_backoff_spec`` / ``flush``) and the same
+transcripts. Frames are ingested one forward per frame, or
+``CHUNK_FRAMES`` frames in one forward when a burst holds several; the
+response gate (P(interval) against the threshold) is read at every frame's
+last token; a fire rewinds the ring offset to the end of the fired frame.
+Responses are greedy, or n-gram speculative when ``spec_decode`` is on (the
+same transcripts).
+
+The engine's options are the JAX engine's, each on this blocking path:
+  * raw uint8 frames (T, 3, H, W), or a video file, encoded by the SigLIP
+    tower and the connector (``vision_params``), on ``encoder_device`` when
+    one is given;
+  * ``stream_window``: windowed attention, and the ring compacted to the
+    newest window when it would overflow;
+  * ``kv_quant="int8"``: the int8 ring, read by K1's int8 form;
+  * ``stream_tokens`` / ``on_delta``: responses decoded in segments of S
+    tokens, each surfaced through ``on_delta``;
+  * ``spec_forced_script``: forced-response replay through the verify path.
 
 The JAX engine's other drivers (fused, multi-response, pipelined and
 speculative dispatch, the device-constant cache) exist to hide round trips
-through a remote TPU link and are not ported. The KV ring is updated in
-place.
+through a remote TPU link; they raise here (their counterpart on this card
+is ROADMAP Queue 1 item 2). The KV ring is updated in place.
 """
 
 from __future__ import annotations
 
 import collections
-from typing import Any, Dict, List, Optional, Tuple
+import dataclasses
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,20 +63,23 @@ def _right_aligned(ids, bucket: int) -> torch.Tensor:
     return buf
 
 
-def _load_features(path: str) -> np.ndarray:
-    """A feature file as the JAX package's ``data/video_io.load_array``
-    reads it."""
-    if path.endswith(".npy"):
-        return np.load(path)
-    if path.endswith(".npz"):
-        with np.load(path) as z:
-            return z[list(z.keys())[0]]
-    if path.endswith(".pt"):
-        t = torch.load(path, weights_only=True, map_location="cpu")
-        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
-    raise NotImplementedError(
-        f"{path}: video files need the vision slice; the port reads "
-        f"pre-extracted features (.npy, .npz, .pt)")
+def _check_same_tree(old, new, path="params"):
+    """swap_params guard: the same tree with the same leaf shapes and
+    dtypes."""
+    if isinstance(old, dict):
+        if not isinstance(new, dict) or old.keys() != new.keys():
+            raise ValueError(f"{path}: tree structure differs")
+        for k in old:
+            _check_same_tree(old[k], new[k], f"{path}.{k}")
+    elif (not isinstance(new, torch.Tensor) or old.shape != new.shape
+          or old.dtype != new.dtype):
+        raise ValueError(f"{path}: shape or dtype differs")
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
 
 
 class LiveInferEngine:
@@ -89,39 +106,83 @@ class LiveInferEngine:
         pipelined: bool = False,
         speculative: bool = False,
         spec_forced_script=None,
-        on_delta=None,
+        on_delta: Optional[Callable[[str, bool], None]] = None,
     ):
-        deferred = {"vision_params": vision_params is not None,
-                    "encoder_device": encoder_device is not None,
-                    "stream_window": stream_window is not None,
-                    "kv_quant": kv_quant is not None,
-                    "stream_tokens": stream_tokens is not None,
-                    "fused_respond": fused_respond,
-                    "multi_respond": multi_respond,
-                    "pipelined": pipelined,
-                    "speculative": speculative,
-                    "spec_forced_script": spec_forced_script is not None,
-                    "on_delta": on_delta is not None}
-        asked = [k for k, on in deferred.items() if on]
+        modes = {"fused_respond": fused_respond,
+                 "multi_respond": multi_respond,
+                 "pipelined": pipelined, "speculative": speculative}
+        asked = [k for k, on in modes.items() if on]
         if asked:
             raise NotImplementedError(
-                f"not ported yet: {', '.join(asked)} (the port serves the "
-                f"blocking path over pre-extracted features)")
+                f"not ported: {', '.join(asked)}. The JAX engine's dispatch "
+                f"modes hide round trips to a remote TPU; their "
+                f"counterpart here, a CUDA graph per forward shape, is "
+                f"ROADMAP Queue 1 item 2. The blocking path serves the same "
+                f"transcripts.")
         if spec_draft_mode not in ("ngram", "zero"):
             raise ValueError(f"spec_draft_mode {spec_draft_mode!r}")
+        if kv_quant not in (None, "int8"):
+            raise ValueError(f"kv_quant {kv_quant!r}")
         self.device = resolve_device(device)
         self.params = params
         self.tokenizer = tokenizer
         self.cfg = cfg or tokenizer.cfg
         if self.cfg.v_placeholder_id is None:
             raise ValueError("config is missing its tokenizer ids")
+        budget = self.cfg.max_response_tokens
         self.spec_decode = spec_decode
         # K = budget - 1 lets one verify step finish a predicted response;
         # capped at 19 for long budgets
-        self.spec_draft = int(spec_draft or max(
-            1, min(self.cfg.max_response_tokens - 1, 19)))
+        self.spec_draft = int(spec_draft or max(1, min(budget - 1, 19)))
         self.spec_draft_mode = spec_draft_mode
-        self.max_new = self.cfg.max_response_tokens
+        # forced-response replay: response turn r emits row r % n_rows of
+        # the script instead of the argmax, through the same verify
+        # forwards (generate.py forced_ids); a bench knob of spec decode
+        self._forced_script = None
+        if spec_forced_script is not None:
+            if not spec_decode:
+                raise ValueError("spec_forced_script requires spec_decode")
+            if stream_tokens is not None:
+                raise ValueError("spec_forced_script and stream_tokens do "
+                                 "not combine")
+            script = np.asarray(spec_forced_script, np.int32)
+            if script.ndim != 2 or script.shape[1] != budget:
+                raise ValueError(f"script must be (n_rows, {budget}); got "
+                                 f"{script.shape}")
+            self._forced_script = script
+        self.kv_quant = kv_quant
+        # stream_tokens = S: each response is decoded in segments of at
+        # most S tokens, each surfaced through on_delta(delta, done); the
+        # next segment's 1-token prompt is the last sampled token, so the
+        # segments join into the unsegmented response
+        self.stream_tokens = stream_tokens
+        self.on_delta = on_delta
+        if stream_tokens is not None:
+            if stream_tokens <= 0 or budget % stream_tokens:
+                raise ValueError(
+                    f"stream_tokens {stream_tokens} must be positive and "
+                    f"divide max_response_tokens {budget}")
+            if spec_decode and spec_draft is None:
+                # K = S - 1: one verify step can complete a segment
+                self.spec_draft = (max(1, min(self.spec_draft,
+                                              stream_tokens - 1))
+                                   if stream_tokens > 1 else 1)
+        self.max_new = stream_tokens or budget
+        # infinite streams: attention over the newest stream_window tokens,
+        # and the ring compacted to them when it would overflow
+        # (transcripts equal to an uncompacted engine with the same window)
+        self.stream_window = stream_window
+        if stream_window is not None:
+            need = (stream_window + TEXT_BUCKET
+                    + CHUNK_FRAMES * (self.cfg.frame_num_tokens + 1)
+                    + max(PROMPT_BUCKETS) + budget)
+            if kv_capacity < need:
+                raise ValueError(
+                    f"kv_capacity {kv_capacity} too small for stream_window "
+                    f"{stream_window}: needs >= {need} (window + one chunk "
+                    f"+ one response turn)")
+            self.cfg = self.cfg.replace(llama=dataclasses.replace(
+                self.cfg.llama, sliding_window=stream_window))
         self.kv_capacity = kv_capacity
         self.frame_fps = frame_fps or self.cfg.frame_fps
         self.frame_num_tokens = self.cfg.frame_num_tokens
@@ -135,6 +196,15 @@ class LiveInferEngine:
             self.cfg.lora is not None and lora is not None) else 1.0)
         iv = self.cfg.frame_token_interval_id
         self._gate_ref_id = iv if iv is not None else self.cfg.eos_token_id
+        # the vision tower and a copy of the connector run on
+        # encoder_device (the decoder's device when None); the embeddings
+        # then move to the decoder's device
+        self.encoder_device = (resolve_device(encoder_device)
+                               if encoder_device is not None else self.device)
+        self.vision_params = vision_params
+        if vision_params is not None:
+            self.vision_params = _to_device(vision_params, self.encoder_device)
+        self._set_encoder_connector()
 
         tok = tokenizer
         self._start_ids = np.asarray(tok.apply_chat_template(
@@ -157,14 +227,17 @@ class LiveInferEngine:
         self.num_video_frames = 0
         self.cache = llama.init_kv_cache(
             self.cfg.llama, batch=1, capacity=self.kv_capacity,
-            device=self.device)
+            quant=self.kv_quant, device=self.device)
         self._started = False
         # pending text prepend (token ids) to feed before the next frame
         self._pending_prepend: List[int] = []
-        # spec_decode: token-history ring, its count, [verify_steps, emitted]
+        # spec_decode: token-history ring, its count, [verify_steps,
+        # emitted] and, under forced replay, the response turns (the
+        # script's cursor)
         self._hist = torch.zeros((gen_mod.SPEC_HIST,), dtype=torch.int32)
         self._hcount = torch.tensor(0, dtype=torch.int32)
-        self._sstats = torch.zeros((2,), dtype=torch.int32)
+        self._sstats = torch.zeros(
+            (3 if self._forced_script is not None else 2,), dtype=torch.int32)
 
     @property
     def _host_offset(self) -> int:
@@ -172,14 +245,16 @@ class LiveInferEngine:
 
     # ------------------------------------------------------------------ I/O
     def load_video(self, video: Any):
-        """Pre-extracted features (T, vision_hidden) or (T, fnt,
-        vision_hidden), as an array or a path to one (``.npy``, ``.npz``,
-        ``.pt``). Video containers and raw frames are a later slice."""
+        """(T, 3, H, W) uint8 frames, (T, vision_hidden) or (T, fnt,
+        vision_hidden) pre-extracted features, or a path that
+        ``data/video_io.read_video_frames`` reads (a video file, decoded at
+        the engine's fps and the config's frame resolution; ``.npy``,
+        ``.npz``, ``.pt`` features)."""
         if isinstance(video, str):
-            video = _load_features(video)
+            from ..data.video_io import read_video_frames
+            video = read_video_frames(video, fps=self.frame_fps,
+                                      resolution=self.cfg.frame_resolution)
         video = np.asarray(video)
-        if video.dtype == np.uint8:
-            raise NotImplementedError("raw pixels need the vision slice")
         self.video_tensor = video
         self.num_video_frames = video.shape[0]
         self.video_duration = video.shape[0] / self.frame_fps
@@ -187,7 +262,53 @@ class LiveInferEngine:
     def spec_stats(self) -> np.ndarray:
         """[verify_steps, emitted_tokens] accumulated by spec_decode
         responses; mean accepted drafts per step = tokens / steps - 1."""
-        return self._sstats.numpy().copy()
+        return self._sstats[:2].numpy().copy()
+
+    def stats(self) -> Dict[str, Any]:
+        """Serving snapshot from host state alone: ring occupancy and queue
+        depths. The blocking engine holds no response buffer and no
+        dispatch in flight; those keys of the JAX engine read 0."""
+        return {
+            "offset": self._host_offset,
+            "kv_capacity": self.kv_capacity,
+            "queued_frames": len(self.frame_embeds_queue),
+            "queued_queries": len(self.query_queue),
+            "pending_responses": 0,
+            "inflight_speculative": 0,
+            "inflight_pipelined": 0,
+            "video_time": float(self.video_time),
+        }
+
+    def swap_params(self, params):
+        """Swap the model weights (a newly trained adapter, say) for the
+        next step; the tree, its shapes and dtypes must be the old ones."""
+        _check_same_tree(self.params, params)
+        self.params = params
+        self._set_encoder_connector()
+
+    def maybe_backoff_spec(self, *, min_tokens_per_step: float = 1.15,
+                           min_steps: int = 64):
+        """Switch to plain greedy decoding when the measured acceptance
+        makes drafting a net loss (at most ``min_tokens_per_step`` tokens
+        per verify step over at least ``min_steps`` steps). Returns
+        (backed_off, responses drained by flush)."""
+        if not self.spec_decode:
+            return False, []
+        steps, emitted = (int(x) for x in self.spec_stats())
+        if steps < min_steps or emitted >= min_tokens_per_step * steps:
+            return False, []
+        self.spec_decode = False
+        return True, self.flush()
+
+    def set_threshold(self, threshold: float):
+        """Set the streaming gate's threshold for the next frames."""
+        self.cfg = self.cfg.replace(
+            frame_token_interval_threshold=float(threshold))
+
+    def flush(self) -> List[Tuple[Optional[str], str]]:
+        """The responses of dispatches still in flight: none on the
+        blocking path, where every step resolves before it returns."""
+        return []
 
     def input_query_stream(self, query: str, video_time: Optional[float] = None):
         """Queue a user query; returns the user-facing NOTE string."""
@@ -214,8 +335,26 @@ class LiveInferEngine:
             self.last_frame_idx = frame_idx
         self.video_time = video_time
 
+    def _set_encoder_connector(self):
+        """The connector the encoder applies: the model's own, or a copy on
+        encoder_device."""
+        self._enc_params = self.params
+        if (self.vision_params is not None
+                and self.encoder_device != self.device):
+            self._enc_params = {"connector": _to_device(
+                self.params["connector"], self.encoder_device)}
+
     def _embed_chunk(self, chunk: np.ndarray) -> torch.Tensor:
-        """(T, ...) features -> (T, fnt, hidden) on the device."""
+        """(T, ...) raw frames or features -> (T, fnt, hidden) on the
+        device."""
+        if chunk.dtype == np.uint8:
+            if self.vision_params is None:
+                raise ValueError("raw pixel input needs vision_params")
+            pixels = torch.from_numpy(np.ascontiguousarray(chunk)).to(
+                self.encoder_device)
+            return live.pixels_to_embeds(
+                self.vision_params, self._enc_params, pixels,
+                self.cfg).to(self.device)
         feats = torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device)
         if feats.ndim == 2:  # (T, vision_hidden) = live1 layout
             feats = feats[:, None, :]
@@ -319,23 +458,35 @@ class LiveInferEngine:
         self.cache = llama.trim_kv_cache(self.cache, base + consumed_tokens)
         return consumed, fire, int(next_ids[consumed - 1])
 
-    def _generate(self, ids, bucket: int) -> np.ndarray:
-        """One response to the prompt ``ids`` (bucket-padded): greedy, or
-        n-gram speculative with spec_decode (the same tokens)."""
+    def _generate(self, ids, bucket: int, hist_n: Optional[int] = None
+                  ) -> np.ndarray:
+        """One response (or, with stream_tokens, one segment) to the prompt
+        ``ids`` (bucket-padded): greedy, or n-gram speculative with
+        spec_decode (the same tokens). ``hist_n`` overrides how many prompt
+        tokens enter the history ring: 0 for a continuation segment, whose
+        1-token prompt is there already as the last emitted token."""
         n = len(ids)
         sel = _right_aligned(ids, bucket)
         embeds = _pack_valid_first(self._embed_ids(sel), bucket, n)
         if self.spec_decode:
+            forced = None
+            if self._forced_script is not None:
+                script = self._forced_script
+                forced = torch.from_numpy(
+                    script[int(self._sstats[2]) % len(script)])
             out, length, self.cache, self._hist, self._hcount, st = (
                 gen_mod.ngram_speculative_generate(
                     self.params, self.cfg, self.cache, embeds, [n],
                     self._hist, self._hcount,
                     prompt_ids=torch.roll(sel, -(bucket - n), dims=1)[0],
-                    prompt_n=n, max_new_tokens=self.max_new,
+                    prompt_n=n if hist_n is None else hist_n,
+                    max_new_tokens=self.max_new,
                     draft_len=self.spec_draft,
                     draft_mode=self.spec_draft_mode,
-                    attn_impl=self.attn_impl))
-            self._sstats += st
+                    attn_impl=self.attn_impl, forced_ids=forced))
+            self._sstats[:2] += st
+            if forced is not None:
+                self._sstats[2] += 1
         else:
             out, length, self.cache = gen_mod.greedy_generate(
                 self.params, self.cfg, self.cache, embeds, [n],
@@ -370,6 +521,58 @@ class LiveInferEngine:
                  if query else None)
         return q_str, f"(Video Time = {video_time}s) Assistant:{response}"
 
+    def _finish_or_continue(self, out: np.ndarray, video_time, query):
+        """With stream_tokens = S the first segment stopped after at most S
+        tokens: surface its text through on_delta and decode S-token
+        continuation segments (each prompted by the last sampled token, as
+        the unsegmented decode feeds it) until EOS or the response budget.
+        The joined segments are the unsegmented response, so the
+        transcript is the same."""
+        S = self.stream_tokens
+        if not S:
+            return self._finish_response(out, video_time, query)
+        out = np.asarray(out, np.int32)
+        budget = self.cfg.max_response_tokens
+        parts = [out]
+        total = int(out.size)
+        surfaced = ""
+
+        def emit(done: bool):
+            # once per segment, even when its text is empty (the first call
+            # is the time to first text)
+            nonlocal surfaced
+            text = self.tokenizer.decode(np.concatenate(parts),
+                                         skip_special_tokens=True)
+            delta, surfaced = text[len(surfaced):], text
+            if self.on_delta is not None:
+                self.on_delta(delta, done)
+
+        while (total < budget and out.size == S
+               and int(out[-1]) != self.cfg.eos_token_id):
+            emit(False)
+            out = self._respond_continue(int(out[-1]))
+            parts.append(out)
+            total += int(out.size)
+        emit(True)
+        return self._finish_response(np.concatenate(parts), video_time, query)
+
+    def _respond_continue(self, last_tok: int) -> np.ndarray:
+        """One S-token continuation segment. The first segment's capacity
+        guard reserved the whole response budget, so none runs here."""
+        return self._generate([last_tok], PROMPT_BUCKETS[0], hist_n=0)
+
+    def _maybe_compact(self, worst: int) -> int:
+        """If the next write would overflow and a stream_window is set,
+        evict everything older than the window (the newest window moves to
+        the ring's front; pos_base keeps absolute positions). Returns the
+        worst-case occupancy after it."""
+        if (worst <= self.kv_capacity or self.stream_window is None
+                or self._host_offset <= self.stream_window):
+            return worst
+        freed = self._host_offset - self.stream_window
+        self.cache = llama.compact_kv_cache(self.cache, self.stream_window)
+        return worst - freed
+
     def _stream_until_trigger(self):
         while self.frame_embeds_queue:
             # a query strictly earlier than the next frame -> answer now
@@ -392,11 +595,12 @@ class LiveInferEngine:
             worst = (self._host_offset + len(burst_times)
                      * (TEXT_BUCKET + self.frame_num_tokens)
                      + self._gen_prompt_bucket + self.cfg.max_response_tokens)
+            worst = self._maybe_compact(worst)
             if worst > self.kv_capacity:
                 raise RuntimeError(
                     f"KV ring capacity {self.kv_capacity} would be exceeded "
-                    f"(offset {self._host_offset}); raise kv_capacity or "
-                    f"reset() the stream")
+                    f"(offset {self._host_offset}); raise kv_capacity, set "
+                    f"stream_window, or reset() the stream")
             first_ids = self._take_prepend()
             thr = float(self.cfg.frame_token_interval_threshold)
             if len(burst_times) >= 2:
@@ -471,10 +675,12 @@ class LiveInferEngine:
         bucket = next((b for b in PROMPT_BUCKETS if b >= n), n)
         # capacity guard for the response turn itself
         worst = self._host_offset + bucket + self.cfg.max_response_tokens
+        worst = self._maybe_compact(worst)
         if worst > self.kv_capacity:
             raise RuntimeError(
                 f"KV ring capacity {self.kv_capacity} would be exceeded by "
                 f"the response turn (offset {self._host_offset}, prompt "
-                f"bucket {bucket}); raise kv_capacity or reset()")
+                f"bucket {bucket}); raise kv_capacity, set stream_window, "
+                f"or reset()")
         out = self._generate(list(prompt), bucket)
-        return self._finish_response(out, video_time, query)
+        return self._finish_or_continue(out, video_time, query)

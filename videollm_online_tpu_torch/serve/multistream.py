@@ -16,10 +16,19 @@ allocator, its refcounts (``fork_stream`` aliases full pages), the prefix
 cache that admits a new dialogue by aliasing the system prompt's pages,
 and ``stream_window`` compaction (pages freed, or the ring rolled).
 
+With ``stream_tokens`` = S a response is decoded S tokens at a time: it
+stays open (its stream ingests nothing meanwhile) and each later tick
+first runs one batched continuation segment over every open response,
+each surfaced through ``on_delta(stream, delta, done)``; the joined
+segments are the unsegmented response. With ``vision_params``,
+``input_frames`` takes raw uint8 frames (T, 3, H, W) and encodes them
+through the SigLIP tower and the connector.
+
 The JAX engine's ``fused=True`` tick is one device dispatch whose
 transcripts its own tests prove equal to the blocking tick's; here
-``fused`` runs the same blocking tick. ``pipelined``, ``stream_tokens`` /
-``on_delta`` and ``vision_params`` (raw pixels) are not ported and raise.
+``fused`` runs the same blocking tick. ``pipelined`` (a dispatch mode
+that hides round trips to a remote TPU) raises: its counterpart on this
+card is ROADMAP Queue 1 item 2.
 """
 
 from __future__ import annotations
@@ -38,10 +47,12 @@ from ..models import generate as gen_mod
 from ..models import live, llama
 from ..tokenizer.live_tokenizer import LiveTokenizer
 from ..utils.profiling import LatencyHistogram
+from .engine import _check_same_tree
 
 TEXT_BUCKET = 4
 PROMPT_BUCKET = 128
 CHUNK_FRAMES = 8
+ENCODE_FRAMES = 32     # frames a tower batch: a long clip in bounded memory
 
 
 def _gate(rows: torch.Tensor, gate_id: int, threshold: float, bias: float
@@ -73,19 +84,6 @@ def _roll_valid_first(embeds: torch.Tensor, n, bucket: int) -> torch.Tensor:
                         idx[..., None].expand(-1, -1, embeds.shape[2]))
 
 
-def _check_same_tree(old, new, path="params"):
-    """swap_params guard: the same tree with the same leaf shapes and
-    dtypes."""
-    if isinstance(old, dict):
-        if not isinstance(new, dict) or old.keys() != new.keys():
-            raise ValueError(f"{path}: tree structure differs")
-        for k in old:
-            _check_same_tree(old[k], new[k], f"{path}.{k}")
-    elif (not isinstance(new, torch.Tensor) or old.shape != new.shape
-          or old.dtype != new.dtype):
-        raise ValueError(f"{path}: shape or dtype differs")
-
-
 class MultiStreamEngine:
     """The JAX engine's constructor signature; ``fused`` is accepted and
     changes nothing (one blocking tick), ``device`` picks the card (the
@@ -110,15 +108,12 @@ class MultiStreamEngine:
                  vision_params=None,
                  max_lag_frames: Optional[int] = None,
                  device=None):
-        refused = {"pipelined": pipelined,
-                   "stream_tokens": stream_tokens is not None,
-                   "on_delta": on_delta is not None,
-                   "vision_params": vision_params is not None}
-        asked = [k for k, on in refused.items() if on]
-        if asked:
+        if pipelined:
             raise NotImplementedError(
-                f"not ported: {', '.join(asked)} (the port serves the "
-                f"blocking tick over pre-extracted features)")
+                "not ported: pipelined. The JAX engine's dispatch modes "
+                "hide round trips to a remote TPU; their counterpart here, "
+                "a CUDA graph per forward shape, is ROADMAP Queue 1 item 2. "
+                "The blocking tick serves the same transcripts.")
         if kv_quant not in (None, "int8"):
             raise ValueError(f"kv_quant {kv_quant!r}")
         if spec_draft_mode not in ("ngram", "zero"):
@@ -171,6 +166,26 @@ class MultiStreamEngine:
         self.fnt = self.cfg.frame_num_tokens
         self.hidden = self.cfg.llama.hidden_size
         self.max_new = max_new_tokens or self.cfg.max_response_tokens
+        # stream_tokens = S: device responses decode at most S tokens; a
+        # response that fills its segment stays open and continues one
+        # segment a tick (the whole budget is reserved by the tick that
+        # opened it)
+        self.resp_budget = self.max_new
+        self.stream_tokens = stream_tokens
+        self.on_delta = on_delta
+        if stream_tokens is not None:
+            if stream_tokens <= 0 or self.resp_budget % stream_tokens:
+                raise ValueError(
+                    f"stream_tokens {stream_tokens} must be positive and "
+                    f"divide the response budget {self.resp_budget}")
+            self.max_new = stream_tokens
+            if spec_decode and spec_draft is None:
+                # K = S - 1: one verify step can complete a segment
+                self.spec_draft = (max(1, min(self.spec_draft,
+                                              stream_tokens - 1))
+                                   if stream_tokens > 1 else 1)
+        # raw uint8 frames encode through the tower on the engine's device
+        self.vision_params = vision_params
         self.chunk_frames = max(1, chunk_frames)
         if attn_impl is None:
             from ..ops.auto import auto_attention
@@ -301,18 +316,21 @@ class MultiStreamEngine:
             self._hist[i], self._hcount[i], torch.as_tensor(np.asarray(ids)),
             int(n))
 
-    def _respond_core_spec(self, prompt_ids, num_valid, active):
+    def _respond_core_spec(self, prompt_ids, num_valid, active, hist_nv=None):
         """Batched n-gram speculative decode: the greedy core's exact token
         streams, up to ``spec_draft + 1`` tokens per stream per verify
-        forward. Every stream's history ring takes its prompt and its
+        forward. Every stream's history ring takes its prompt (``hist_nv``
+        of its tokens when given: 0 for a continuation segment, whose
+        1-token prompt is there already as the last emitted token) and its
         emitted tokens; ``_sstats`` accumulates [verify steps, emitted] over
         the streams."""
         N, max_new, eos, K = (self.N, self.max_new, self.cfg.eos_token_id,
                               self.spec_draft)
         P = prompt_ids.shape[1]
         nv = np.where(active, num_valid, 0)
-        for i in np.flatnonzero(nv):
-            self._hist_append(i, np.roll(prompt_ids[i], -(P - nv[i])), nv[i])
+        hn = nv if hist_nv is None else np.where(active, hist_nv, 0)
+        for i in np.flatnonzero(hn):
+            self._hist_append(i, np.roll(prompt_ids[i], -(P - nv[i])), hn[i])
         logits = self._fwd(self._prompt_embeds(prompt_ids, num_valid), nv,
                            torch.as_tensor(np.maximum(nv - 1, 0)))
         first = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
@@ -361,10 +379,11 @@ class MultiStreamEngine:
             i_n = i_n + emit
         return out, lengths
 
-    def _respond(self, prompt_ids, num_valid, active):
+    def _respond(self, prompt_ids, num_valid, active, hist_nv=None):
         """Greedy or speculative batched respond. Returns (out, lengths)."""
         if self.spec_decode:
-            return self._respond_core_spec(prompt_ids, num_valid, active)
+            return self._respond_core_spec(prompt_ids, num_valid, active,
+                                           hist_nv)
         return self._respond_core(prompt_ids, num_valid, active)
 
     def _prefill(self, ids, nv, active):
@@ -446,6 +465,8 @@ class MultiStreamEngine:
         self._resp_hist = LatencyHistogram(max_samples=4096)
         self._arrival: List[collections.OrderedDict] = [
             collections.OrderedDict() for _ in range(self.N)]
+        # stream_tokens: each stream's open response, or None
+        self._open: List[Optional[Dict[str, Any]]] = [None] * self.N
 
     def _set_table(self):
         self.cache = self.cache.replace(
@@ -454,16 +475,26 @@ class MultiStreamEngine:
     # ------------------------------------------------------------------ I/O
     def input_frames(self, stream: int, video_time: float,
                      features: np.ndarray):
-        """Enqueue pre-extracted features ((T, fnt, vision_hidden) or
-        (T, vision_hidden)) for one stream, timestamped from ``video_time``
-        on the fps grid; they are projected on the device at once."""
+        """Enqueue frames for one stream, timestamped from ``video_time`` on
+        the fps grid: pre-extracted features ((T, fnt, vision_hidden) or
+        (T, vision_hidden)), projected on the device at once, or, with
+        ``vision_params``, raw uint8 pixels ((T, 3, H, W)) encoded through
+        the tower and the connector, ENCODE_FRAMES frames a batch."""
         feats = np.asarray(features)
-        if feats.dtype == np.uint8:
-            raise NotImplementedError("raw pixels need the vision slice")
-        if feats.ndim == 2:
-            feats = feats[:, None, :]
         embeds = None
-        if len(feats):
+        if feats.dtype == np.uint8:
+            if self.vision_params is None:
+                raise ValueError("raw pixel input needs vision_params")
+            if len(feats):
+                px = torch.from_numpy(np.ascontiguousarray(feats)).to(
+                    self.device)
+                embeds = torch.cat([
+                    live.pixels_to_embeds(self.vision_params, self.params,
+                                          px[i:i + ENCODE_FRAMES], self.cfg)
+                    for i in range(0, len(px), ENCODE_FRAMES)])
+        elif len(feats):
+            if feats.ndim == 2:
+                feats = feats[:, None, :]
             x = torch.from_numpy(np.ascontiguousarray(feats)).to(self.device)
             embeds = live.visual_embed(self.params, x, self.cfg).reshape(
                 -1, self.fnt, self.hidden)
@@ -490,6 +521,94 @@ class MultiStreamEngine:
             self._resp_hist.add("response", dt)
             self._resp_hist.add(f"response_s{i}", dt)
 
+    # ---------------------------------------- token-streaming segments
+    def _begin_open(self, i: int, kind: str, t, q: Optional[str]):
+        """Open a segmented response for stream ``i``; while it is open the
+        stream ingests nothing, as the unsegmented response's KV precedes
+        any later frame."""
+        assert self._open[i] is None, f"stream {i} already open"
+        self._open[i] = {"toks": [], "kind": kind, "t": t, "q": q,
+                         "surfaced": "", "ttft_done": False}
+
+    def _extend_open(self, i: int, toks: np.ndarray) -> bool:
+        """Absorb one decoded segment: surface its text and finish when the
+        segment ended short (EOS), ended on EOS or used up the budget.
+        Returns True when the response completed."""
+        o = self._open[i]
+        o["toks"].extend(int(x) for x in np.asarray(toks).tolist())
+        done = (toks.size == 0
+                or len(o["toks"]) >= self.resp_budget
+                or int(toks.size) < self.max_new
+                or int(toks[-1]) == self.cfg.eos_token_id)
+        self._emit_delta(i, done)
+        if done:
+            self._finish_open(i)
+        return done
+
+    def _emit_delta(self, i: int, done: bool):
+        """One segment surfaced: decode the ids so far and emit the new
+        suffix of the text, even when empty (the first call is the time to
+        first text, recorded as "ttft" / "ttft_s<i>")."""
+        o = self._open[i]
+        text = self.tokenizer.decode(np.asarray(o["toks"], np.int32),
+                                     skip_special_tokens=True)
+        delta = text[len(o["surfaced"]):]
+        o["surfaced"] = text
+        if not o["ttft_done"]:
+            o["ttft_done"] = True
+            arr = self._arrival[i].get((o["kind"], o["t"]))
+            if arr is not None:
+                dt = _time.perf_counter() - arr
+                self._resp_hist.add("ttft", dt)
+                self._resp_hist.add(f"ttft_s{i}", dt)
+        if self.on_delta is not None:
+            self.on_delta(i, delta, done)
+
+    def _finish_open(self, i: int):
+        """Close stream ``i``'s response: the post-response prepend, the
+        transcript entry (the unsegmented engine's) and its latency."""
+        o = self._open[i]
+        self._open[i] = None
+        toks = o["toks"]
+        if toks and toks[-1] == self.cfg.eos_token_id:
+            self.prepends[i] = [toks[-1]] + self._stream_prompt_ids
+        elif toks:
+            self.prepends[i] = [toks[-1]]
+        t = o["t"]
+        q_str = (f"(Video Time = {t}s) User: {o['q']}" if o["kind"] == "q"
+                 else None)
+        entry = (q_str, f"(Video Time = {t}s) Assistant:{o['surfaced']}")
+        self._record_response_latency(i, o["kind"], t)
+        self._resp_out[i].append(entry)
+        self.transcripts[i].append(entry)
+
+    def _respond_segments(self):
+        """One batched continuation segment over every open response: each
+        stream's 1-token prompt is its last sampled token (what the
+        unsegmented decode feeds), kept out of its history ring. The tick
+        that opened a response reserved its whole budget, so no capacity
+        guard runs here."""
+        mask = np.array([o is not None for o in self._open], bool)
+        if not mask.any():
+            return
+        ids = np.zeros((self.N, TEXT_BUCKET), np.int64)
+        nv = np.zeros((self.N,), np.int64)
+        for i in np.flatnonzero(mask):
+            ids[i, -1] = self._open[i]["toks"][-1]
+            nv[i] = 1
+        out, lengths = self._respond(ids, nv, mask,
+                                     hist_nv=np.zeros((self.N,), np.int64))
+        self._sync_offsets()
+        for i in np.flatnonzero(mask):
+            self._extend_open(i, out[i, :lengths[i]].astype(np.int32))
+
+    def _finish_open_responses(self, streams=None):
+        """Run continuation segments until no response of ``streams`` (every
+        stream by default) is open."""
+        streams = range(self.N) if streams is None else streams
+        while any(self._open[i] is not None for i in streams):
+            self._respond_segments()
+
     def spec_stats(self) -> np.ndarray:
         """[verify_steps, emitted_tokens] accumulated across all streams'
         spec_decode responses. Mean accepted drafts per step =
@@ -513,6 +632,8 @@ class MultiStreamEngine:
         dtypes). The prefix cache's KV was computed under the old weights
         and is dropped."""
         _check_same_tree(self.params, params)
+        # open segmented responses finish under the old weights
+        self._finish_open_responses()
         self._clear_prefix_cache()
         self.params = params
 
@@ -544,6 +665,7 @@ class MultiStreamEngine:
             } for i in range(self.N)],
             "ticks": self._tick_hist.summary().get("tick", {}),
             "response_latency": self._resp_hist.summary(),
+            "open_responses": sum(o is not None for o in self._open),
         }
         if self.paged:
             tmpl_refs = self._template_refs()
@@ -804,6 +926,10 @@ class MultiStreamEngine:
         self._shed_lag()
         t0 = _time.perf_counter()
         try:
+            if self.stream_tokens:
+                # one continuation segment for every open response, before
+                # the other streams' ingest
+                self._respond_segments()
             return self._step_unfused()
         finally:
             self._tick_hist.add("tick", _time.perf_counter() - t0)
@@ -818,7 +944,8 @@ class MultiStreamEngine:
         active = np.zeros((N,), bool)
         frame_times = [None] * N
         for i in range(N):
-            if not self.frame_queues[i] or self._needs_prefill[i]:
+            if (not self.frame_queues[i] or self._needs_prefill[i]
+                    or self._open[i] is not None):
                 continue
             # a queued query earlier than the next frame answers first
             qq = self.query_queues[i]
@@ -842,10 +969,11 @@ class MultiStreamEngine:
         itv = 1 if self.cfg.frame_token_interval_id is not None else 0
         if active.any():
             # capacity guard: the chunk write is a full static-size slab per
-            # stream, plus a prompt bucket and the response budget
+            # stream, plus a prompt bucket and the whole response budget
+            # (segmented responses reserve it here too)
             write_len = (TEXT_BUCKET + self.fnt if max_burst <= 1 else
                          TEXT_BUCKET + K * self.fnt + (K - 1) * itv)
-            budget = write_len + PROMPT_BUCKET + self.max_new
+            budget = write_len + PROMPT_BUCKET + self.resp_budget
             if self.paged:
                 idxs = [i for i in range(N) if active[i]]
                 if not self._paged_admit(idxs, budget):
@@ -923,7 +1051,8 @@ class MultiStreamEngine:
             # just processed reaches the query time, or the next queued
             # frame is strictly later. A fired stream's query waits a tick.
             qq = self.query_queues[i]
-            if not fire[i] and qq and not self._needs_prefill[i] and (
+            if not fire[i] and qq and not self._needs_prefill[i] \
+                    and self._open[i] is None and (
                     (frame_times[i] is not None and frame_times[i] >= qq[0][0])
                     or (self.frame_queues[i]
                         and self.frame_queues[i][0][0] > qq[0][0])):
@@ -959,6 +1088,14 @@ class MultiStreamEngine:
                 toks = out[i, :lengths[i]]
                 t = (respond_query[i][0] if respond_query[i] is not None
                      else frame_times[i])
+                if self.stream_tokens:
+                    # the first segment opens the response; a completed one
+                    # lands in _resp_out and surfaces below, this tick
+                    query = respond_query[i]
+                    self._begin_open(i, "q" if query is not None else "f", t,
+                                     query[1] if query is not None else None)
+                    self._extend_open(i, toks.astype(np.int32))
+                    continue
                 if toks.size and toks[-1] == self.cfg.eos_token_id:
                     self.prepends[i] = ([int(toks[-1])]
                                         + self._stream_prompt_ids)
@@ -981,7 +1118,9 @@ class MultiStreamEngine:
         return results
 
     def flush(self) -> List[List[Tuple[Optional[str], str]]]:
-        """Drain every queued response; returns them per stream."""
+        """Finish every open segmented response and drain every queued
+        response; returns them per stream."""
+        self._finish_open_responses()
         out = [list(self._resp_out[i]) for i in range(self.N)]
         for i in range(self.N):
             self._resp_out[i].clear()
@@ -990,7 +1129,8 @@ class MultiStreamEngine:
     def pending(self) -> bool:
         return (any(q for q in self.frame_queues)
                 or any(q for q in self.query_queues)
-                or any(q for q in self._resp_out))
+                or any(q for q in self._resp_out)
+                or any(o is not None for o in self._open))
 
     def close_stream(self, i: int) -> List[Tuple[Optional[str], str]]:
         """End stream ``i``'s dialogue and return its transcript. The slot
@@ -998,6 +1138,8 @@ class MultiStreamEngine:
         prefills the system prompt again, or admits it from the prefix
         cache); in paged mode its pages return to the pool now. Sibling
         streams are untouched."""
+        # an open segmented response belongs to this dialogue: finish it
+        self._finish_open_responses([i])
         out = self.transcripts[i]
         self.transcripts[i] = []
         self.frame_queues[i].clear()
@@ -1042,6 +1184,8 @@ class MultiStreamEngine:
             raise ValueError("fork_stream requires the paged KV layout")
         if src == dst:
             raise ValueError("fork_stream: src == dst")
+        # fork a quiescent source: finish its open response first
+        self._finish_open_responses([src])
         if (self._pages_alloc[dst] or self.frame_queues[dst]
                 or self.query_queues[dst] or self._resp_out[dst]
                 or int(self._host_offsets[dst])):
