@@ -110,7 +110,22 @@ any failure raises and exits non-zero:
      Average Processing FPS, K1 / K4 / K5 launches and on_delta segments
      of that run, the encoder's ms a frame, the wall against the device
      time of one tick, and the tower's bf16 features against the same
-     weights in fp32 (DEMO_ENC_REL).
+     weights in fp32 (DEMO_ENC_REL);
+ 18. the offline evaluators on a small fp32 model (d 64): StreamEvaluator
+     through K2f and through the plain attention (the four metrics equal,
+     the per-position NLL within EVAL_NLL_ATOL), beam_generate and
+     greedy_from_embeds through K1 and through the plain attention (the
+     same ids), then evaluate_entry on a synthetic COIN root at the 1B
+     proxy (greedy decode cut to 64 new tokens from 512);
+ 19. the offline-evaluation main path at full Llama-3-8B width and depth
+     (int8 base, bf16 LoRA r 128 and connector, random, built on the
+     card): one 10-minute live1+ narration sample (1200 frames, a turn
+     every 10, threshold 0.725) through StreamEvaluator, s/video, ms/turn,
+     videos/hour, K2f launched once a layer a sample; the rollforward and
+     the chunked int8 lm_head timed on their own; K2f at the eval T held
+     against its plain version query chunk by query chunk and timed beside
+     it, SDPA and the bound; one LTA beam search (5 beams at B 5, 64 new
+     tokens, cut from 512) through K1.
 
 ``--phases a,b`` runs the named phases alone and prints no summary;
 ``--phases train_seeds`` (in no default run) prints the 2-layer step's loss
@@ -3362,6 +3377,504 @@ def phase_main_path_demo(n_frames: int = 64, seed: int = 0):
     return results
 
 
+# --------------------------------------------------------------- phase 18
+# The small evaluator through K2f against the plain attention, per position
+# (fp32, the FMA design of K2f): the bound sits well above fp32 rounding of
+# a 2-layer forward and far below any change of an argmax's margin.
+EVAL_NLL_ATOL = 1e-4
+# new tokens of evaluate_entry's COIN greedy decode (phase 18) and of the
+# LTA beam search (phase 19), cut from the datasets' 512 to keep the run
+# short: random weights never end a response early
+EVAL_COIN_NEW, EVAL_BEAM_NEW = 64, 64
+
+
+def _card():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def _stream_sample(tok, cfg, n_frames, turn_every, texts, seed):
+    """A narration eval sample through the port's data path (chat template
+    -> learn ranges -> collator), as benchmarks/eval_bench.py builds it: a
+    turn every ``turn_every`` frames, each narration padded to 40
+    characters."""
+    from videollm_online_tpu_torch.data.collator import collate
+    conv = [{"role": "system", "content": "You are a narrator."}]
+    for i in range(n_frames // turn_every):
+        conv += [{"role": "stream", "num_frames": turn_every, "learn": True},
+                 {"role": "assistant", "content": f"{texts[i]:<40}",
+                  "learn": True}]
+    frames = np.random.RandomState(seed).randn(
+        n_frames, cfg.frame_num_tokens, cfg.vision_hidden_size).astype(
+        np.float32)
+    return collate([(tok.apply_chat_template(conv), frames,
+                     tok.get_learn_ranges(conv), 0, None)], tokenizer=tok)
+
+
+def _synth_narration(rng, n_rows):
+    """Narration rows with the text shape of cleaned Ego4D narrations
+    ("You pick up the knife."), Zipf-weighted verbs and objects: the rows
+    bench.py's synth_narration draws, from the same seed."""
+    verbs = ["look around", "pick up", "put down", "hold", "cut", "stir",
+             "open", "close", "move", "wash", "place", "turn", "pour",
+             "grab", "wipe", "push"]
+    objs = ["the knife", "a bowl", "the pan", "the vegetables",
+            "the cupboard", "the tap", "the dough", "a spoon", "the plate",
+            "the cloth", "the bottle", "the lid", "some water", "the box",
+            "the drawer", "a bag"]
+    tails = ["", "", "", "", " with your right hand", " on the table",
+             " in the kitchen", " again"]
+
+    def pick(items):
+        w = 1.0 / np.arange(1, len(items) + 1)
+        return items[rng.choice(len(items), p=w / w.sum())]
+
+    rows = []
+    for _ in range(n_rows):
+        v = pick(verbs)
+        rows.append(f"You look around{pick(tails)}." if v == "look around"
+                    else f"You {v} {pick(objs)}{pick(tails)}.")
+    return rows
+
+
+def _lta_prompt(tok, cfg, n_frames=32, seed=9):
+    """One LTA-shaped prompt (frames and a forecasting query), as
+    benchmarks/eval_bench.py builds it."""
+    from videollm_online_tpu_torch.data.collator import collate
+    conv = [{"role": "system", "content": "You are an anticipator."},
+            {"role": "stream", "num_frames": n_frames, "learn": False},
+            {"role": "user", "content": "What will happen next?"}]
+    frames = np.random.RandomState(seed).randn(
+        n_frames, cfg.frame_num_tokens, cfg.vision_hidden_size).astype(
+        np.float32)
+    batch = collate([(tok.apply_chat_template(conv,
+                                              add_generation_prompt=True),
+                      frames, [], 0, None)], tokenizer=tok)
+    return batch["input_ids"], batch["frames"]
+
+
+@contextlib.contextmanager
+def _coin_eval(root, max_new_tokens):
+    """The COIN datasets read a synthetic tree under ``root``
+    (tests/_synthetic.py's, a module of json, os and numpy only) and
+    generate ``max_new_tokens``; both are put back on the way out."""
+    import pathlib
+    from videollm_online_tpu_torch.data.coin import base as coin_base
+    from videollm_online_tpu_torch.data.coin import benchmarks
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "tests"))
+    try:
+        from _synthetic import make_coin_root
+    finally:
+        sys.path.pop(0)
+    bench = benchmarks.COINBenchmark
+    saved = coin_base.COIN.root, bench.evaluation_kwargs
+    coin_base.COIN.root = make_coin_root(root, dim=1024)
+    bench.evaluation_kwargs = dict(saved[1], max_new_tokens=max_new_tokens)
+    try:
+        yield
+    finally:
+        coin_base.COIN.root, bench.evaluation_kwargs = saved
+
+
+def phase_small_eval():
+    """The offline evaluators on a small fp32 model (d 64, so the prefill
+    takes K2f and decode K1): StreamEvaluator through K2f and through the
+    plain attention (the four metrics equal, the per-position NLL within
+    EVAL_NLL_ATOL), beam_generate and greedy_from_embeds through K1 and
+    through the plain attention (the same ids), then evaluate_entry itself
+    on a synthetic COIN root at the 1B proxy (d 64), printing its
+    metrics."""
+    import tempfile
+
+    from videollm_online_tpu_torch.core.config import (LlamaConfig,
+                                                       tiny_live_config)
+    from videollm_online_tpu_torch.eval import generation
+    from videollm_online_tpu_torch.eval import stream_evaluate as se
+    from videollm_online_tpu_torch.evaluate_entry import evaluate
+    from videollm_online_tpu_torch.models import live, llama
+    from videollm_online_tpu_torch.tokenizer.live_tokenizer import (
+        LiveTokenizer)
+    from videollm_online_tpu_torch.tokenizer.tiny import ByteTokenizer
+    cfg = tiny_live_config(llama=LlamaConfig(
+        vocab_size=512, hidden_size=256, intermediate_size=512,
+        num_layers=2, num_heads=4, num_kv_heads=2, head_dim=64,
+        dtype="float32"))
+    tok = LiveTokenizer(ByteTokenizer(), cfg)
+    cfg = tok.cfg
+    params = live.init_params(torch.Generator(device="cuda").manual_seed(0),
+                              cfg, device="cuda")
+    batch = _stream_sample(tok, cfg, 40, 5, _synth_narration(
+        np.random.RandomState(0), 8), seed=1)
+    counts = _all_launch_counters()
+    n0 = counts["K2f"].launches
+    got = se.StreamEvaluator(params, cfg)(
+        batch["input_ids"], batch["labels"], batch["frames"], 0.5)
+    n_k2f = counts["K2f"].launches - n0
+    want = se.StreamEvaluator(params, cfg, attn_impl=llama._attention)(
+        batch["input_ids"], batch["labels"], batch["frames"], 0.5)
+    if n_k2f != cfg.llama.num_layers or not np.array_equal(got[1:],
+                                                           want[1:]):
+        raise AssertionError(f"K2f launches {n_k2f}; metrics {got} through "
+                             f"K2f, {want} plain")
+    # per position: the stats of one padded prefill through each route
+    T = -(-batch["input_ids"].shape[1] // 128) * 128
+    pad = T - batch["input_ids"].shape[1]
+    ids = torch.from_numpy(np.pad(batch["input_ids"], ((0, 0), (0, pad)),
+                                  constant_values=cfg.eos_token_id)).cuda()
+    lab = torch.from_numpy(np.pad(batch["labels"], ((0, 0), (0, pad)),
+                                  constant_values=-100)).cuda()
+    frames = torch.from_numpy(batch["frames"]).cuda()
+    stats = []
+    with torch.no_grad():
+        for attn in (se._prefill_attn, llama._attention):
+            cache = llama.init_kv_cache(cfg.llama, 1, T, device="cuda")
+            stats.append(se._per_token_stats(params, cfg, ids, lab, frames,
+                                             cfg.frame_token_interval_id,
+                                             cache, attn))
+    nll_err = float(np.abs(stats[0][0] - stats[1][0]).max())
+    same_argmax = all(np.array_equal(a, b) for a, b in zip(stats[0][1:3],
+                                                           stats[1][1:3]))
+    if not nll_err <= EVAL_NLL_ATOL or not same_argmax:
+        raise AssertionError(f"per-position NLL {nll_err:.3g}, argmaxes "
+                             f"equal {same_argmax}")
+    log(f"small eval (fp32, d 64, T {batch['input_ids'].shape[1]} padded to "
+        f"{T}, 8 turns, threshold 0.5): metrics {got.tolist()} through K2f "
+        f"({n_k2f} launches) equal the plain attention's; per-position NLL "
+        f"max |diff| {nll_err:.3g} (bound {EVAL_NLL_ATOL:.0e}), argmaxes "
+        f"equal")
+
+    prompt, pframes = _lta_prompt(tok, cfg, n_frames=8)
+    kw = dict(num_beams=5, max_new_tokens=24, num_return_sequences=5)
+    n0 = counts["K1"].launches
+    beams = generation.beam_generate(params, cfg, prompt, pframes, **kw)
+    n_k1 = counts["K1"].launches - n0
+    searcher = generation.BeamSearcher(params, cfg, 5,
+                                       attn_impl=llama._attention)
+    plain = searcher.search(prompt, pframes, max_new_tokens=24,
+                            num_return_sequences=5)
+    plain_rows = np.full(beams.shape, -100)
+    for i, s in enumerate(plain):
+        plain_rows[i, :len(s)] = s
+    greedy = [generation.greedy_from_embeds(params, cfg, prompt, pframes,
+                                            max_new_tokens=24,
+                                            attn_impl=attn)
+              for attn in (None, llama._attention)]
+    if (n_k1 == 0 or not np.array_equal(beams, plain_rows)
+            or not np.array_equal(*greedy)):
+        raise AssertionError(f"K1 launches {n_k1}; beams equal "
+                             f"{np.array_equal(beams, plain_rows)}, greedy "
+                             f"equal {np.array_equal(*greedy)}")
+    log(f"small beam search (fp32, 5 beams at B 5, 24 new tokens, prompt "
+        f"{prompt.shape[1]} tokens): the same ids through K1 ({n_k1} "
+        f"launches) and the plain attention; greedy_from_embeds too "
+        f"({greedy[0].shape[1]} tokens)")
+
+    with tempfile.TemporaryDirectory() as tmp, \
+            _coin_eval(tmp, EVAL_COIN_NEW):
+        n0 = counts["K1"].launches
+        t0 = time.perf_counter()
+        metrics = evaluate([
+            "--live_version", "live1+", "--model_size", "1b",
+            "--eval_datasets", "coin_step_test", "--pad_to_multiple", "16",
+            "--output_dir", tmp + "/out"])
+        dt = time.perf_counter() - t0
+        with open(tmp + "/out/eval_results.json") as f:
+            written = json.load(f)
+    if written != metrics or "accuracy" not in metrics["coin_step_test"]:
+        raise AssertionError(f"evaluate_entry wrote {written}, returned "
+                             f"{metrics}")
+    log(f"evaluate_entry on a synthetic COIN root (coin_step_test, 2 "
+        f"samples, greedy {EVAL_COIN_NEW} new tokens, cut from the "
+        f"dataset's 512; 1B proxy bf16 random weights): "
+        f"{metrics} in {dt:.1f} s, K1 launches "
+        f"{counts['K1'].launches - n0} [{_card()}]")
+
+
+def _eval_k2f(T, sliding_window=None):
+    """K2f at the eval prefill's shapes (the 8B heads, bf16) on a ring
+    sliced to T, held against its plain version query chunk by query
+    chunk (the whole (Hq, T, T) fp32 scores would not fit), and timed by
+    CUDA events beside the plain version (the same chunks), SDPA on the
+    sliced ring and the bound; and the cost of making the ring's slice
+    contiguous (one copy of K and of V a layer)."""
+    from videollm_online_tpu_torch.eval import stream_evaluate as se
+    from videollm_online_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    Hq, Hkv, d, C = 32, 8, 128, T + 990
+    q = torch.randn(1, Hq, T, d, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(1, Hkv, C, d, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(1, Hkv, C, d, generator=gen, device="cuda").bfloat16()
+    q_pos = torch.arange(T, device="cuda")[None]
+    scale = d ** -0.5
+    out = se._prefill_attn(q, k, v, q_pos, None, num_groups=Hq // Hkv)
+    chunk = 2048
+    err = {"max": 0.0, "atol": 0.0, "rel": 0.0, "median": 0.0}
+    for r in range(0, T, chunk):
+        want, _ = fa.flash_attention_fwd_reference(
+            q[:, :, r:r + chunk], k[:, :, :T], v[:, :, :T], scale, True, r)
+        got = _close(f"K2f eval prefill rows {r}:", out[:, :, r:r + chunk],
+                     want, K2_TOL[torch.bfloat16])
+        err = {n: max(err[n], got[n]) for n in err}
+        del want
+    ks, vs = k[:, :, :T].contiguous(), v[:, :, :T].contiguous()
+    # SDPA on K/V expanded to the query heads (its GQA form may take the
+    # math route, whose (Hq, T, T) scores do not fit at this T)
+    kx, vx = (x.repeat_interleave(Hq // Hkv, dim=1) for x in (ks, vs))
+    t = {"ms": cuda_ms(lambda _: se._prefill_attn(
+             q, k, v, q_pos, None, num_groups=Hq // Hkv), 10, 2),
+         "kernel_ms": cuda_ms(lambda _: fa.flash_fwd(q, ks, vs, scale),
+                              10, 2),
+         "slice_copy_ms": cuda_ms(lambda _: (k[:, :, :T].contiguous(),
+                                             v[:, :, :T].contiguous()),
+                                  10, 2),
+         "plain_ms": cuda_ms(lambda _: [fa.flash_attention_fwd_reference(
+             q[:, :, r:r + chunk], ks, vs, scale, True, r)
+             for r in range(0, T, chunk)], 2, 1),
+         "library_ms": cuda_ms(lambda _: torch.nn.functional.
+                               scaled_dot_product_attention(
+                                   q, kx, vx, is_causal=True, scale=scale),
+                               10, 2)}
+    pairs = Hq * T * (T + 1) // 2
+    flops = 4 * d * pairs
+    bytes_ = 2 * q.numel() * 2 + 2 * ks.numel() * 2 + Hq * T * 4
+    t_ops, t_bytes = flops / BF16_FLOPS_PER_S * 1e3, \
+        bytes_ / HBM_BYTES_PER_S * 1e3
+    t.update(bound_ms=max(t_ops, t_bytes),
+             bound_by="operations" if t_ops >= t_bytes else "bytes",
+             max_abs_err=err["max"], rel=err["rel"])
+    del q, k, v, ks, vs, kx, vx, out
+    torch.cuda.empty_cache()
+    return t
+
+
+EVAL_KERNEL_CLASSES = (("K2f", ("k2_fwd",)),
+                       ("K1", ("ringpool", "decode_merge")),
+                       ("matmul", ("nvjet", "gemm", "cutlass", "xmma")),
+                       ("cast copies", ("copy_kernel",)))
+
+
+def _profile_eval(fn, what, card):
+    """fn() once under torch.profiler: its wall, the card's busy time and
+    the busy time by kernel class, with the largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
+               for e in prof.key_averages()
+               if "CUDA" in str(e.device_type) and e.self_device_time_total]
+    busy = sum(t for _, t, _ in kernels)
+    if not busy:
+        log(f"profile of {what}: the profiler saw no device time (not "
+            f"measured)")
+        return
+    shares = dict.fromkeys([n for n, _ in EVAL_KERNEL_CLASSES] + ["other"],
+                           0.0)
+    for key, t, _ in kernels:
+        shares[next((n for n, marks in EVAL_KERNEL_CLASSES
+                     if any(m in key.lower() for m in marks)), "other")] += t
+    log(f"profile of {what}: wall {wall:.1f} ms under the profiler, device "
+        f"busy {busy:.1f} ms ({100 * busy / wall:.1f}% of wall), by class "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in shares.items())
+        + f" [{card}]")
+    for key, t, n in sorted(kernels, key=lambda k: -k[1])[:6]:
+        log(f"  {t:10.2f} ms  x{n:<6d} {key[:110]}")
+
+
+def _k1_beam_hold(cache, prompt_len, Hq):
+    """K1 held against its plain version on the LTA beam search's own ring
+    as the search left it (B 5, bf16, Hkv 8, d 128: the tensor-core
+    design), with random S 1 queries at the prompt's last slot, midway and
+    the last slot written, at the first and the last layer (_repeatable:
+    the wrapper's split count and one split, at K1_TOL); returns the worst
+    readings and the query positions."""
+    from videollm_online_tpu_torch.ops import decode_attention as da
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    L, B, _, _, d = cache.k.shape
+    last = int(cache.offset.max()) - 1
+    positions = sorted({prompt_len - 1, (prompt_len - 1 + last) // 2, last})
+    readings = []
+    for pos in positions:
+        q = torch.randn((B, Hq, 1, d), generator=gen,
+                        device="cuda").to(cache.k.dtype)
+        q_pos = torch.full((B, 1), pos, dtype=torch.int32, device="cuda")
+        for layer in (0, L - 1):
+            want = da.ring_decode_attention_layered_reference(
+                q, cache.k, cache.v, q_pos, layer)
+            readings.append(_repeatable(
+                f"K1 beam ring layer {layer} q_pos {pos} B {B} d {d} "
+                f"{da.kernel_design(q.dtype, d)}",
+                lambda: da.ring_decode_attention_layered(
+                    q, cache.k, cache.v, q_pos, layer),
+                want, K1_TOL[q.dtype], da))
+    return _worst(readings), positions
+
+
+def phase_main_path_eval(minutes: float = 10.0, turn_every: int = 10,
+                         samples: int = 2, beam_new: int = EVAL_BEAM_NEW):
+    """The offline-evaluation main path at full Llama-3-8B width and depth:
+    an int8 base with bf16 LoRA (r 128) and connector, random, built on the
+    card as benchmarks/eval_bench.py builds them; one 10-minute live1+
+    narration sample (1200 frames, a turn every 10, threshold 0.725)
+    through StreamEvaluator: s/video, ms/turn, videos/hour, T, the
+    rollforward's time on its own, K2f's launches (one per layer a sample);
+    K2f at that T held against its plain version and timed beside it, SDPA
+    and the bound; the chunked int8 lm_head's time; then one LTA beam
+    search with 5 beams at B 5 through K1 (``beam_new`` new tokens: cut
+    from the dataset's 512 to keep the run short), and K1 held against its
+    plain version on the ring that search left."""
+    from videollm_online_tpu_torch.core.config import (LiveConfig,
+                                                       LlamaConfig,
+                                                       LoraConfig)
+    from videollm_online_tpu_torch.eval import generation
+    from videollm_online_tpu_torch.eval import stream_evaluate as se
+    from videollm_online_tpu_torch.models import llama
+    from videollm_online_tpu_torch.tokenizer.live_tokenizer import (
+        LiveTokenizer)
+    from videollm_online_tpu_torch.tokenizer.tiny import ByteTokenizer
+    card = _card()
+    lcfg = LlamaConfig(vocab_size=128256, hidden_size=4096,
+                       intermediate_size=14336, num_layers=32, num_heads=32,
+                       num_kv_heads=8, head_dim=128, dtype="bfloat16")
+    tok = LiveTokenizer(ByteTokenizer(),
+                        LiveConfig(llama=lcfg, lora=LoraConfig()))
+    cfg = tok.cfg
+    params = _lora_8b_params(cfg,
+                             torch.Generator(device="cuda").manual_seed(0))
+    n_frames = int(minutes * 60 * cfg.frame_fps)
+    n_frames -= n_frames % turn_every
+    n_turns = n_frames // turn_every
+    texts = _synth_narration(np.random.RandomState(0), n_turns)
+    batches = [_stream_sample(tok, cfg, n_frames, turn_every, texts, s)
+               for s in range(samples + 1)]
+    T = batches[0]["input_ids"].shape[1]
+    T_pad = -(-T // 128) * 128
+    ev = se.StreamEvaluator(params, cfg)
+
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    times, outs = [], []
+    for i, b in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs.append(ev(b["input_ids"], b["labels"], b["frames"], 0.725))
+        times.append(time.perf_counter() - t0)
+    stream_counts = _read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    if stream_counts["K2f"] != lcfg.num_layers * len(batches):
+        raise AssertionError(f"K2f launches {stream_counts['K2f']}, want "
+                             f"{lcfg.num_layers} a sample")
+    for out in outs:
+        if out.shape != (4,) or not np.isfinite(out).all():
+            raise AssertionError(f"bad metrics {out}")
+    dt = float(np.median(times[1:]))
+    log(f"8B eval (int8 base, bf16 LoRA r 128 and connector): {minutes:g}-min "
+        f"live1+ video, {n_frames} frames, {n_turns} turns, T {T} (padded "
+        f"to {T_pad}), threshold 0.725; first call {times[0]:.2f} s, then "
+        f"{', '.join(f'{x:.3f}' for x in times[1:])} s: {dt:.3f} s/video, "
+        f"{dt / n_turns * 1e3:.2f} ms/turn, {3600 / dt:,.0f} videos/hour; "
+        f"peak memory {peak / 2**30:.2f} GiB; metrics [lm_ppl, frame_diff, "
+        f"fluency, lm_correctness] {outs[-1].tolist()}; launches "
+        f"{stream_counts} [{card}]")
+    _profile_eval(lambda: ev(batches[1]["input_ids"], batches[1]["labels"],
+                             batches[1]["frames"], 0.725),
+                  "one 8B StreamEvaluator call (10-minute video)", card)
+
+    # the rollforward branch on its own (data-dependent: random weights
+    # fire the gate inside every turn), on a capacity-matched ring
+    to_append = turn_every - 1
+    per = cfg.frame_num_tokens + 1
+    cache = llama.init_kv_cache(lcfg, 1, T + to_append * per, device="cuda")
+    cache = llama.trim_kv_cache(cache, T)
+    frames = batches[0]["frames"]
+    ev._rollforward(cache, T - to_append * per, frames, n_frames - to_append,
+                    to_append, 0.725)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(4):
+        ev._rollforward(cache, T - to_append * per, frames,
+                        n_frames - to_append, to_append, 0.725)
+    dt_roll = (time.perf_counter() - t0) / 4
+    log(f"rollforward ({to_append} frames, {to_append * per} tokens appended "
+        f"onto a ring of {T} rows, the overwritten rows saved and put back): "
+        f"{dt_roll * 1e3:.1f} ms a turn [{card}]")
+
+    # the chunked lm_head of the stats over T_pad rows (int8 head: each
+    # 2048-row chunk casts the whole head to bf16, ROADMAP Queue 2 K0)
+    h = torch.randn(T_pad, lcfg.hidden_size, device="cuda").bfloat16()
+    labels = torch.zeros(T_pad, dtype=torch.long, device="cuda")
+    with torch.no_grad():
+        head_ms = cuda_ms(lambda _: se._chunk_stats(
+            params, cfg, h, cfg.frame_token_interval_id, labels), 3, 1)
+        cast_ms = cuda_ms(lambda _: params["llama"]["lm_head"]["q8"].to(
+            torch.bfloat16), 10, 2)
+    log(f"chunked lm_head stats over {T_pad} rows "
+        f"({-(-T_pad // se.LM_CHUNK)} chunks of {se.LM_CHUNK}): "
+        f"{head_ms:.2f} ms, of which one cast of the int8 head to bf16 takes "
+        f"{cast_ms:.3f} ms a chunk [{card}]")
+    del h, labels, cache
+
+    k2f = _eval_k2f(T_pad)
+    log(f"K2f at the 8B eval prefill (B1 Hq32 Hkv8 T=S={T_pad} d128 bf16, "
+        f"causal, the ring sliced from {T_pad + 990} slots): vs plain "
+        f"{K2_TOL[torch.bfloat16]}: max {k2f['max_abs_err']:.3g}, rel "
+        f"{k2f['rel']:.3g}; device ms per call: _prefill_attn "
+        f"{k2f['ms']:.3f} (kernel {k2f['kernel_ms']:.3f}, contiguous copy "
+        f"of the K/V slice {k2f['slice_copy_ms']:.3f}), plain "
+        f"{k2f['plain_ms']:.1f}, sdpa {k2f['library_ms']:.3f}, bound "
+        f"{k2f['bound_ms']:.3f} ({k2f['bound_by']}): "
+        f"{100 * k2f['bound_ms'] / k2f['kernel_ms']:.1f}% of the bound "
+        f"[{card}]")
+
+    # one LTA beam search through K1 at B 5
+    prompt, pframes = _lta_prompt(tok, cfg)
+    searcher = generation.BeamSearcher(params, cfg, num_beams=5)
+    step, ring = searcher._reorder_and_step, {}
+
+    def kept(tokens, cache, parents):   # keeps the search's last ring
+        out = step(tokens, cache, parents)
+        ring["cache"] = out[1]
+        return out
+    searcher._reorder_and_step = kept
+    _zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seqs = searcher.search(prompt, pframes, max_new_tokens=beam_new,
+                           num_return_sequences=5)
+    dt_beam = time.perf_counter() - t0
+    beam_counts = _read_launches()
+    del searcher._reorder_and_step
+    steps = max(len(s) for s in seqs)
+    if beam_counts["K1"] < lcfg.num_layers * (steps - 1) or len(seqs) != 5:
+        raise AssertionError(f"beam: {len(seqs)} sequences, {steps} steps, "
+                             f"launches {beam_counts}")
+    log(f"8B LTA beam search (5 beams at B 5, {beam_new} new tokens, cut "
+        f"from the dataset's 512; prompt {prompt.shape[1]} tokens): "
+        f"{dt_beam:.2f} s, {steps} steps, {dt_beam / steps * 1e3:.1f} ms a "
+        f"step, K1 launches {beam_counts['K1']} [{card}]")
+    cache = ring.pop("cache")
+    k1, positions = _k1_beam_hold(cache, prompt.shape[1], lcfg.num_heads)
+    log(f"K1 on the beam search's ring (B 5 Hq32 Hkv8 d128 bf16, capacity "
+        f"{cache.capacity}, q_pos {positions}, layers 0 and "
+        f"{lcfg.num_layers - 1}) vs plain "
+        f"{K1_TOL[torch.bfloat16]}: {_readings(k1)}")
+    _profile_eval(lambda: searcher.search(prompt, pframes, max_new_tokens=8,
+                                          num_return_sequences=5),
+                  "an 8B LTA beam search of 8 steps (5 beams)", card)
+    del params, ev, searcher, cache
+    torch.cuda.empty_cache()
+    launches = {n: stream_counts[n] + beam_counts[n] for n in stream_counts}
+    return {"launches": launches, "k2f": k2f, "k1_err": k1["max"],
+            "s_per_video": dt}
+
+
 PHASES = {"toolchain": phase_toolchain, "build": phase_build,
           "k1": phase_k1, "small_engine": phase_small_engine,
           "main_path": phase_main_path, "k2": phase_k2,
@@ -3376,7 +3889,9 @@ PHASES = {"toolchain": phase_toolchain, "build": phase_build,
           "small_multistream": phase_small_multistream,
           "main_path_multistream": phase_main_path_multistream,
           "small_demo": phase_small_demo,
-          "main_path_demo": phase_main_path_demo}
+          "main_path_demo": phase_main_path_demo,
+          "small_eval": phase_small_eval,
+          "main_path_eval": phase_main_path_eval}
 
 
 # the default run's phases, in order
@@ -3384,7 +3899,7 @@ DEFAULT_RUN = ("toolchain", "build", "k1", "small_engine", "main_path", "k2",
                "small_trainer", "main_training", "fused", "k4_profile",
                "small_int4_engine", "main_path_int4", "ab_paths", "k3",
                "small_multistream", "main_path_multistream", "small_demo",
-               "main_path_demo")
+               "main_path_demo", "small_eval", "main_path_eval")
 
 
 def main(argv=None) -> int:
@@ -3414,10 +3929,10 @@ def main(argv=None) -> int:
         out[name] = PHASES[name]()
         log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
     smi, k1, main_path, k2, training, fused, int4_path, ab, k3, \
-        multistream, demo = (out[n] for n in (
+        multistream, demo, evals = (out[n] for n in (
             "toolchain", "k1", "main_path", "k2", "main_training", "fused",
             "main_path_int4", "ab_paths", "k3", "main_path_multistream",
-            "main_path_demo"))
+            "main_path_demo", "main_path_eval"))
     log(f"card: {smi}; total {time.perf_counter() - t_start:.1f} s")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     k2_source = "videollm_online_tpu_torch/csrc/flash_attention.cu"
@@ -3428,8 +3943,10 @@ def main(argv=None) -> int:
         "replaces": "videollm_online_tpu/ops/decode_attention.py:249",
         "launches": (main_path["launches"] + int4_path["launches"]["K1"]
                      + multistream["ring, bf16 KV"]["launches"]["K1"]
-                     + sum(r["launches"]["K1"] for r in demo.values())),
-        "max_abs_err": max(k1["max_abs_err"], main_path["ring_err"]),
+                     + sum(r["launches"]["K1"] for r in demo.values())
+                     + evals["launches"]["K1"]),
+        "max_abs_err": max(k1["max_abs_err"], main_path["ring_err"],
+                           evals["k1_err"]),
         **{key: k1[key] for key in keys},
     }, {
         "name": "paged_decode_attention",
@@ -3440,6 +3957,10 @@ def main(argv=None) -> int:
         "max_abs_err": k3["max_abs_err"],
         **{key: k3[key] for key in keys},
     }]
+    # K2f counts the training and the eval main paths' launches; its error
+    # is the worst of phase 6's cases and the eval prefill's hold
+    k2["fwd"]["max_abs_err"] = max(k2["fwd"]["max_abs_err"],
+                                   evals["k2f"]["max_abs_err"])
     for name, part, label, replaces in (
             ("flash_fwd", "fwd", "K2f",
              "videollm_online_tpu/ops/flash_attention.py:144"),
@@ -3449,7 +3970,8 @@ def main(argv=None) -> int:
              "videollm_online_tpu/ops/flash_attention.py:359")):
         kernels.append({"name": name, "route": "cuda", "source": k2_source,
                         "replaces": replaces,
-                        "launches": training["launches"][label],
+                        "launches": (training["launches"][label]
+                                     + evals["launches"][label]),
                         "max_abs_err": k2[part]["max_abs_err"],
                         **{key: k2[part][key] for key in keys}})
     # K4 and K5 count the int4 main paths' launches (phases 11 and 17); K6

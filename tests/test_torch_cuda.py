@@ -927,3 +927,89 @@ def test_k1_int8_ring_shapes_of_the_demo_on_card(card, S, window, q_dtype,
                   else (2e-3, 2e-2))
     torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                rtol=rtol)
+
+
+def test_eval_prefill_route_matches_plain_on_card(card):
+    """StreamEvaluator's whole-video prefill at T = 8192 (8B heads, bf16):
+    ``_prefill_attn`` slices a longer ring to its first T slots and launches
+    K2f once; the output equals K2f's plain version over the slice, chunk
+    by chunk of queries, at chip_smoke.py's K2_TOL for bf16 (atol 2e-3,
+    rtol 2e-2, relative norm 5e-3)."""
+    from videollm_online_tpu_torch.eval import stream_evaluate as se
+    g = torch.Generator(device=card).manual_seed(0)
+    T, C, Hq, Hkv, d = 8192, 8192 + 300, 32, 8, 128
+    q = torch.randn(1, Hq, T, d, generator=g, device=card).bfloat16()
+    k = torch.randn(1, Hkv, C, d, generator=g, device=card).bfloat16()
+    v = torch.randn(1, Hkv, C, d, generator=g, device=card).bfloat16()
+    k[:, :, T:] = v[:, :, T:] = float("nan")   # no query may read past T
+    before = fa.flash_fwd.launches
+    got = se._prefill_attn(q, k, v, torch.arange(T, device=card)[None], None,
+                           num_groups=Hq // Hkv)
+    assert fa.flash_fwd.launches == before + 1
+    errs = []
+    for r in range(0, T, 2048):
+        want, _ = fa.flash_attention_fwd_reference(
+            q[:, :, r:r + 2048], k[:, :, :T], v[:, :, :T], d ** -0.5, True,
+            r)
+        torch.testing.assert_close(got[:, :, r:r + 2048].float(),
+                                   want.float(), atol=2e-3, rtol=2e-2)
+        errs.append(float((got[:, :, r:r + 2048].float() - want.float())
+                          .norm() / want.float().norm()))
+    assert max(errs) <= 5e-3, errs
+
+
+def test_tiny_evaluators_kernel_equal_plain_on_card(card):
+    """A small fp32 model (d 64, so the prefill takes K2f and decode K1):
+    StreamEvaluator through K2f and through the plain attention gives the
+    same frame_diff, fluency and LM-correctness and lm_ppl within 1e-5;
+    the beam search and greedy decode through K1 and through the plain
+    attention return the same ids."""
+    from videollm_online_tpu_torch.data.collator import collate
+    from videollm_online_tpu_torch.eval import generation
+    from videollm_online_tpu_torch.eval.stream_evaluate import (
+        StreamEvaluator)
+    from videollm_online_tpu_torch.core.config import tiny_live_config
+    cfg = tiny_live_config(llama=LlamaConfig(
+        vocab_size=512, hidden_size=256, intermediate_size=512,
+        num_layers=2, num_heads=4, num_kv_heads=2, head_dim=64,
+        dtype="float32"))
+    tok = LiveTokenizer(ByteTokenizer(), cfg)
+    cfg = tok.cfg
+    params = live.init_params(torch.Generator(device=card).manual_seed(0),
+                              cfg, device=card)
+    conv = [{"role": "system", "content": "sys."}]
+    for i, nf in enumerate([3, 5, 2, 4]):
+        conv += [{"role": "stream", "num_frames": nf, "learn": True},
+                 {"role": "assistant", "content": f"event {i} happens.",
+                  "learn": True}]
+    frames = np.random.RandomState(0).randn(14, cfg.frame_num_tokens,
+                                            cfg.vision_hidden_size)
+    batch = collate([(tok.apply_chat_template(conv),
+                      frames.astype(np.float32), tok.get_learn_ranges(conv),
+                      0, None)], tokenizer=tok)
+    before = fa.flash_fwd.launches
+    got = StreamEvaluator(params, cfg)(batch["input_ids"], batch["labels"],
+                                       batch["frames"], 0.5)
+    assert fa.flash_fwd.launches == before + cfg.llama.num_layers
+    want = StreamEvaluator(params, cfg, attn_impl=llama._attention)(
+        batch["input_ids"], batch["labels"], batch["frames"], 0.5)
+    np.testing.assert_array_equal(got[1:], want[1:])
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
+
+    ids = batch["input_ids"][:, :200]
+    kw = dict(max_new_tokens=24, num_return_sequences=3)
+    before = da.ring_decode_attention_layered.launches
+    beams = generation.BeamSearcher(params, cfg, 3).search(
+        ids, batch["frames"], **kw)
+    assert da.ring_decode_attention_layered.launches > before
+    plain = generation.BeamSearcher(params, cfg, 3,
+                                    attn_impl=llama._attention).search(
+        ids, batch["frames"], **kw)
+    for a, b in zip(beams, plain):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(
+        generation.greedy_from_embeds(params, cfg, ids, batch["frames"],
+                                      max_new_tokens=24),
+        generation.greedy_from_embeds(params, cfg, ids, batch["frames"],
+                                      max_new_tokens=24,
+                                      attn_impl=llama._attention))

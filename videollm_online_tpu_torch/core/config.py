@@ -201,6 +201,45 @@ def live1_plus_config(**overrides) -> LiveConfig:
     return cfg.replace(**overrides) if overrides else cfg
 
 
+def mistral_7b_config(**overrides) -> LlamaConfig:
+    """Mistral-7B-Instruct architecture (the reference's documented second
+    LLM family): same block as Llama with 4k sliding-window attention."""
+    kw = dict(
+        vocab_size=32000,
+        hidden_size=4096,
+        intermediate_size=14336,
+        num_layers=32,
+        num_heads=32,
+        num_kv_heads=8,
+        head_dim=128,
+        rope_theta=10000.0,
+        max_position_embeddings=32768,
+        sliding_window=4096,
+    )
+    kw.update(overrides)
+    return LlamaConfig(**kw)
+
+
+def qwen2_7b_config(**overrides) -> LlamaConfig:
+    """Qwen2-7B-Instruct architecture (third LLM family): Llama block with
+    bias on the q/k/v projections and 1e6 rope base."""
+    kw = dict(
+        vocab_size=152064,
+        hidden_size=3584,
+        intermediate_size=18944,
+        num_layers=28,
+        num_heads=28,
+        num_kv_heads=4,
+        head_dim=128,
+        rope_theta=1e6,
+        rms_norm_eps=1e-6,
+        max_position_embeddings=32768,
+        attention_bias=True,
+    )
+    kw.update(overrides)
+    return LlamaConfig(**kw)
+
+
 # ---------------------------------------------------------------------------
 # tiny proxy configs for tests / CPU development
 

@@ -35,12 +35,16 @@ PROXY_SIZES = {
 }
 
 
-def build_model_and_tokenizer(args: LiveTrainingArguments, *, seed: int = 0,
+def build_model_and_tokenizer(args: LiveTrainingArguments, *,
+                              is_training: bool = True, seed: int = 0,
                               device=None
                               ) -> Tuple[Dict[str, Any], LiveTokenizer,
                                          LiveConfig]:
     """(params, tokenizer, cfg) with random weights drawn from ``seed`` on
-    ``device`` (the card unless the caller asks for the CPU)."""
+    ``device`` (the card unless the caller asks for the CPU).
+    ``is_training`` has no effect, as in the JAX builder: evaluation builds
+    the same tree (LoRA stays attached, the adapter is restored over it).
+    It is kept so the entry points call the builder as the JAX ones do."""
     if args.mlp_chunk:
         raise NotImplementedError(
             "mlp_chunk fits 8B into one 16 GiB chip; the port drops it "

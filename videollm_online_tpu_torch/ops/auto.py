@@ -73,3 +73,18 @@ def _auto_layered(q, k_all, v_all, q_pos, layer, *, num_groups,
 
 
 auto_attention.layered = _auto_layered
+
+
+def resolve_attn_impl(name: str):
+    """``--attn_implementation`` -> the attention the forward calls (JAX
+    ``ops/auto.py:78``): 'auto', 'pallas' and 'pallas_flash' dispatch by
+    shape (``auto_attention``); 'xla' is the plain attention (None, the
+    forward's default). The sequence-parallel 'sp_ring' and 'sp_ulysses'
+    come with the parallel slice."""
+    if name in ("auto", "pallas", "pallas_flash"):
+        return auto_attention
+    if name in ("sp_ring", "sp_ulysses"):
+        raise NotImplementedError(
+            f"attn_implementation {name!r}: sequence-parallel attention "
+            f"comes with the parallel slice (ROADMAP Queue 1 item 8)")
+    return None

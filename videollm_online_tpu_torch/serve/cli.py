@@ -17,8 +17,14 @@ The model runs on the card unless ``--device cpu`` asks for the CPU. Without
 a checkpoint the weights are random, drawn from ``--seed`` (smoke and
 performance runs); ``--model_size 8b`` is then built quantized in place
 (int8, or the mixed int4 layout with ``--quantize int4``). ``--checkpoint``
-takes an adapter directory as ``train/checkpoints.save_adapter`` writes it
-(LoRA and connector) over a random base. A video file (``.avi`` read by the
+takes, told apart by what the directory holds, a params tree as
+``train/checkpoints.save_params`` writes it: a whole model ``{llama,
+connector[, lora]}`` served as it is, or a bare decoder (the weight
+converter's output, ``tools/convert_weights.py``) that gets a random
+connector from ``--seed``; or an adapter directory as
+``train/checkpoints.save_adapter`` writes it (LoRA and connector) over a
+random base. A tree is served in ``--dtype`` and quantized under
+``--quantize``. A video file (``.avi`` read by the
 first-party reader, other containers through an ``ffmpeg`` binary when one
 is found) needs the SigLIP tower: ``--with_vision`` builds it at random,
 ``--vision_checkpoint`` loads it (HF safetensors, or a ``.pt`` tree).
@@ -43,6 +49,7 @@ from ..models import live, quant
 from ..models.builder import PROXY_SIZES, build_vision_params
 from ..tokenizer.live_tokenizer import LiveTokenizer
 from ..tokenizer.tiny import ByteTokenizer
+from ..train import checkpoints
 
 _LORA_TARGETS = {"wq": "q_proj", "wk": "k_proj", "wv": "v_proj",
                  "wo": "o_proj", "w_gate": "gate_proj", "w_up": "up_proj",
@@ -80,6 +87,19 @@ def _adapter_lora_config(adapter) -> LoraConfig:
     return LoraConfig(r=r, alpha=2 * r, target_modules=targets)
 
 
+def _serving_dtype(tree, dtype: str):
+    """A restored tree's floating leaves in ``dtype``, but for the
+    quantization scales (``"scale"`` keys), which stay fp32; int8 codes and
+    packed int4 bytes stay as they are."""
+    def walk(node, key=None):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if key == "scale" or not node.is_floating_point():
+            return node
+        return node.to(getattr(torch, dtype))
+    return walk(tree)
+
+
 def build_model(args):
     """(params, tokenizer, cfg, vision_params) for every serving surface,
     without allocating any engine state; ``vision_params`` is None unless
@@ -91,17 +111,31 @@ def build_model(args):
     cfg = live1_plus_config(llama=llama_cfg, lora=None)
     gen = torch.Generator(device=device).manual_seed(args.seed)
 
-    adapter = None
+    adapter = tree = None
     if args.checkpoint:
-        adapter = torch.load(os.path.join(args.checkpoint, "adapter.pt"),
-                             map_location=device, weights_only=True)
-        if "lora" in adapter:
-            cfg = cfg.replace(lora=_adapter_lora_config(adapter))
+        if os.path.exists(os.path.join(args.checkpoint,
+                                       checkpoints.ADAPTER_FILE)):
+            adapter = torch.load(
+                os.path.join(args.checkpoint, checkpoints.ADAPTER_FILE),
+                map_location=device, weights_only=True)
+        else:
+            tree = checkpoints.restore_params(args.checkpoint, device=device)
+        saved = adapter if adapter is not None else tree
+        if "lora" in saved:
+            cfg = cfg.replace(lora=_adapter_lora_config(saved))
     tok = _tokenizer(args.tokenizer, cfg)
     cfg = tok.cfg
 
-    if adapter is not None:
-        from ..train import checkpoints
+    if tree is not None:
+        if "llama" not in tree:
+            # a bare decoder: the connector rides in the adapter checkpoint
+            # (reference modules_to_save=['connector'])
+            tree = {"llama": tree,
+                    "connector": live.init_connector(gen, cfg, device=device)}
+        params = _serving_dtype(tree, args.dtype)
+        if bits:
+            params = quant.quantize_live_params(params, bits=bits)
+    elif adapter is not None:
         params = checkpoints.load_adapter_into(
             live.init_params(gen, cfg, device=device), args.checkpoint)
         if bits:
@@ -156,7 +190,9 @@ def parse_args(argv=None):
                         "(needs ffmpeg) with --with_vision, or .npy / .npz "
                         "/ .pt pre-extracted features")
     p.add_argument("--checkpoint", default="",
-                   help="adapter directory (train/checkpoints.save_adapter)")
+                   help="a params tree (train/checkpoints.save_params: a "
+                        "whole model or a bare decoder) or an adapter "
+                        "directory (train/checkpoints.save_adapter)")
     p.add_argument("--vision_checkpoint", default="",
                    help="SigLIP weights: HF safetensors (a file or a "
                         "directory) or a .pt tree")

@@ -1,14 +1,16 @@
-"""Adapter and training-state checkpoints with ``torch.save``.
+"""Parameter, adapter and training-state checkpoints with ``torch.save``.
 
 Counterpart of ``videollm_online_tpu/train/checkpoints.py``. The formats
 differ: the JAX package writes Orbax directories, the port one
-``torch.save`` file per checkpoint (``<path>/adapter.pt`` or
-``<path>/train_state.pt``), and neither reads the other's. What is saved is
-the same: the adapter is the trainable subtree (``lora`` + ``connector``,
-the PEFT-checkpoint equivalent); the train state is the step, the
-trainable tree and the Adam moments and count, so a run resumes at the same
-step with the same moments. Loading maps tensors onto the device of the
-tree they are loaded into.
+``torch.save`` file per checkpoint (``<path>/params.pt``,
+``<path>/adapter.pt`` or ``<path>/train_state.pt``), and neither reads the
+other's. What is saved is the same: a params tree is any tree of tensors (a
+whole ``{llama, connector[, lora]}`` model, or a bare decoder or tower as
+the weight converter writes it); the adapter is the trainable subtree
+(``lora`` + ``connector``, the PEFT-checkpoint equivalent); the train state
+is the step, the trainable tree and the Adam moments and count, so a run
+resumes at the same step with the same moments. Loading maps tensors onto
+the device of the tree they are loaded into, or the one asked for.
 """
 
 from __future__ import annotations
@@ -18,9 +20,12 @@ from typing import Any, Dict
 
 import torch
 
+from ..core.device import resolve_device
 from . import optim
 
 ADAPTER_KEYS = ("lora", "connector")
+PARAMS_FILE = "params.pt"
+ADAPTER_FILE = "adapter.pt"
 
 
 def _load(path: str, like_leaf: torch.Tensor):
@@ -39,19 +44,33 @@ def _check_like(tree, like, where="") -> None:
                          f"{like.dtype}")
 
 
+def save_params(path: str, params: Dict[str, Any]) -> None:
+    """Write a tree of tensors to ``<path>/params.pt``."""
+    os.makedirs(path, exist_ok=True)
+    torch.save(optim.tree_map(lambda x: x.detach(), params),
+               os.path.join(path, PARAMS_FILE))
+
+
+def restore_params(path: str, device=None) -> Dict[str, Any]:
+    """The tree saved at ``path`` on ``device`` (the card unless the caller
+    asks for the CPU)."""
+    return torch.load(os.path.join(path, PARAMS_FILE),
+                      map_location=resolve_device(device), weights_only=True)
+
+
 def save_adapter(path: str, params: Dict[str, Any]) -> None:
     """Write the trainable subtree of ``params`` to ``<path>/adapter.pt``."""
     os.makedirs(path, exist_ok=True)
     adapter = {k: optim.tree_map(lambda x: x.detach(), params[k])
                for k in ADAPTER_KEYS if k in params}
-    torch.save(adapter, os.path.join(path, "adapter.pt"))
+    torch.save(adapter, os.path.join(path, ADAPTER_FILE))
 
 
 def load_adapter_into(params: Dict[str, Any], path: str) -> Dict[str, Any]:
     """``params`` with its adapter subtree replaced by the one at
     ``path`` (which must have the same tree, shapes and dtypes)."""
     like = {k: params[k] for k in ADAPTER_KEYS if k in params}
-    adapter = _load(os.path.join(path, "adapter.pt"),
+    adapter = _load(os.path.join(path, ADAPTER_FILE),
                     optim.tree_leaves(like)[0])
     _check_like(adapter, like)
     out = dict(params)

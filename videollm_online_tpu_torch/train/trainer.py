@@ -1,14 +1,18 @@
-"""LiveTrainer: the training driver.
+"""LiveTrainer: the training and evaluation driver.
 
 Counterpart of ``videollm_online_tpu/train/trainer.py`` (which replaces HF
-Trainer + DeepSpeed, reference train.py): host-side microbatch stacking for
+Trainer + TrainerWithGenToEval + DeepSpeed, reference train.py,
+engine/trainer_with_gen2eval.py): host-side microbatch stacking for
 gradient accumulation, the cosine LR, adapter checkpoints and metric
-logging over the port's train step. The caller gives the dataset and the
-collate function. Refused, with the ROADMAP item that brings each:
-``evaluate`` (Queue 1 item 10, eval), a mesh or ``mesh_model_axis > 1`` and
-the ``sp_ring``/``sp_ulysses`` attentions (item 13, parallel), and
-``offload_optimizer`` and ``remat_group`` other than 1 (16 GiB-fit
-mechanisms the port drops: it remats every layer on its own).
+logging over the port's train step, and an eval loop that runs each
+dataset's evaluator (stream_evaluate / generate / generate_after_embed) and
+feeds the predictions to the dataset's ``compute_metrics``. The caller
+gives the datasets and the collate function. Refused, with the ROADMAP
+item that brings each: a mesh or ``mesh_model_axis > 1``, the
+``sp_ring``/``sp_ulysses`` attentions and evaluation across more than one
+process (Queue 1 item 8, parallel), and ``offload_optimizer`` and
+``remat_group`` other than 1 (16 GiB-fit mechanisms the port drops: it
+remats every layer on its own).
 """
 
 from __future__ import annotations
@@ -22,7 +26,10 @@ import torch
 
 from ..core.arguments import LiveTrainingArguments
 from ..core.config import LiveConfig
+from ..data.collator import collate
 from ..data.loader import DataLoader
+from ..eval.generation import beam_generate, greedy_from_embeds
+from ..eval.stream_evaluate import StreamEvaluator
 from ..utils.logging import MetricLogger
 from . import checkpoints, optim
 from . import step as step_mod
@@ -31,16 +38,17 @@ from . import step as step_mod
 class LiveTrainer:
     def __init__(self, *, params: Dict[str, Any], cfg: LiveConfig,
                  tokenizer, args: LiveTrainingArguments,
-                 train_dataset=None, collate_fn=None, mesh=None,
+                 train_dataset=None, eval_dataset_dict=None,
+                 compute_metrics_dict=None, collate_fn=None, mesh=None,
                  attn_impl=None):
         if mesh is not None or args.mesh_model_axis > 1:
             raise NotImplementedError(
                 "meshes and mesh_model_axis > 1 come with the parallel slice "
-                "(ROADMAP Queue 1 item 13)")
+                "(ROADMAP Queue 1 item 8)")
         if isinstance(attn_impl, str):
             raise NotImplementedError(
                 f"attn_impl {attn_impl!r}: sequence-parallel attention comes "
-                f"with the parallel slice (ROADMAP Queue 1 item 13)")
+                f"with the parallel slice (ROADMAP Queue 1 item 8)")
         for name, value in (("offload_optimizer", args.offload_optimizer),
                             ("remat_group", args.remat_group != 1)):
             if value:
@@ -51,6 +59,8 @@ class LiveTrainer:
         self.tokenizer = tokenizer
         self.args = args
         self.train_dataset = train_dataset
+        self.eval_dataset_dict = eval_dataset_dict or {}
+        self.compute_metrics_dict = compute_metrics_dict or {}
         self.collate_fn = collate_fn
         self.attn_impl = attn_impl
         self.logger = MetricLogger(args.output_dir)
@@ -159,7 +169,78 @@ class LiveTrainer:
     def params(self) -> Dict[str, Any]:
         return optim.merge_params(self.state.trainable, self.frozen)
 
-    def evaluate(self, *a, **kw):
-        raise NotImplementedError(
-            "evaluation needs eval/stream_evaluate.py and eval/generation.py, "
-            "which come with the eval slice (ROADMAP Queue 1 item 10)")
+    # ------------------------------------------------------------ evaluation
+    def evaluate(self, dataset_name: Optional[str] = None, *,
+                 process_index: int = 0,
+                 process_count: int = 1) -> Dict[str, dict]:
+        """Run each eval dataset through its evaluator and compute metrics
+        (reference trainer_with_gen2eval.py + train.py:27-36).
+
+        Samples ``process_index::process_count`` are evaluated (the JAX
+        package's striding, kept so a caller can split the samples); the
+        gather of predictions across processes comes with the parallel
+        slice, so an initialised process group of more than one rank is
+        refused."""
+        import torch.distributed as dist
+        if dist.is_available() and dist.is_initialized() \
+                and dist.get_world_size() > 1:
+            raise NotImplementedError(
+                "evaluation across processes gathers the predictions; that "
+                "comes with the parallel slice (ROADMAP Queue 1 item 8)")
+        results = {}
+        names = ([dataset_name] if dataset_name
+                 else list(self.eval_dataset_dict))
+        params = self.params
+        for name in names:
+            ds = self.eval_dataset_dict[name]
+            predictions, sample_idxs = [], []
+            stream_eval = None
+            for i in range(process_index, len(ds), process_count):
+                text, frames, learn_ranges, idx, ekw = ds[i]
+                # right padding to a bucket never enters attention
+                batch = collate([(text, frames, learn_ranges, idx, ekw)],
+                                tokenizer=self.tokenizer,
+                                pad_to_multiple=max(self.args.pad_to_multiple,
+                                                    1))
+                num_valid = int(batch["attention_mask"][0].sum())
+                ekw = ekw or {}
+                evaluator = ekw.get("evaluator", "stream_evaluate")
+                if evaluator == "stream_evaluate":
+                    if stream_eval is None:
+                        stream_eval = StreamEvaluator(params, self.cfg)
+                    pred = stream_eval(
+                        batch["input_ids"], batch["labels"], batch["frames"],
+                        self.args.frame_token_interval_threshold)
+                elif evaluator == "generate":
+                    pred = beam_generate(
+                        params, self.cfg, batch["input_ids"], batch["frames"],
+                        num_beams=ekw.get("num_beams", 1),
+                        max_new_tokens=ekw.get("max_new_tokens", 512),
+                        num_return_sequences=ekw.get("num_return_sequences"),
+                        num_valid=num_valid,
+                    ).reshape(-1)
+                elif evaluator == "generate_after_embed":
+                    pred = greedy_from_embeds(
+                        params, self.cfg, batch["input_ids"], batch["frames"],
+                        max_new_tokens=ekw.get("max_new_tokens", 512),
+                        num_valid=num_valid,
+                    ).reshape(-1)
+                else:
+                    raise ValueError(f"unknown evaluator {evaluator}")
+                predictions.append(np.asarray(pred))
+                sample_idxs.append(idx)
+            # pad rows to a rectangle as the HF gather does
+            L = max((len(p) for p in predictions), default=1)
+            rect = np.full((len(predictions), L), -100.0
+                           if predictions and predictions[0].dtype.kind == "f"
+                           else -100)
+            for i, p in enumerate(predictions):
+                rect[i, :len(p)] = p
+            fn = self.compute_metrics_dict.get(name)
+            if fn is None and hasattr(ds, "compute_metrics"):
+                fn = lambda preds, idxs: ds.compute_metrics(  # noqa: E731
+                    preds, idxs, tokenizer=self.tokenizer,
+                    output_dir=self.args.output_dir)
+            results[name] = fn(rect, np.asarray(sample_idxs)) if fn else {}
+            self.logger.log_dict(f"eval/{name}", results[name])
+        return results
