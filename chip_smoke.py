@@ -125,7 +125,29 @@ any failure raises and exits non-zero:
      the chunked int8 lm_head timed on their own; K2f at the eval T held
      against its plain version query chunk by query chunk and timed beside
      it, SDPA and the bound; one LTA beam search (5 beams at B 5, 64 new
-     tokens, cut from 512) through K1.
+     tokens, cut from 512) through K1;
+ 20. narration refinement on a small fp32 model (d 128):
+     make_llama_generate_fn's texts are its greedy ids through K1, equal to
+     the same prompts' ids through the plain attention;
+ 21. the dataset-preparation main path at full width: encode_job over two
+     synthetic 384 px .avi videos of 300 frames (a full batch of 256 and a
+     padded one each) with random SigLIP-large in bf16: the job's frames/s,
+     the device's ms a batch (CUDA events) beside its FLOP bound, the busy
+     share, peak memory, the .npy files read back through the feature
+     store and the padded batch's rows against the same frames alone; then
+     narration refinement (64 new tokens) and LiveChat synthesis (96 new
+     tokens, cut from 512) on the 8B int8 decoder (random, built on the
+     card) through make_llama_generate_fn: s a narration, ms/token, K1
+     launches;
+ 22. the serving apps at full width: serve/web.py's demo over the 8B int8
+     LiveInferEngine as serve/cli.py builds it, driven over HTTP on
+     127.0.0.1 (/load, /query, /step; 24 frames, a query every 8): the
+     transcript byte-equal to the engine driven directly, /step latency
+     p50 / p99; serve_multi over an 8-stream MultiStreamEngine (K3) with
+     two sessions, each transcript byte-equal to a fresh engine driven
+     through the same polls; StreamingPipeline over the single engine with
+     the caller on a non-default CUDA stream, its events equal to a
+     sequential drive of the same interleaving.
 
 ``--phases a,b`` runs the named phases alone and prints no summary;
 ``--phases train_seeds`` (in no default run) prints the 2-layer step's loss
@@ -3875,6 +3897,563 @@ def phase_main_path_eval(minutes: float = 10.0, turn_every: int = 10,
             "s_per_video": dt}
 
 
+# --------------------------------------------------------------- phase 20
+# New tokens of the dataset-preparation decodes: the refinement's own 64
+# (narration_refinement_job.make_llama_generate_fn's default), LiveChat
+# synthesis cut from the job's 512 to keep the run short (random weights
+# never end a response early)
+PREP_REFINE_NEW, PREP_CHAT_NEW = 64, 96
+# SigLIP-large features of the padded last batch against the same frames
+# encoded in a batch of their own (bf16: another batch size may take other
+# GEMM kernels; the bound is phase 17's DEMO_ENC_REL)
+PREP_PAD_REL = DEMO_ENC_REL
+PREP_ROWS = ["C picks up the knife from the table.", "C cuts the onion.",
+             "C picks up the knife from the table."]
+
+
+@contextlib.contextmanager
+def _builder_returns(params, tok):
+    """models.builder.build_model_and_tokenizer returns (params, tok,
+    tok.cfg) while entered: the refinement decoder then runs on weights
+    built here (random, from a seed; nothing is downloaded). Yields the
+    list of each call's (args, is_training, keywords)."""
+    from videollm_online_tpu_torch.models import builder
+    make, calls = builder.build_model_and_tokenizer, []
+
+    def build(args, is_training=True, **kw):
+        calls.append((args, is_training, kw))
+        return params, tok, tok.cfg
+    builder.build_model_and_tokenizer = build
+    try:
+        yield calls
+    finally:
+        builder.build_model_and_tokenizer = make
+
+
+def _narration_root(root, rows):
+    """An Ego4D narration root (narration_stream_train.json) with a video
+    for each pair of rows."""
+    import os
+    os.makedirs(root, exist_ok=True)
+    anno = {f"vid{i // 2}": {"au1": [
+        {"time": 2.0 * j + 1.0, "text": text}
+        for j, text in enumerate(rows[i:i + 2])]}
+        for i in range(0, len(rows), 2)}
+    with open(os.path.join(root, "narration_stream_train.json"), "w") as f:
+        json.dump(anno, f)
+    return root
+
+
+def _goalstep_root(root):
+    """A GoalStep root of one video (goalstep_train.json: a goal and four
+    steps) and its metadata (video_uid -> duration)."""
+    import os
+    os.makedirs(root, exist_ok=True)
+    steps = ["take out the pan", "crack two eggs into a bowl",
+             "whisk the eggs", "pour the eggs into the pan"]
+    video = {"video_uid": "gs0", "start_time": 0.0, "end_time": 240.0,
+             "goal_description": "make an omelette",
+             "segments": [{"start_time": 60.0 * i + 2.0,
+                           "end_time": 60.0 * i + 50.0,
+                           "step_description": s, "segments": []}
+                          for i, s in enumerate(steps)]}
+    with open(os.path.join(root, "goalstep_train.json"), "w") as f:
+        json.dump({"videos": [video]}, f)
+    return {"gs0": {"duration": 240.0}}
+
+
+def phase_small_prep():
+    """Narration refinement on a small fp32 model (2 layers, d 128, so
+    decode takes K1): make_llama_generate_fn's texts are the greedy ids of
+    the refinement prompts through K1, decoded, and those ids equal the
+    same prompts' ids through the plain attention."""
+    from videollm_online_tpu_torch.core.config import (LlamaConfig,
+                                                       tiny_live_config)
+    from videollm_online_tpu_torch.data.preprocess import (
+        narration_refinement_job as refine)
+    from videollm_online_tpu_torch.eval import generation
+    from videollm_online_tpu_torch.models import live, llama
+    from videollm_online_tpu_torch.tokenizer.live_tokenizer import (
+        LiveTokenizer)
+    from videollm_online_tpu_torch.tokenizer.tiny import ByteTokenizer
+    cfg = tiny_live_config(lora=None, llama=LlamaConfig(
+        vocab_size=512, hidden_size=256, intermediate_size=512,
+        num_layers=2, num_heads=2, num_kv_heads=1, head_dim=128,
+        dtype="float32"))
+    tok = LiveTokenizer(ByteTokenizer(), cfg)
+    cfg = tok.cfg
+    params = live.init_params(torch.Generator(device="cuda").manual_seed(0),
+                              cfg, device="cuda")
+    with _builder_returns(params, tok) as calls:
+        fn = refine.make_llama_generate_fn("", "", device="cuda")
+    if len(calls) != 1 or calls[0][0].lora_r != 0 or calls[0][2] != {
+            "device": "cuda"}:
+        raise AssertionError(f"builder calls {calls}")
+    counts = _all_launch_counters()
+    rows = PREP_ROWS[:2]
+    n0 = counts["K1"].launches
+    texts = [fn(refine.REFINE_PROMPT.format(text=r)) for r in rows]
+    n_k1 = counts["K1"].launches - n0
+    lengths = []
+    for row, text in zip(rows, texts):
+        prompt = tok.apply_chat_template(
+            [{"role": "user",
+              "content": refine.REFINE_PROMPT.format(text=row)}],
+            add_generation_prompt=True) + " ["
+        ids = np.asarray([tok.encode(prompt)])
+        k1, plain = (generation.greedy_from_embeds(
+            params, cfg, ids, None, max_new_tokens=PREP_REFINE_NEW,
+            attn_impl=attn) for attn in (None, llama._attention))
+        if not np.array_equal(k1, plain) or tok.decode(
+                k1[0], skip_special_tokens=True) != text:
+            raise AssertionError(f"refinement of {row!r}: K1 ids "
+                                 f"{k1.tolist()}, plain {plain.tolist()}, "
+                                 f"text {text!r}")
+        lengths.append((ids.shape[1], k1.shape[1]))
+    if n_k1 < cfg.llama.num_layers * sum(n - 1 for _, n in lengths):
+        raise AssertionError(f"K1 launches {n_k1} for {lengths}")
+    log(f"small refinement (fp32, 2 layers, d 128; prompt, new tokens "
+        f"{lengths}): make_llama_generate_fn's texts are its greedy ids "
+        f"through K1 ({n_k1} launches), equal to the plain attention's; "
+        f"first {texts[0][:40]!r}")
+
+
+def _siglip_batch_flop(vcfg, frames):
+    """Operations of frame_features on ``frames`` frames: the encoder's
+    projections, MLPs and attention products, the patch embedding and the
+    pooling head (2 per multiply-add)."""
+    P = vcfg.grid_size ** 2
+    D, F, L = vcfg.hidden_size, vcfg.intermediate_size, vcfg.num_layers
+    layer = 2 * P * D * (4 * D + 2 * F) + 4 * P * P * D
+    head = 4 * P * D * D + 4 * D * D + 4 * P * D + 4 * D * F
+    return frames * (L * layer + 2 * P * 3 * vcfg.patch_size ** 2 * D
+                     + head)
+
+
+def phase_main_path_prep(n_videos: int = 2, n_frames: int = 300,
+                         seed: int = 0):
+    """The dataset-preparation jobs at full width: encode_job over
+    ``n_videos`` synthetic 384 px .avi videos of ``n_frames`` frames
+    (written by the port's write_avi; 300 frames make a full batch of 256
+    and a padded one) with random SigLIP-large, bf16, at its batch of 256:
+    the job's frames/s, the device's s a batch by CUDA events, its busy
+    share and peak memory, the .npy files read back through the feature
+    store, the padded batch's rows against the same frames encoded in a
+    batch of their own, one batch profiled by kernel class; then narration
+    refinement of PREP_ROWS (make_llama_generate_fn, 64 new tokens) and
+    LiveChat synthesis of one conversation (PREP_CHAT_NEW new tokens, cut
+    from 512) on the 8B int8 decoder (random, built on the card), every
+    decode step through K1."""
+    import os
+    import shutil
+
+    from videollm_online_tpu_torch.core.config import (LiveConfig,
+                                                       LlamaConfig,
+                                                       live1_plus_config)
+    from videollm_online_tpu_torch.data import avi, feature_store
+    from videollm_online_tpu_torch.data.livechat import generation as chat
+    from videollm_online_tpu_torch.data.preprocess import encode_job
+    from videollm_online_tpu_torch.data.preprocess import (
+        narration_refinement_job as refine)
+    from videollm_online_tpu_torch.models import live, quant, siglip
+    from videollm_online_tpu_torch.tokenizer.live_tokenizer import (
+        LiveTokenizer)
+    from videollm_online_tpu_torch.tokenizer.tiny import ByteTokenizer
+    card = _card()
+    out_dir = _out_dir("prep")
+    videos = os.path.join(out_dir, "videos")
+    os.makedirs(videos)
+    for v in range(n_videos):
+        avi.write_avi(os.path.join(videos, f"clip{v}.avi"),
+                      _demo_frames(n_frames, 384, seed + v), fps=2.0)
+    batches = n_videos * -(-n_frames // encode_job.ENCODE_BATCH)
+    log(f"prep videos: {n_videos} x {n_frames} frames of 384 px, "
+        f"{sum(os.path.getsize(os.path.join(videos, f)) for f in os.listdir(videos)) / 2**20:.0f} "
+        f"MiB rawvideo .avi; {batches} batches of "
+        f"{encode_job.ENCODE_BATCH}")
+
+    def job():
+        return encode_job.run(videos, device="cuda", overwrite=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dst = job()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    busy_us, prof_wall_us, _ = _device_us(job)
+    files = sorted(os.listdir(dst))
+    cfg = live1_plus_config()
+    vcfg = cfg.vision
+    want = (n_frames, cfg.frame_num_tokens, vcfg.hidden_size)
+    feats = [np.load(os.path.join(dst, f)) for f in files]
+    if len(files) != n_videos or any(
+            f.shape != want or f.dtype != np.float16
+            or not np.isfinite(f).all() for f in feats):
+        raise AssertionError(f"encode_job wrote {files}: "
+                             f"{[(f.shape, f.dtype) for f in feats]}")
+    path = os.path.join(dst, files[0])
+    back = feature_store.load_feature_range(path, range(250, 260))
+    if feature_store.feature_len(path) != n_frames or not np.array_equal(
+            back, feats[0][250:260]):
+        raise AssertionError("the feature store reads other features")
+
+    # the device's time a batch (CUDA events) and the padded batch's rows
+    params = siglip.init_params(torch.Generator(device="cuda").manual_seed(0),
+                                vcfg, device="cuda")
+    frames = torch.from_numpy(np.ascontiguousarray(
+        avi.read_avi(os.path.join(videos, "clip0.avi")).frames.transpose(
+            0, 3, 1, 2))).cuda()
+    full = frames[:encode_job.ENCODE_BATCH]
+    batch_ms = cuda_ms(lambda i: encode_job.encode(params, full, cfg), 2, 1)
+    tail = encode_job.encode(params, frames[encode_job.ENCODE_BATCH:],
+                             cfg).float()
+    job_tail = torch.from_numpy(
+        feats[0][encode_job.ENCODE_BATCH:].astype(np.float32)).cuda()
+    pad_rel = float((job_tail - tail).norm() / tail.norm())
+    if not pad_rel <= PREP_PAD_REL:
+        raise AssertionError(f"padded batch rows {pad_rel:.3e} from the "
+                             f"same frames alone")
+    flop = _siglip_batch_flop(vcfg, encode_job.ENCODE_BATCH)
+    log(f"encode_job (SigLIP-large bf16, batch {encode_job.ENCODE_BATCH}, "
+        f"{n_videos * n_frames} frames in {batches} batches, the last of "
+        f"each video padded; the job's first run): {wall:.2f} s = "
+        f"{n_videos * n_frames / wall:.1f} frames/s end to end (.avi decode "
+        f"and resize on the host included), device busy "
+        f"{busy_us / 1e6:.2f} s of a profiled run's {prof_wall_us / 1e6:.2f} "
+        f"s ({100 * busy_us / prof_wall_us:.1f} %); peak memory "
+        f"{peak / 2**30:.2f} GiB [{card}]")
+    log(f"encode batch on the device (CUDA events): {batch_ms:.1f} ms a "
+        f"batch of {encode_job.ENCODE_BATCH} = "
+        f"{1e3 * encode_job.ENCODE_BATCH / batch_ms:.0f} frames/s; "
+        f"{flop / 1e12:.1f} TFLOP a batch = "
+        f"{flop / batch_ms / 1e9:.0f} TFLOP/s, bound "
+        f"{1e3 * flop / BF16_FLOPS_PER_S:.1f} ms (operations at "
+        f"{BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s bf16); padded batch's rows "
+        f"vs the same {n_frames - encode_job.ENCODE_BATCH} frames alone: "
+        f"relative norm {pad_rel:.3e} (bound {PREP_PAD_REL:.0e}) [{card}]")
+    _profile_eval(lambda: encode_job.encode(params, full, cfg),
+                  "one SigLIP-large batch of 256 (encode_job)", card)
+    del params, frames, full, tail, job_tail
+    shutil.rmtree(videos)
+    torch.cuda.empty_cache()
+
+    # refinement and LiveChat synthesis on the 8B int8 decoder
+    lcfg = LlamaConfig(vocab_size=128256, hidden_size=4096,
+                       intermediate_size=14336, num_layers=32, num_heads=32,
+                       num_kv_heads=8, head_dim=128, dtype="bfloat16")
+    tok = LiveTokenizer(ByteTokenizer(), LiveConfig(llama=lcfg, lora=None))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = {"llama": quant.random_quantized_llama_params(
+                  gen, tok.cfg.llama, bits=8, device="cuda"),
+              "connector": live.init_connector(gen, tok.cfg, device="cuda")}
+    root = _narration_root(os.path.join(out_dir, "ego4d"), PREP_ROWS)
+    with _builder_returns(params, tok):
+        refine_fn = refine.make_llama_generate_fn("", "", device="cuda")
+        chat_fn = refine.make_llama_generate_fn(
+            "", "", max_new_tokens=PREP_CHAT_NEW, device="cuda")
+    distinct = len(set(PREP_ROWS))
+    _zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    refine.run(root, "train", refine_fn)
+    torch.cuda.synchronize()
+    dt_refine = time.perf_counter() - t0
+    refine_counts = _read_launches()
+    out = os.path.join(root, "refined_narration_stream_train")
+    refined = {f: json.load(open(os.path.join(out, f)))
+               for f in sorted(os.listdir(out))}
+    texts = [n["text"] for v in refined.values() for s in v.values()
+             for n in s]
+    if len(texts) != len(PREP_ROWS) or refine_counts["K1"] < (
+            lcfg.num_layers * distinct * (PREP_REFINE_NEW - 1)):
+        raise AssertionError(f"refined {refined}, launches {refine_counts}")
+    log(f"8B int8 narration refinement ({len(PREP_ROWS)} narrations, "
+        f"{distinct} "
+        f"distinct, greedy {PREP_REFINE_NEW} new tokens each): "
+        f"{dt_refine:.2f} s = {dt_refine / distinct:.2f} s a narration, "
+        f"{1e3 * dt_refine / (distinct * PREP_REFINE_NEW):.1f} ms/token, "
+        f"K1 launches {refine_counts['K1']}; first {texts[0][:40]!r} "
+        f"[{card}]")
+
+    metadata = _goalstep_root(os.path.join(out_dir, "goalstep"))
+    chat_out = os.path.join(out_dir, "goalstep_livechat.json")
+    _zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    annos = chat.synthesize(os.path.join(out_dir, "goalstep"), metadata,
+                            chat_fn, num_conversations=1, out_path=chat_out)
+    torch.cuda.synchronize()
+    dt_chat = time.perf_counter() - t0
+    chat_counts = _read_launches()
+    with open(chat_out) as f:
+        written = json.load(f)
+    if written != annos or chat_counts["K1"] < (
+            lcfg.num_layers * (PREP_CHAT_NEW - 1)):
+        raise AssertionError(f"synthesize wrote {written}, launches "
+                             f"{chat_counts}")
+    log(f"8B int8 LiveChat synthesis (one GoalStep video, one conversation, "
+        f"greedy {PREP_CHAT_NEW} new tokens, cut from the job's 512): "
+        f"{dt_chat:.2f} s, {1e3 * dt_chat / PREP_CHAT_NEW:.1f} "
+        f"ms/token, {len(annos)} dialogues parsed from random weights' "
+        f"text, K1 launches {chat_counts['K1']} [{card}]")
+    del params
+    torch.cuda.empty_cache()
+    return {"launches": {k: refine_counts[k] + chat_counts[k]
+                         for k in refine_counts},
+            "frames_per_s": n_videos * n_frames / wall,
+            "batch_ms": batch_ms}
+
+
+# --------------------------------------------------------------- phase 22
+WEB_FRAMES, WEB_QUERY_EVERY, WEB_STREAMS = 24, 8, 8
+WEB_QUERY = "What am I doing now?"
+
+
+class _Recorded:
+    """An engine seen through a StreamingPipeline: forwards every attribute
+    and records, at each call, the last frame fed (under the pipeline's
+    lock), so a sequential drive can replay the same interleaving."""
+
+    def __init__(self, engine):
+        self.__dict__["_engine"] = engine
+        self.__dict__["fed"] = []
+
+    def __getattr__(self, name):
+        return getattr(self._engine, name)
+
+    def __call__(self):
+        self.fed.append(self._engine.last_frame_idx)
+        return self._engine()
+
+
+def _web_args(**kw):
+    """serve/web.py main's argument surface for serve/cli.py's builders."""
+    import types
+    return types.SimpleNamespace(**{
+        "checkpoint": "", "vision_checkpoint": "", "tokenizer": "",
+        "model_size": "8b", "dtype": "bfloat16", "with_vision": False,
+        "kv_capacity": 8192, "kv_quant": "", "seed": 0, "stream_tokens": 0,
+        "device": "", **kw})
+
+
+def _http(base, path, payload=None):
+    import urllib.request
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(base + path, data=data,
+                                 method="GET" if data is None else "POST")
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return json.loads(r.read())
+
+
+@contextlib.contextmanager
+def _serving(httpd):
+    import threading
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    try:
+        yield f"http://127.0.0.1:{httpd.server_address[1]}"
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        t.join(timeout=30)
+
+
+def _web_feats(cfg, n, seed):
+    """The features WebDemo.load draws for {"frames": n, "seed": seed}."""
+    return np.random.RandomState(seed).randn(
+        n, cfg.frame_num_tokens, cfg.vision_hidden_size).astype(np.float32)
+
+
+def _percentiles(ms):
+    return (f"p50 {np.percentile(ms, 50):.1f} ms, p99 "
+            f"{np.percentile(ms, 99):.1f} ms over {len(ms)}")
+
+
+def phase_main_path_web():
+    """The serving apps at full width: serve/web.py's demo over the 8B int8
+    LiveInferEngine built as its main builds it (serve/cli.py's
+    build_engine; the main paths' 20-token responses and gate bias), on
+    127.0.0.1, driven by an HTTP client through /load, /query and /step
+    for WEB_FRAMES frames with a query every WEB_QUERY_EVERY: the
+    transcript equal, byte for byte, to the same schedule on the same
+    engine driven directly, /step latency percentiles, K1 launches; then
+    serve_multi over a WEB_STREAMS-stream MultiStreamEngine (K3) with two
+    sessions, each transcript equal to a fresh engine driven directly
+    through the same polls; then
+    StreamingPipeline over the single engine under a non-default CUDA
+    stream, its events equal to a sequential drive of the same
+    interleaving."""
+    from videollm_online_tpu_torch.ops import decode_attention as da
+    from videollm_online_tpu_torch.ops import paged_attention as pa
+    from videollm_online_tpu_torch.serve import cli, web
+    from videollm_online_tpu_torch.serve.multistream import (
+        MultiStreamEngine)
+    from videollm_online_tpu_torch.serve.pipeline import StreamingPipeline
+    card = _card()
+    da._kernel(), pa._kernel()   # built before any request is timed
+    args = _web_args()
+    with _cli_config(max_response_tokens=DEMO_RESPONSE_TOKENS,
+                     gate_logit_bias=DEMO_GATE_BIAS):
+        engine, cfg = cli.build_engine(args)
+    params, tok = engine.params, engine.tokenizer
+    fps = cfg.frame_fps
+    times = [i / fps for i in range(WEB_FRAMES)]
+
+    # one session over HTTP, then the same schedule on the engine itself
+    httpd, demo = web.serve(engine, fps, port=0)
+    steps_ms = []
+    _zero_launches()
+    with _serving(httpd) as base:
+        _http(base, "/load", {"frames": WEB_FRAMES, "seed": 7})
+        for i, t in enumerate(times):
+            if i % WEB_QUERY_EVERY == 0:
+                _http(base, "/query", {"text": WEB_QUERY, "time": t})
+            t0 = time.perf_counter()
+            _http(base, f"/step?time={t}")
+            steps_ms.append(1e3 * (time.perf_counter() - t0))
+        got = [(m["role"], m["text"]) for m in
+               _http(base, "/history")["messages"]]
+    single_counts = _read_launches()
+    engine.reset()
+    engine.load_video(_web_feats(cfg, WEB_FRAMES, 7))
+    want = []
+    for i, t in enumerate(times):
+        if i % WEB_QUERY_EVERY == 0:
+            engine.input_query_stream(WEB_QUERY, video_time=t)
+        engine.input_video_stream(t)
+        while True:
+            q, r = engine()
+            if r is None:
+                break
+            want += ([("user", q)] if q else []) + [("assistant", r)]
+    n_resp = sum(r == "assistant" for r, _ in got)
+    if got != want or n_resp < WEB_FRAMES // WEB_QUERY_EVERY or \
+            single_counts["K1"] == 0:
+        raise AssertionError(f"web transcript {got[:4]} ... vs direct "
+                             f"{want[:4]} ...; launches {single_counts}")
+    log(f"web demo (8B int8, serve(engine, fps, port=0) on 127.0.0.1): "
+        f"{WEB_FRAMES} frames over HTTP, a query every {WEB_QUERY_EVERY}: "
+        f"{n_resp} responses, transcript byte-equal to the engine driven "
+        f"directly; /step {_percentiles(steps_ms)}; launches "
+        f"{single_counts} [{card}]")
+    log(f"web demo first response: {got[1][1]!r}")
+
+    # two sessions over a WEB_STREAMS-stream engine, then the same polls
+    def multi():
+        return MultiStreamEngine(params, tok, cfg, num_streams=WEB_STREAMS,
+                                 kv_capacity=2560, device="cuda")
+    seeds = {"a": 7, "b": 9}
+    ms = multi()
+    httpd, mdemo = web.serve_multi(ms, fps, port=0)
+    poll_ms = []
+    _zero_launches()
+    with _serving(httpd) as base:
+        for sid, s in seeds.items():
+            _http(base, "/load", {"sid": sid, "frames": WEB_FRAMES,
+                                  "seed": s})
+        for i, t in enumerate(times):
+            for sid in seeds:
+                if i % WEB_QUERY_EVERY == (sid == "b") * 4:
+                    _http(base, "/query", {"sid": sid, "text": WEB_QUERY,
+                                           "time": t})
+                t0 = time.perf_counter()
+                _http(base, f"/step?sid={sid}&time={t}")
+                poll_ms.append(1e3 * (time.perf_counter() - t0))
+        rounds = 0
+        while ms.pending() and rounds < 256:
+            for sid in seeds:
+                _http(base, f"/step?sid={sid}&time={times[-1]}")
+            rounds += 1
+        got = {sid: [(m["role"], m["text"]) for m in
+                     _http(base, "/close", {"sid": sid})["messages"]]
+               for sid in seeds}
+    multi_counts = _read_launches()
+    ms = multi()
+    slots = {"a": 0, "b": 1}
+    feats = {sid: _web_feats(cfg, WEB_FRAMES, s) for sid, s in seeds.items()}
+    fed = {sid: 0 for sid in seeds}
+    want = {sid: [] for sid in seeds}
+
+    def poll(sid, t):
+        fidx = min(int(t * fps), WEB_FRAMES - 1)
+        if fidx >= fed[sid]:
+            ms.input_frames(slots[sid], fed[sid] / fps,
+                            feats[sid][fed[sid]:fidx + 1])
+            fed[sid] = fidx + 1
+        for j, r in enumerate(ms.step()):
+            if r is not None:
+                sid_j = "a" if j == 0 else "b"
+                want[sid_j] += ([("user", r[0])] if r[0] else []) + [
+                    ("assistant", r[1])]
+    for i, t in enumerate(times):
+        for sid in seeds:
+            if i % WEB_QUERY_EVERY == (sid == "b") * 4:
+                ms.input_query(slots[sid], WEB_QUERY, video_time=t)
+            poll(sid, t)
+    for _ in range(rounds):
+        for sid in seeds:
+            poll(sid, times[-1])
+    if got != want or multi_counts["K3"] == 0 or not all(
+            any(r == "assistant" for r, _ in v) for v in got.values()):
+        raise AssertionError(f"multi-session transcripts {got} vs direct "
+                             f"{want}; launches {multi_counts}")
+    log(f"multi-session web demo (serve_multi, 8B int8 MultiStreamEngine "
+        f"of {WEB_STREAMS} streams, 2 sessions x {WEB_FRAMES} frames, a "
+        f"query every {WEB_QUERY_EVERY}): "
+        f"{ {k: sum(r == 'assistant' for r, _ in v) for k, v in got.items()} } "
+        f"responses, transcripts byte-equal to the engine driven directly; "
+        f"/step {_percentiles(poll_ms)}, {rounds} drain rounds; launches "
+        f"{multi_counts} [{card}]")
+    del ms
+    torch.cuda.empty_cache()
+
+    # the pipeline's producer thread under the caller's non-default stream
+    n = WEB_FRAMES // 2
+    queries = [(t, WEB_QUERY) for t in times[:n:WEB_QUERY_EVERY]]
+    engine.reset()
+    engine.load_video(_web_feats(cfg, n, 3))
+    seen = _Recorded(engine)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    _zero_launches()
+    t0 = time.perf_counter()
+    with torch.cuda.stream(side):
+        pipe = StreamingPipeline(seen)
+        for t, q in queries:
+            pipe.submit_query(q, video_time=t)
+        pipe.start_video((n - 1) / fps)
+        events = pipe.drain()
+        pipe.stop()
+    torch.cuda.synchronize()
+    dt_pipe = time.perf_counter() - t0
+    pipe_counts = _read_launches()
+    engine.reset()
+    engine.load_video(_web_feats(cfg, n, 3))
+    for t, q in queries:
+        engine.input_query_stream(q, video_time=t)
+    want = []
+    for idx in seen.fed:
+        if idx > engine.last_frame_idx:
+            engine.input_video_stream(idx / fps)
+        q, r = engine()
+        if r is not None:
+            want.append((q, r))
+    if events != want or len(events) < len(queries) or \
+            pipe._producer.is_alive():
+        raise AssertionError(f"pipeline events {events} vs sequential "
+                             f"{want}")
+    log(f"StreamingPipeline (8B int8, {n} frames, {len(queries)} queries, "
+        f"the caller on a non-default stream): {len(events)} events equal "
+        f"to a sequential drive of the same {len(seen.fed)} engine calls "
+        f"(frames fed before each: {seen.fed[:8]}...); {dt_pipe:.2f} s, "
+        f"launches {pipe_counts} [{card}]")
+    del engine, params
+    torch.cuda.empty_cache()
+    return {"launches": {k: single_counts[k] + multi_counts[k]
+                         + pipe_counts[k] for k in single_counts}}
+
+
 PHASES = {"toolchain": phase_toolchain, "build": phase_build,
           "k1": phase_k1, "small_engine": phase_small_engine,
           "main_path": phase_main_path, "k2": phase_k2,
@@ -3891,7 +4470,10 @@ PHASES = {"toolchain": phase_toolchain, "build": phase_build,
           "small_demo": phase_small_demo,
           "main_path_demo": phase_main_path_demo,
           "small_eval": phase_small_eval,
-          "main_path_eval": phase_main_path_eval}
+          "main_path_eval": phase_main_path_eval,
+          "small_prep": phase_small_prep,
+          "main_path_prep": phase_main_path_prep,
+          "main_path_web": phase_main_path_web}
 
 
 # the default run's phases, in order
@@ -3899,7 +4481,8 @@ DEFAULT_RUN = ("toolchain", "build", "k1", "small_engine", "main_path", "k2",
                "small_trainer", "main_training", "fused", "k4_profile",
                "small_int4_engine", "main_path_int4", "ab_paths", "k3",
                "small_multistream", "main_path_multistream", "small_demo",
-               "main_path_demo", "small_eval", "main_path_eval")
+               "main_path_demo", "small_eval", "main_path_eval", "small_prep",
+               "main_path_prep", "main_path_web")
 
 
 def main(argv=None) -> int:
@@ -3929,10 +4512,11 @@ def main(argv=None) -> int:
         out[name] = PHASES[name]()
         log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
     smi, k1, main_path, k2, training, fused, int4_path, ab, k3, \
-        multistream, demo, evals = (out[n] for n in (
+        multistream, demo, evals, prep, web = (out[n] for n in (
             "toolchain", "k1", "main_path", "k2", "main_training", "fused",
             "main_path_int4", "ab_paths", "k3", "main_path_multistream",
-            "main_path_demo", "main_path_eval"))
+            "main_path_demo", "main_path_eval", "main_path_prep",
+            "main_path_web"))
     log(f"card: {smi}; total {time.perf_counter() - t_start:.1f} s")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     k2_source = "videollm_online_tpu_torch/csrc/flash_attention.cu"
@@ -3944,7 +4528,8 @@ def main(argv=None) -> int:
         "launches": (main_path["launches"] + int4_path["launches"]["K1"]
                      + multistream["ring, bf16 KV"]["launches"]["K1"]
                      + sum(r["launches"]["K1"] for r in demo.values())
-                     + evals["launches"]["K1"]),
+                     + evals["launches"]["K1"] + prep["launches"]["K1"]
+                     + web["launches"]["K1"]),
         "max_abs_err": max(k1["max_abs_err"], main_path["ring_err"],
                            evals["k1_err"]),
         **{key: k1[key] for key in keys},
@@ -3953,7 +4538,8 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "videollm_online_tpu_torch/csrc/paged_attention.cu",
         "replaces": "videollm_online_tpu/ops/paged_attention.py:175",
-        "launches": sum(r["launches"]["K3"] for r in multistream.values()),
+        "launches": (sum(r["launches"]["K3"] for r in multistream.values())
+                     + web["launches"]["K3"]),
         "max_abs_err": k3["max_abs_err"],
         **{key: k3[key] for key in keys},
     }]

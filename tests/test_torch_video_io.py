@@ -1,8 +1,8 @@
 """The port's copies of the JAX package's host video IO, held to the
-originals: ``data/avi.py`` (the bytes a writer makes, the frames and
-header a reader returns, an audio track skipped), ``data/frameproc.py``
-(the resize and pad) and ``data/video_io.py`` (the fps grid, the no-ffmpeg
-``.avi`` path, the arrays and the errors)."""
+originals: ``data/avi.py`` (the bytes a writer makes, with and without a
+PCM audio track, the frames, audio and header a reader returns),
+``data/frameproc.py`` (the resize and pad) and ``data/video_io.py`` (the
+fps grid, the no-ffmpeg ``.avi`` path, the arrays and the errors)."""
 
 import numpy as np
 import pytest
@@ -30,20 +30,23 @@ def _gradient_frames(n, h, w):
                                          ("mjpeg", False)])
 def test_avi_bytes_and_frames_equal_jax(tmp_path, codec, audio):
     """The port writes the JAX writer's bytes and reads its files; with an
-    audio track (which only the JAX writer makes) the port's reader skips
-    it and returns the same video."""
+    interleaved PCM audio track too, which each reader skips unless asked
+    for it and then returns as the other does."""
     frames = (_gradient_frames(5, 36, 50) if codec == "mjpeg" else
               np.random.RandomState(0).randint(0, 256, (5, 36, 50, 3),
                                                dtype=np.uint8))
     mine, theirs = str(tmp_path / "a.avi"), str(tmp_path / "b.avi")
+    track = {"audio": (8000, (np.sin(np.arange(20000) * 0.05) * 0.5)
+                       .astype(np.float32))} if audio else {}
+    avi.write_avi(mine, frames, 2.0, codec=codec, **track)
+    jax_avi.write_avi(theirs, frames, 2.0, codec=codec, **track)
+    assert open(mine, "rb").read() == open(theirs, "rb").read()
     if audio:
-        mine = theirs
-        jax_avi.write_avi(theirs, frames, 2.0, codec=codec, audio=(
-            8000, (np.sin(np.arange(20000) * 0.05) * 0.5).astype(np.float32)))
-    else:
-        avi.write_avi(mine, frames, 2.0, codec=codec)
-        jax_avi.write_avi(theirs, frames, 2.0, codec=codec)
-        assert open(mine, "rb").read() == open(theirs, "rb").read()
+        got = avi.read_avi(theirs, with_audio=True)
+        want = jax_avi.read_avi(mine, with_audio=True)
+        np.testing.assert_array_equal(got.audio, want.audio)
+        assert got.sample_rate == want.sample_rate == 8000
+        assert len(got.audio) == 20000
     got = avi.read_avi(theirs)
     want = jax_avi.read_avi(mine)
     np.testing.assert_array_equal(got.frames, want.frames)

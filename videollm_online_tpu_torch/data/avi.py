@@ -15,17 +15,17 @@ an AVI reader/writer supporting
     alignment, the BITMAPINFOHEADER convention ffmpeg's ``-c:v rawvideo``
     uses inside AVI), and MJPEG (each frame a standalone JPEG; decoded and
     encoded through PIL's native JPEG codec),
+  * audio: mono 16-bit PCM (``01wb`` chunks, WAVEFORMATEX header),
   * a standard ``idx1`` index so other tools (ffmpeg/ffprobe/VLC) accept
     the files we write.
 
 Files written by ``ffmpeg -c:v rawvideo`` / ``-c:v mjpeg`` into ``.avi``
-are readable here (an audio track in them is skipped), and files written
-here are readable by ffmpeg — the interop contract is the BMP/JPEG layouts
-above, not a private format. The JAX package's copy also muxes and reads a
-PCM audio track, which nothing in this port uses.
+are readable here, and files written here are readable by ffmpeg — the
+interop contract is the BMP/JPEG layouts above, not a private format.
 
 Higher layers use this via data/video_io.py (decode + fps resample +
-scale/pad without an ffmpeg binary).
+scale/pad without an ffmpeg binary) and serve/rendering.py (mux video +
+TTS track without ffmpeg).
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ from __future__ import annotations
 import io
 import struct
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -88,10 +88,15 @@ def _encode_mjpeg(frame_rgb: np.ndarray, quality: int) -> bytes:
 
 
 def write_avi(path: str, frames: np.ndarray, fps: float, *,
-              codec: str = "rawvideo", jpeg_quality: int = 90) -> str:
-    """Write (T, H, W, 3) uint8 RGB frames to an AVI file.
+              codec: str = "rawvideo",
+              audio: Optional[Tuple[int, np.ndarray]] = None,
+              jpeg_quality: int = 90) -> str:
+    """Write (T, H, W, 3) uint8 RGB frames (+ optional mono PCM audio) to an
+    AVI file.
 
     ``codec``: ``rawvideo`` (DIB, lossless) or ``mjpeg``.
+    ``audio``: ``(sample_rate, waveform)`` — float in [-1, 1] or int16; the
+    track is interleaved as one ``01wb`` chunk per video frame.
     """
     frames = np.asarray(frames)
     assert frames.ndim == 4 and frames.shape[-1] == 3 \
@@ -113,13 +118,24 @@ def write_avi(path: str, frames: np.ndarray, fps: float, *,
     scale = 1000
     rate = int(round(fps * scale))
 
+    aud_pcm = None
+    sr = 0
+    if audio is not None:
+        sr, wav = audio
+        wav = np.asarray(wav)
+        if wav.dtype != np.int16:
+            wav = (np.clip(wav.astype(np.float32), -1, 1) * 32767) \
+                .astype(np.int16)
+        aud_pcm = wav
+
     # ---- headers ----------------------------------------------------------
     max_bytes = max(len(p) for p in payloads) if payloads else 0
+    n_streams = 2 if aud_pcm is not None else 1
     avih = struct.pack(
         "<14I",
         int(1e6 / fps) if fps else 0,   # dwMicroSecPerFrame
         int(max_bytes * fps),           # dwMaxBytesPerSec (approx)
-        0, _AVIF_HASINDEX, n, 0, 1, max_bytes, w, h, 0, 0, 0, 0)
+        0, _AVIF_HASINDEX, n, 0, n_streams, max_bytes, w, h, 0, 0, 0, 0)
 
     strh_v = struct.pack(
         "<4s4sIHHIIIIIIII4H",
@@ -132,14 +148,32 @@ def write_avi(path: str, frames: np.ndarray, fps: float, *,
         0, 0, 0, 0)
     strl_v = _list(b"strl", _chunk(b"strh", strh_v) + _chunk(b"strf", strf_v))
 
-    hdrl = _list(b"hdrl", _chunk(b"avih", avih) + strl_v)
+    strl_a = b""
+    if aud_pcm is not None:
+        n_samples = len(aud_pcm)
+        strh_a = struct.pack(
+            "<4s4sIHHIIIIIIII4H",
+            b"auds", b"\x00\x00\x00\x00", 0, 0, 0, 0, 1, sr, 0, n_samples,
+            sr * 2, 0xFFFFFFFF, 2, 0, 0, 0, 0)
+        strf_a = struct.pack("<HHIIHHH", 1, 1, sr, sr * 2, 2, 16, 0)
+        strl_a = _list(b"strl",
+                       _chunk(b"strh", strh_a) + _chunk(b"strf", strf_a))
+
+    hdrl = _list(b"hdrl", _chunk(b"avih", avih) + strl_v + strl_a)
 
     # ---- movi + idx1 ------------------------------------------------------
     movi_body = b""
     idx_entries = []
-    for payload in payloads:
+    samples_per_frame = (len(aud_pcm) + n - 1) // n if aud_pcm is not None \
+        else 0
+    for i, payload in enumerate(payloads):
         idx_entries.append((vid_ck, len(movi_body) + 4, len(payload)))
         movi_body += _chunk(vid_ck, payload)
+        if aud_pcm is not None:
+            seg = aud_pcm[i * samples_per_frame:(i + 1) * samples_per_frame]
+            blob = seg.astype("<i2").tobytes()
+            idx_entries.append((b"01wb", len(movi_body) + 4, len(blob)))
+            movi_body += _chunk(b"01wb", blob)
     movi = _list(b"movi", movi_body)
 
     idx1 = b"".join(
@@ -160,6 +194,8 @@ def write_avi(path: str, frames: np.ndarray, fps: float, *,
 class AviData:
     frames: np.ndarray            # (T, H, W, 3) uint8 RGB
     fps: float
+    audio: Optional[np.ndarray]   # int16 mono, or None
+    sample_rate: int = 0
 
     @property
     def duration(self) -> float:
@@ -305,9 +341,9 @@ def _parse_headers(buf: bytes, start: int, end: int):
     return streams
 
 
-def read_avi(path: str) -> AviData:
-    """Parse an AVI file's raw-DIB or MJPEG video; other streams are
-    skipped."""
+def read_avi(path: str, *, with_audio: bool = False) -> AviData:
+    """Parse an AVI file. Raw-DIB and MJPEG video; mono/stereo 16-bit PCM
+    audio (stereo is downmixed)."""
     with open(path, "rb") as f:
         buf = f.read()
     if buf[:4] != b"RIFF" or buf[8:12] != b"AVI ":
@@ -324,6 +360,8 @@ def read_avi(path: str) -> AviData:
 
     vstream = next((i for i, s in enumerate(streams)
                     if s.get("type") == b"vids"), None)
+    astream = next((i for i, s in enumerate(streams)
+                    if s.get("type") == b"auds"), None)
     if vstream is None:
         raise ValueError(f"{path}: no video stream")
     v = streams[vstream]
@@ -333,18 +371,24 @@ def read_avi(path: str) -> AviData:
     h = abs(h)
     fps = v["rate"] / v["scale"] if v["scale"] else 0.0
 
-    frames = []
+    sr, channels = 0, 1
+    if astream is not None:
+        fmt, channels, sr = struct.unpack_from("<HHI", streams[astream]["strf"])
+        if fmt != 1:
+            astream = None  # only PCM supported
+
+    frames, audio_parts = [], []
     raw_dib = compression in (b"\x00\x00\x00\x00",) and bitcount == 24
     mjpeg = compression in (b"MJPG", b"mjpg", b"AVI1", b"dmb1")
     dht = _extradata_dht(v["strf"]) if mjpeg else None
     for fourcc, p, size in _iter_chunks(buf, *movi_span):
         if fourcc == b"LIST":  # 'rec ' interleave groups
             for cc2, p2, s2 in _iter_chunks(buf, p + 4, p + size):
-                _collect(buf, cc2, p2, s2, vstream, raw_dib, mjpeg, w, h,
-                         bottom_up, frames, dht)
+                _collect(buf, cc2, p2, s2, vstream, astream, raw_dib, mjpeg,
+                         w, h, bottom_up, frames, audio_parts, dht)
         else:
-            _collect(buf, fourcc, p, size, vstream, raw_dib, mjpeg, w, h,
-                     bottom_up, frames, dht)
+            _collect(buf, fourcc, p, size, vstream, astream, raw_dib, mjpeg,
+                     w, h, bottom_up, frames, audio_parts, dht)
 
     if not raw_dib and not mjpeg and frames == []:
         raise ValueError(
@@ -352,11 +396,17 @@ def read_avi(path: str) -> AviData:
             "(first-party reader handles rawvideo DIB and MJPEG)")
     video = np.stack(frames) if frames else \
         np.zeros((0, h, w, 3), np.uint8)
-    return AviData(frames=video, fps=fps)
+
+    audio = None
+    if with_audio and audio_parts:
+        audio = np.frombuffer(b"".join(audio_parts), "<i2")
+        if channels > 1:
+            audio = audio.reshape(-1, channels).mean(axis=1).astype(np.int16)
+    return AviData(frames=video, fps=fps, audio=audio, sample_rate=sr)
 
 
-def _collect(buf, fourcc, p, size, vstream, raw_dib, mjpeg, w, h, bottom_up,
-             frames, dht=None):
+def _collect(buf, fourcc, p, size, vstream, astream, raw_dib, mjpeg, w, h,
+             bottom_up, frames, audio_parts, dht=None):
     try:
         sid = int(fourcc[:2])
     except ValueError:
@@ -368,6 +418,8 @@ def _collect(buf, fourcc, p, size, vstream, raw_dib, mjpeg, w, h, bottom_up,
             frames.append(_decode_dib(payload, w, h, bottom_up))
         elif mjpeg:
             frames.append(_decode_jpeg(payload, dht))
+    elif astream is not None and sid == astream and kind == b"wb":
+        audio_parts.append(payload)
 
 
 def probe_avi(path: str) -> dict:

@@ -22,6 +22,7 @@ scale/pad: frameproc's aspect-preserving resize + center zero-pad).
 
 from __future__ import annotations
 
+import json
 import os
 import shutil
 import subprocess
@@ -101,6 +102,43 @@ def _avi_read_preprocessed(path: str, fps: Optional[float],
     return preprocess_frames(np.ascontiguousarray(frames), resolution or 384)
 
 
+def ffmpeg_once(src_path: str, dst_path: str, *, fps: Optional[float] = None,
+                resolution: Optional[int] = None) -> None:
+    """Resample + resize a video file once (reference data/utils.py:51-66).
+
+    Falls back to the first-party AVI pipeline (decode -> fps resample ->
+    scale/pad -> rawvideo AVI) when no ffmpeg binary exists and both ends
+    are .avi."""
+    ffmpeg = find_ffmpeg()
+    if not ffmpeg and src_path.endswith(".avi") and dst_path.endswith(".avi"):
+        from . import avi
+        src = avi.read_avi(src_path)
+        frames = src.frames
+        out_fps = fps if fps is not None else (src.fps or 1.0)
+        if fps is not None and src.fps:
+            frames = frames[resample_frame_indices(len(frames), src.fps, fps)]
+        if resolution is not None:
+            from .frameproc import preprocess_frames
+            chw = preprocess_frames(np.ascontiguousarray(frames), resolution)
+            frames = np.ascontiguousarray(chw.transpose(0, 2, 3, 1))
+        os.makedirs(os.path.dirname(dst_path) or ".", exist_ok=True)
+        avi.write_avi(dst_path, frames, out_fps)
+        return
+    if not ffmpeg:
+        raise RuntimeError(_no_ffmpeg_message(src_path))
+    os.makedirs(os.path.dirname(dst_path) or ".", exist_ok=True)
+    cmd = [ffmpeg, "-y", "-loglevel", "error", "-i", src_path]
+    filters = []
+    if fps is not None:
+        filters.append(f"fps={fps}")
+    if resolution is not None:
+        filters.append(_scale_pad_filter(resolution))
+    if filters:
+        cmd += ["-vf", ",".join(filters)]
+    cmd += [dst_path]
+    subprocess.run(cmd, check=True)
+
+
 def read_video_frames(path: str, *, fps: Optional[float] = None,
                       resolution: Optional[int] = None) -> np.ndarray:
     """Decode to (T, 3, H, W) uint8. Feature/array files pass through."""
@@ -138,3 +176,27 @@ def load_array(path: str) -> np.ndarray:
             t = t.float()
         return t.numpy()
     raise ValueError(f"unsupported array file: {path}")
+
+
+def save_array(path: str, arr: np.ndarray) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    if path.endswith(".npy"):
+        np.save(path, arr)
+    elif path.endswith(".pt"):
+        import torch
+        torch.save(torch.from_numpy(np.ascontiguousarray(arr)), path)
+    else:
+        raise ValueError(f"unsupported array file: {path}")
+
+
+def probe_duration(path: str) -> float:
+    ffprobe = shutil.which("ffprobe")
+    if not ffprobe:
+        if path.endswith(".avi"):
+            from . import avi
+            return avi.probe_avi(path)["duration"]
+        raise RuntimeError("ffprobe not available")
+    out = subprocess.run(
+        [ffprobe, "-v", "error", "-print_format", "json", "-show_format", path],
+        check=True, capture_output=True).stdout
+    return float(json.loads(out)["format"]["duration"])
