@@ -191,6 +191,12 @@ K1_TOL = {torch.bfloat16: {"atol": 2e-3, "rtol": 2e-2, "rel": 5e-3},
           torch.float32: {"atol": 1e-6, "rtol": 1e-5, "rel": 5e-6}}
 
 
+# Single-rank results of the main paths (phases 5, 8, 11 and 18 of a
+# default run keep theirs here) that phases 23 and 24 hold their ranks'
+# runs against; a phase run alone computes the ones it needs.
+_SINGLE_RANK = {}
+
+
 def log(*a):
     print(*a, flush=True)
 
@@ -464,9 +470,9 @@ def phase_build():
 
 # ---------------------------------------------------------------- phase 3
 def _k1_case(k_all, v_all, layer, offset, S, *, window=None, ks=None,
-             vs=None, dtype=torch.bfloat16, gen=None):
+             vs=None, dtype=torch.bfloat16, gen=None, Hq=32):
     from videollm_online_tpu_torch.ops import decode_attention as da
-    B, Hq, d = k_all.shape[1], 32, k_all.shape[-1]
+    B, d = k_all.shape[1], k_all.shape[-1]
     q = torch.randn((B, Hq, S, d), generator=gen, device="cuda").to(dtype)
     # stream b's queries at offset + 37 b ...: ragged streams when B > 1
     q_pos = (offset + torch.arange(S, device="cuda", dtype=torch.int32)[None]
@@ -1041,6 +1047,7 @@ def phase_main_path(n_frames: int = 64):
         f"K1 launches {launches}, spec {steps} verify steps -> {emitted} "
         f"tokens ({emitted / max(steps, 1):.3f} tokens/step)")
     log(f"first response: {transcript[0]!r}")
+    _SINGLE_RANK["int8"] = transcript
 
     # K1 against its plain version on the main path's own ring (capacity,
     # layout and K/V written by the run), at a decode and a verify step
@@ -1137,17 +1144,20 @@ def synthetic_batch(cfg, seq: int, rng: np.random.RandomState):
     return {"input_ids": ids, "labels": labels, "frames": frames}, n_frames
 
 
-def _trainer(params, cfg, tok, out_dir, batch, steps, attn_impl):
-    """The port's LiveTrainer over a dataset of one pre-collated sample."""
+def _trainer(params, cfg, tok, out_dir, batch, steps, attn_impl,
+             extra=(), mesh=None):
+    """The port's LiveTrainer over a dataset of one pre-collated sample
+    (``extra``: more of its arguments; ``mesh``: a mesh of its own)."""
     from videollm_online_tpu_torch.core.arguments import parse_args
     from videollm_online_tpu_torch.train.trainer import LiveTrainer
     args = parse_args(["--max_steps", str(steps), "--logging_steps", "1",
                        "--gradient_accumulation_steps", "1",
                        "--dataloader_num_workers", "0",
-                       "--output_dir", out_dir])
+                       "--output_dir", out_dir, *extra])
     return LiveTrainer(params=params, cfg=cfg, tokenizer=tok, args=args,
                        train_dataset=[batch] * (steps + 1),
-                       collate_fn=lambda items: items[0], attn_impl=attn_impl)
+                       collate_fn=lambda items: items[0], attn_impl=attn_impl,
+                       mesh=mesh)
 
 
 def _out_dir(name: str) -> str:
@@ -1503,6 +1513,7 @@ def phase_main_training(steps: int = 4, seq: int = 4096):
         raise AssertionError(f"trainables unchanged after step 2: {changed}")
     log(f"K2 launches per step {per_step} (as expected); trainables changed "
         f"by step 2 {changed}")
+    _SINGLE_RANK["train_8b"] = [r["loss"] for r in logs]
     tb = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
     _profile_step(trainer, tb)
     step_ms = [1e3 / r["steps_per_sec"] for r in logs[1:]]
@@ -2359,6 +2370,8 @@ def phase_main_path_int4(n_frames: int = 64):
         f"{engine._host_offset}, spec {steps} verify steps -> {emitted} "
         f"tokens ({emitted / max(steps, 1):.3f} tokens/step)")
     log(f"first response: {transcript[0]!r}")
+    _SINGLE_RANK["int4"] = transcript
+    _SINGLE_RANK["int4_logits"] = _first_logits(params, cfg)
 
     cache = engine.cache
     L = cfg.llama.num_layers
@@ -3608,6 +3621,7 @@ def phase_small_eval():
     if written != metrics or "accuracy" not in metrics["coin_step_test"]:
         raise AssertionError(f"evaluate_entry wrote {written}, returned "
                              f"{metrics}")
+    _SINGLE_RANK["coin_eval"] = metrics
     log(f"evaluate_entry on a synthetic COIN root (coin_step_test, 2 "
         f"samples, greedy {EVAL_COIN_NEW} new tokens, cut from the "
         f"dataset's 512; 1B proxy bf16 random weights): "
@@ -4454,6 +4468,726 @@ def phase_main_path_web():
                          + pipe_counts[k] for k in single_counts}}
 
 
+
+# ------------------------------------------------------- phases 23 and 24
+# Two ranks on the one card: each is a process spawned from this script
+# that joins a torch.distributed group (parallel.mesh.initialize_distributed
+# over a file store under build/chip_smoke/; the backend rule picks gloo,
+# NCCL taking no two ranks of one card, and the collectives copy through
+# pinned host buffers). What a rank measures is two ranks sharing one card,
+# not a speed of tensor or sequence parallelism.
+TP_WORLD = 2
+# The first forward's logits (20 tokens on a fresh ring, 8B int8 and
+# int4, bf16; and 20 tokens a stream on a fresh 8-stream paged pool, int8)
+# under TP 2 against the single-rank forward, relative norm: the
+# row-parallel products are two bf16 partial sums added in bf16 where the
+# single rank rounds one fp32 sum, 64 times a forward.
+TP_LOGIT_REL = 3e-2
+# The bf16 transcripts under TP against the single rank's: the same
+# responses in number and queries, at least this share of response bytes
+# equal at the same position (tests/test_torch_engine.py's BF16_SHARE).
+TP_BF16_SHARE = 0.8
+# The sequence-parallel and fsdp losses against the single rank's, relative:
+# Ulysses and K2 compute each head whole, the ring's blocks and the
+# token-local matmuls on T/2 rows sum in another order.
+SP_LOSS_REL = 2e-3
+SP_SEQ = 4096          # phase 8's training length
+# phase 15's traffic cut from 64 frames a stream to 16 under TP, for time
+TP_MS_FRAMES = 16
+
+
+def _rank_main(fn, rank, world, store, args, out_path, timeout):
+    """A spawned rank: join the group, run fn(rank, world, backend, *args)
+    and pickle ("ok", result) or ("error", traceback) to out_path."""
+    import pickle
+    import traceback
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        from videollm_online_tpu_torch.parallel.mesh import (
+            initialize_distributed)
+        backend = initialize_distributed(f"file://{store}", world, rank,
+                                         device="cuda", timeout_s=timeout)
+        result = ("ok", fn(rank, world, backend, *args))
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        result = ("error", traceback.format_exc())
+    with open(out_path, "wb") as f:
+        pickle.dump(result, f)
+
+
+def _spawn_ranks(fn, *args, world=TP_WORLD, timeout=900):
+    """fn(rank, world, backend, *args) in ``world`` processes spawned from
+    this script, all on card 0; returns their results in rank order and
+    fails if any rank fails or outlives ``timeout``."""
+    import multiprocessing as mp
+    import pathlib
+    import pickle
+    d = pathlib.Path(_out_dir(f"ranks_{fn.__name__}"))
+    outs = [d / f"rank{r}.pkl" for r in range(world)]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_rank_main, args=(
+        fn, r, world, str(d / "store"), args, str(outs[r]), timeout))
+        for r in range(world)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout + 60)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    results = []
+    for r, path in enumerate(outs):
+        if not path.exists():
+            raise AssertionError(f"rank {r} of {fn.__name__} ended without "
+                                 f"a result (exit {procs[r].exitcode})")
+        with open(path, "rb") as f:
+            status, value = pickle.load(f)
+        if status != "ok":
+            raise AssertionError(f"rank {r} of {fn.__name__} failed:\n"
+                                 f"{value}")
+        results.append(value)
+    return results
+
+
+def _int8_stream(n_frames=64):
+    """Phase 5's configuration, stream and ring: (cfg, tok, capacity,
+    feats); its weights come from seed 0 on the card (``_int8_8b``)."""
+    from videollm_online_tpu_torch.core.config import (LiveConfig,
+                                                       LlamaConfig)
+    from videollm_online_tpu_torch.tokenizer.live_tokenizer import (
+        LiveTokenizer)
+    from videollm_online_tpu_torch.tokenizer.tiny import ByteTokenizer
+    lcfg = LlamaConfig(vocab_size=128256, hidden_size=4096,
+                       intermediate_size=14336, num_layers=32, num_heads=32,
+                       num_kv_heads=8, head_dim=128, dtype="bfloat16")
+    tok = LiveTokenizer(ByteTokenizer(), LiveConfig(llama=lcfg, lora=None))
+    cfg = tok.cfg.replace(frame_token_interval_threshold=0.725,
+                          max_response_tokens=20, gate_logit_bias=30.0)
+    capacity = max(8192, (4 + cfg.frame_num_tokens) * (n_frames + 8)
+                   + (n_frames // 8 + 2) * (256 + cfg.max_response_tokens)
+                   + 2048)
+    feats = np.random.RandomState(0).randn(
+        n_frames, cfg.frame_num_tokens, cfg.vision_hidden_size
+    ).astype(np.float32)
+    return cfg, tok, capacity, feats
+
+
+def _int8_8b(cfg):
+    from videollm_online_tpu_torch.models import live, quant
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return {"llama": quant.random_quantized_llama_params(
+                gen, cfg.llama, bits=8, device="cuda"),
+            "connector": live.init_connector(gen, cfg, device="cuda")}
+
+
+def _int4_cli_engine():
+    """Phase 11's engine as serve/cli.py builds it, with phase 5's gate
+    and response length."""
+    from videollm_online_tpu_torch.serve import cli
+    args = cli.parse_args(["--video", "features", "--model_size", "8b",
+                           "--quantize", "int4", "--spec_decode",
+                           "--kv_capacity", "8192", "--seed", "0"])
+    engine, cfg = cli.build_engine(args)
+    cfg = cfg.replace(frame_token_interval_threshold=0.725,
+                      max_response_tokens=20, gate_logit_bias=30.0)
+    engine.cfg, engine.max_new = cfg, 20
+    return engine, cfg
+
+
+def _ms_stream(n_frames=64):
+    """Phase 15's traffic: (capacity, feats)."""
+    cfg = _int8_stream()[0]
+    fnt = cfg.frame_num_tokens
+    capacity = 256 * ((n_frames * (fnt + 4) + 128 + (n_frames // 8 + 2)
+                       * (128 + 20)) // 256 + 1)
+    feats = np.random.RandomState(7).randn(
+        n_frames, fnt, cfg.vision_hidden_size).astype(np.float32)
+    return capacity, feats
+
+
+def _first_logits(params, cfg, streams=0):
+    """The logits of a 20-token prompt on a fresh ring (K1's route), or
+    with ``streams`` > 0 of one such prompt a stream (each its own ids) on
+    a fresh paged pool of one 512-slot page a stream (K3's route), fp32 on
+    the host."""
+    from videollm_online_tpu_torch.models import llama
+    from videollm_online_tpu_torch.ops.auto import auto_attention
+    if streams:
+        cache = llama.init_paged_kv_cache(
+            cfg.llama, streams, pool_pages=1 + streams, pages_per_stream=1,
+            page_size=512, device="cuda")
+        cache.table[:, 0] = 1 + torch.arange(streams, dtype=torch.int32)
+        ids = 33 + torch.arange(20)[None] + 5 * torch.arange(streams)[:, None]
+    else:
+        cache = llama.init_kv_cache(cfg.llama, 1, 256, device="cuda")
+        ids = (33 + torch.arange(20))[None]
+    logits, _ = llama.forward(params["llama"], cfg=cfg.llama, input_ids=ids,
+                              kv_cache=cache, attn_impl=auto_attention)
+    return logits.float().cpu()
+
+
+def _forward_reading(params, cfg, cache, attn_impl, S):
+    """One S-token forward on the ring (its offset kept), after a warm-up:
+    the collectives it made (calls and bytes by kind), its host wall and
+    its device time under torch.profiler (us)."""
+    from videollm_online_tpu_torch.models import llama
+    from videollm_online_tpu_torch.parallel import collectives as coll
+    emb = llama.embed_tokens(params["llama"],
+                             torch.full((1, S), 33, dtype=torch.int32),
+                             cfg.llama)
+
+    def fwd():
+        return llama.forward(params["llama"], cfg=cfg.llama,
+                             inputs_embeds=emb, kv_cache=cache,
+                             attn_impl=attn_impl, last_logit_only=True)
+
+    fwd()
+    coll.reset_stats()
+    busy, wall, _ = _device_us(fwd)
+    return {"calls": dict(coll.STATS["calls"]),
+            "bytes": dict(coll.STATS["bytes"]), "wall_us": wall,
+            "device_us": busy}
+
+
+def _share_equal(got, want):
+    """(equal, share of response bytes equal at the same position): the
+    same responses in number and queries, then bytes compared."""
+    if len(got) != len(want) or [q for q, _ in got] != [q for q, _ in want]:
+        return False, 0.0
+    same = sum(a == b for (_, g), (_, w) in zip(got, want)
+               for a, b in zip(g, w))
+    return got == want, same / max(sum(len(w) for _, w in want), 1)
+
+
+def _tp_serving_rank(rank, world, backend):
+    """Phase 23 on one rank: phase 5's, 11's and 15's engines on params
+    cut ``tp`` over model=world, under the mesh; each rank-local kernel
+    shape held against its plain version."""
+    from videollm_online_tpu_torch.models import quant
+    from videollm_online_tpu_torch.ops import fused_mlp as fm
+    from videollm_online_tpu_torch.parallel.mesh import (make_mesh,
+                                                         maybe_mesh)
+    from videollm_online_tpu_torch.serve.engine import LiveInferEngine
+    from videollm_online_tpu_torch.serve.multistream import MultiStreamEngine
+    from videollm_online_tpu_torch.train.step import shard_params
+    mesh = make_mesh(data=1, model=world, device="cuda")
+    log(f"[rank {rank}] backend {backend}, {mesh}, host staging "
+        f"{mesh.host_staging}")
+    out = {"backend": backend, "staging": mesh.host_staging}
+    gen = torch.Generator(device="cuda").manual_seed(100 + rank)
+
+    # phase 5's stream on the 8B int8 engine
+    cfg, tok, capacity, feats = _int8_stream()
+    L = cfg.llama.num_layers
+    params = shard_params(_int8_8b(cfg), mesh, "tp", cfg=cfg)
+    torch.cuda.empty_cache()
+    with maybe_mesh(mesh):
+        logits = _first_logits(params, cfg)
+        engine = LiveInferEngine(params, tok, cfg, kv_capacity=capacity,
+                                 spec_decode=True, device="cuda")
+        torch.cuda.synchronize()
+        _zero_launches()
+        t0 = time.perf_counter()
+        transcript = _drive(engine, feats, 8, 8, cfg.frame_fps)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = _read_launches()
+        readings = {S: _forward_reading(params, cfg, engine.cache,
+                                        engine.attn_impl, S)
+                    for S in (1, 20)}
+        cache = engine.cache
+        hq = cfg.llama.num_heads // world
+        k1 = _worst([_k1_case(cache.k, cache.v, layer,
+                              engine._host_offset - 20, S, gen=gen, Hq=hq)
+                     for layer in (0, L - 1) for S in (1, 20)])
+    out["int8"] = {"logits": logits, "transcript": transcript,
+                   "fps": len(feats) / dt, "launches": counts,
+                   "forward": readings, "k1": k1,
+                   "kv_heads": int(cache.k.shape[2]),
+                   "param_gib": quant.param_bytes(params) / 2**30}
+    log(f"[rank {rank}] TP int8 engine: {len(feats) / dt:.3f} frames/s, "
+        f"{len(transcript)} responses, launches {counts}; K1 at Hq {hq} / "
+        f"Hkv {int(cache.k.shape[2])} vs plain: {_readings(k1)}")
+    del engine, params, cache
+    torch.cuda.empty_cache()
+
+    # phase 11's int4 engine, built by serve/cli.py and cut
+    whole, cfg4 = _int4_cli_engine()
+    params = shard_params(whole.params, mesh, "tp", cfg=cfg4)
+    tok4 = whole.tokenizer
+    del whole
+    torch.cuda.empty_cache()
+    with maybe_mesh(mesh):
+        logits4 = _first_logits(params, cfg4)
+        engine = LiveInferEngine(params, tok4, cfg4, kv_capacity=8192,
+                                 spec_decode=True, device="cuda")
+        torch.cuda.synchronize()
+        _zero_launches()
+        t0 = time.perf_counter()
+        transcript = _drive(engine, feats, 8, 8, cfg4.frame_fps)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = _read_launches()
+        per_fwd = _count_forward(params, cfg4, engine.cache,
+                                 engine.attn_impl, 20)
+    lp = params["llama"]["layers"]
+    mats = [lp[n][k][0] for n in ("w_gate", "w_up", "w_down")
+            for k in ("q4c", "scale")]
+    head = params["llama"]["lm_head"]
+    errs = {}
+    for rows in (1, 20):
+        x = torch.randn((rows, cfg4.llama.hidden_size), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        errs[f"K4 {rows}"] = _fused_case("K4", x, mats, "mlp_bf16",
+                                         f"TP rank-local {rows} rows")
+        errs[f"K5 {rows}"] = _fused_case("K5", x, [head["q4c"],
+                                                   head["scale"]],
+                                         "matmul",
+                                         f"TP rank-local {rows} rows")
+    F_local = mats[0].shape[1] * 2
+    V_local = head["q4c"].shape[1] * 2
+    out["int4"] = {"logits": logits4, "transcript": transcript,
+                   "fps": len(feats) / dt,
+                   "launches": counts, "per_forward": per_fwd,
+                   "errs": errs, "F": F_local, "V": V_local,
+                   "fused_shapes_taken": fm._layer_takes(
+                       "q4c", [lp[n] for n in ("w_gate", "w_up",
+                                               "w_down")])}
+    log(f"[rank {rank}] TP int4 engine: {len(feats) / dt:.3f} frames/s, "
+        f"{len(transcript)} responses, launches {counts}, a 20-token "
+        f"forward {per_fwd}; K4 at D {cfg4.llama.hidden_size} x F "
+        f"{F_local} and K5 at V {V_local} vs plain: "
+        + "; ".join(f"{k} {_readings(v)}" for k, v in errs.items()))
+    del engine, params
+    torch.cuda.empty_cache()
+
+    # phase 15's traffic on the 8-stream paged engine, TP_MS_FRAMES a stream
+    capacity, ms_feats = _ms_stream(TP_MS_FRAMES)
+    params = shard_params(_int8_8b(cfg), mesh, "tp", cfg=cfg)
+    torch.cuda.empty_cache()
+    with maybe_mesh(mesh):
+        paged_logits = _first_logits(params, cfg, streams=8)
+        ms = MultiStreamEngine(params, tok, cfg, num_streams=8,
+                               kv_capacity=capacity, device="cuda")
+        dt, ms_out, ticks, fwds, counts = _ms_run(ms, ms_feats, 8)
+        c = ms.cache
+        offsets = [int(o) - 21 for o in c.offset]
+        k3 = _worst([_k3_case(f"TP rank-local S {S} layer {layer}",
+                              (c.k, c.v, None, None), c.table.cuda(),
+                              _k3_qpos(offsets, S), layer, Hq=hq,
+                              dtype=torch.bfloat16, gen=gen)
+                     for layer in (0, L - 1) for S in (1, 20)])
+    out["multistream"] = {"logits": paged_logits, "transcripts": ms_out,
+                          "fps": 8 * len(ms_feats) / dt, "ticks": ticks,
+                          "forwards": fwds, "launches": counts, "k3": k3,
+                          "kv_heads": int(c.k.shape[2])}
+    log(f"[rank {rank}] TP multistream (8 streams, paged): "
+        f"{8 * len(ms_feats) / dt:.3f} frames/s aggregate, {ticks} ticks, "
+        f"{fwds} forwards, launches {counts}; K3 at Hq {hq} / Hkv "
+        f"{int(c.k.shape[2])} vs plain: {_readings(k3)}")
+    del ms, params, c
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_tp_serving():
+    """Phase 23: tensor-parallel serving at full width on two ranks of the
+    card, each holding its ``shard_params(..., "tp")`` tree under
+    ``maybe_mesh``: phase 5's int8 stream, phase 11's int4 stream (K4 at
+    a local F of 7168, K5 at a local vocabulary of 64128) and phase 15's 8
+    paged streams cut to TP_MS_FRAMES frames each (K3 at 16 q / 4 kv
+    heads), each against the single-rank engine on the same full weights
+    (no warm-up: what the ranks time is two processes sharing one
+    card)."""
+    from videollm_online_tpu_torch.serve.multistream import MultiStreamEngine
+    card = _card()
+    cfg, tok, capacity, feats = _int8_stream()
+    params = _int8_8b(cfg)
+    ref_logits = {"int8": _first_logits(params, cfg),
+                  "paged": _first_logits(params, cfg, streams=8)}
+    if "int8" not in _SINGLE_RANK:
+        from videollm_online_tpu_torch.serve.engine import LiveInferEngine
+        _SINGLE_RANK["int8"] = _drive(LiveInferEngine(
+            params, tok, cfg, kv_capacity=capacity, spec_decode=True,
+            device="cuda"), feats, 8, 8, cfg.frame_fps)
+    ms_capacity, ms_feats = _ms_stream(TP_MS_FRAMES)
+    ms = MultiStreamEngine(params, tok, cfg, num_streams=8,
+                           kv_capacity=ms_capacity, device="cuda")
+    ms_ref = _ms_run(ms, ms_feats, 8)[1]
+    del ms
+    del params
+    torch.cuda.empty_cache()
+    if "int4_logits" not in _SINGLE_RANK:
+        engine, cfg4 = _int4_cli_engine()
+        _SINGLE_RANK["int4"] = _drive(engine, feats, 8, 8, cfg4.frame_fps)
+        _SINGLE_RANK["int4_logits"] = _first_logits(engine.params, cfg4)
+        del engine
+        torch.cuda.empty_cache()
+    ref_logits["int4"] = _SINGLE_RANK["int4_logits"]
+
+    t0 = time.perf_counter()
+    ranks = _spawn_ranks(_tp_serving_rank)
+    log(f"two ranks, spawned, built and driven in "
+        f"{time.perf_counter() - t0:.1f} s")
+    launches = {k: 0 for k in ("K1", "K3", "K4", "K5")}
+    errs = {"K1": 0.0, "K3": 0.0, "K4": 0.0, "K5": 0.0}
+    L = cfg.llama.num_layers
+    for rank, r in enumerate(ranks):
+        i8, i4, ms = r["int8"], r["int4"], r["multistream"]
+        rel = {name: float((got["logits"] - ref_logits[name]).norm()
+                           / ref_logits[name].norm())
+               for name, got in (("int8", i8), ("int4", i4),
+                                 ("paged", ms))}
+        if max(rel.values()) > TP_LOGIT_REL:
+            raise AssertionError(f"rank {rank}: TP logits rel {rel}")
+        rel_s = ", ".join(f"{k} {v:.3g}" for k, v in rel.items())
+        shares = {}
+        for name, got, want in (
+                ("int8", i8["transcript"], _SINGLE_RANK["int8"]),
+                ("int4", i4["transcript"], _SINGLE_RANK["int4"])):
+            equal, share = _share_equal(got, want)
+            if share < TP_BF16_SHARE:
+                raise AssertionError(f"rank {rank} {name}: transcript share "
+                                     f"{share:.3f}\n{got}\n{want}")
+            shares[name] = (equal, share)
+        ms_shares = [_share_equal(g, w) for g, w in zip(
+            ms["transcripts"], ms_ref)]
+        if min(s for _, s in ms_shares) < TP_BF16_SHARE:
+            raise AssertionError(f"rank {rank} multistream: shares "
+                                 f"{ms_shares}")
+        if min(i8["launches"]["K1"], i4["launches"]["K4"],
+               i4["launches"]["K5"], ms["launches"]["K3"]) == 0 or \
+                ms["launches"]["K3"] != L * ms["forwards"] or \
+                (i4["per_forward"]["K4"], i4["per_forward"]["K5"]) != (L, 1):
+            raise AssertionError(f"rank {rank}: launches {i8['launches']}, "
+                                 f"{i4['launches']}, {ms['launches']}, a "
+                                 f"20-token int4 forward {i4['per_forward']}")
+        for k in launches:
+            launches[k] += (i8["launches"][k] + i4["launches"][k]
+                            + ms["launches"][k])
+        errs["K1"] = max(errs["K1"], i8["k1"]["max"])
+        errs["K3"] = max(errs["K3"], ms["k3"]["max"])
+        for k, v in i4["errs"].items():
+            errs[k[:2]] = max(errs[k[:2]], v["max"])
+        log(f"rank {rank} ({r['backend']}, host staging {r['staging']}): "
+            f"first-forward logits rel {rel_s} (bound {TP_LOGIT_REL}); "
+            f"transcripts (equal, share of bytes) int8 {shares['int8']}, "
+            f"int4 {shares['int4']}, multistream "
+            f"{[(e, round(s, 3)) for e, s in ms_shares]}; parameters "
+            f"{i8['param_gib']:.2f} GiB, ring kv heads {i8['kv_heads']}")
+        log(f"  frames/s with two ranks sharing one card (not a speed of "
+            f"TP): int8 {i8['fps']:.3f}, int4 {i4['fps']:.3f}, 8 streams "
+            f"{ms['fps']:.3f} aggregate; K1 {i8['launches']['K1']}, K4 "
+            f"{i4['launches']['K4']}, K5 {i4['launches']['K5']}, K3 "
+            f"{ms['launches']['K3']} launches")
+        for S, f in i8["forward"].items():
+            log(f"  a {S}-token int8 forward: collectives {f['calls']}, "
+                f"bytes {f['bytes']}; wall {f['wall_us'] / 1e3:.2f} ms "
+                f"against {f['device_us'] / 1e3:.2f} ms on the device (two "
+                f"ranks sharing one card)")
+    log(f"phase 23 launches over both ranks {launches}; rank-local kernels "
+        f"vs plain, max abs error {errs} [{card}]")
+    return {"launches": launches, "errs": errs}
+
+
+def _sp_training_rank(rank, world, backend, steps):
+    """Phase 24 on one rank: phase 8's step under sp_ulysses over
+    model=world, then at 4 layers sp_ring, fsdp_tp over data=world, and
+    evaluate_entry across the ranks."""
+    import dataclasses
+    import tempfile
+    from videollm_online_tpu_torch.evaluate_entry import evaluate
+    from videollm_online_tpu_torch.ops.auto import auto_attention
+    from videollm_online_tpu_torch.parallel import collectives as coll
+    from videollm_online_tpu_torch.parallel.mesh import make_mesh
+    out = {"backend": backend}
+    gen = torch.Generator(device="cuda").manual_seed(200 + rank)
+    cfg, tok = _train_config()
+    batch, _ = synthetic_batch(cfg, SP_SEQ, np.random.RandomState(0))
+    model_axis = ["--mesh_model_axis", str(world)]
+    for name, layers, attn, mesh_kw in (
+            ("sp_ulysses", None, "sp_ulysses", None),
+            ("sp_ring", 4, "sp_ring", None),
+            ("fsdp_tp", 4, auto_attention, {"data": world, "model": 1})):
+        c = cfg if layers is None else cfg.replace(
+            llama=dataclasses.replace(cfg.llama, num_layers=layers))
+        b = batch if mesh_kw is None else _two_samples(c)
+        n = steps if layers is None else 2
+        params = _lora_8b_params(
+            c, torch.Generator(device="cuda").manual_seed(0))
+        out_dir = _out_dir(f"{name}_rank{rank}")
+        mesh = None if mesh_kw is None else make_mesh(device="cuda",
+                                                      **mesh_kw)
+        trainer = _trainer(params, c, tok, out_dir, b, n, attn,
+                           extra=model_axis if mesh is None else (),
+                           mesh=mesh)
+        del params
+        torch.cuda.empty_cache()
+        step_ms = []
+        inner = trainer._step
+
+        def timed(*a, inner=inner, step_ms=step_ms):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = inner(*a)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return r
+
+        trainer._step = timed
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        coll.reset_stats()
+        trainer.train()
+        torch.cuda.synchronize()
+        res = {"launches": _read_launches(), "step_ms": step_ms,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "collectives": {k: (coll.STATS["calls"][k] / n,
+                                   coll.STATS["bytes"][k] / n)
+                               for k in coll.STATS["calls"]},
+               "steps": n, "layers": c.llama.num_layers,
+               "mesh": repr(trainer.mesh)}
+        if rank == 0:
+            res["losses"] = [r["loss"] for r in _logged(out_dir)]
+        out[name] = res
+        log(f"[rank {rank}] {name} ({res['mesh']}, {c.llama.num_layers} "
+            f"layers, batch {tuple(b['input_ids'].shape)}): ms a step "
+            f"{[round(t, 1) for t in step_ms]}, peak "
+            f"{res['peak_gib']:.2f} GiB, launches {res['launches']}")
+        del trainer
+        torch.cuda.empty_cache()
+        if name == "sp_ulysses":
+            # K2's three kernels at Ulysses's rank-local shapes: the heads
+            # of this rank after the all-to-all, GQA expanded
+            hq = cfg.llama.num_heads // world
+            d = cfg.llama.head_dim
+            out["k2"], _ = _k2_case(f"Ulysses rank-local (1, {hq}, "
+                                    f"{SP_SEQ}, {d})", 1, hq, hq, SP_SEQ,
+                                    SP_SEQ, d, torch.bfloat16, gen)
+    with tempfile.TemporaryDirectory() as tmp, \
+            _coin_eval(tmp, EVAL_COIN_NEW):
+        t0 = time.perf_counter()
+        out["coin_eval"] = evaluate([
+            "--live_version", "live1+", "--model_size", "1b",
+            "--eval_datasets", "coin_step_test", "--pad_to_multiple", "16",
+            "--output_dir", tmp + "/out"])
+        out["coin_eval_s"] = time.perf_counter() - t0
+    return out
+
+
+def _two_samples(cfg):
+    """A batch of two synthetic samples (seeds 0 and 1) at T SP_SEQ."""
+    a, _ = synthetic_batch(cfg, SP_SEQ, np.random.RandomState(0))
+    b, _ = synthetic_batch(cfg, SP_SEQ, np.random.RandomState(1))
+    out = {k: np.concatenate([a[k], b[k]]) for k in a if k != "frames"}
+    if "frames" in a:
+        out["frames"] = np.concatenate([a["frames"], b["frames"]])
+    return out
+
+
+def _single_losses(cfg, tok, batch, layers, steps):
+    """The single-rank LiveTrainer's logged losses (auto attention)."""
+    import dataclasses
+    from videollm_online_tpu_torch.ops.auto import auto_attention
+    c = cfg.replace(llama=dataclasses.replace(cfg.llama, num_layers=layers))
+    params = _lora_8b_params(c, torch.Generator(device="cuda").manual_seed(0))
+    out_dir = _out_dir(f"single_{layers}_{batch['input_ids'].shape[0]}")
+    trainer = _trainer(params, c, tok, out_dir, batch, steps, auto_attention)
+    del params
+    trainer.train()
+    del trainer
+    torch.cuda.empty_cache()
+    return [r["loss"] for r in _logged(out_dir)]
+
+
+def phase_sp_training(steps: int = 3):
+    """Phase 24: sharded training on two ranks of the card: phase 8's 8B
+    int8 LoRA step (T 4096, r 128, dropout 0.05) under ``mesh_model_axis
+    2`` and ``sp_ulysses`` (K2f, K2b, K2q on each rank's 16 heads; the
+    base whole along the model axis, which carries the sequence), its
+    first ``steps`` steps (phase 8 takes 4, cut for time), then
+    at 4 layers ``sp_ring`` and ``fsdp_tp`` over data 2 (a batch of two
+    split over it), and ``evaluate_entry`` (1B proxy, synthetic COIN)
+    striped over the two ranks; each against its single-rank run."""
+    import tempfile
+    card = _card()
+    cfg, tok = _train_config()
+    batch, _ = synthetic_batch(cfg, SP_SEQ, np.random.RandomState(0))
+    if "train_8b" not in _SINGLE_RANK:
+        _SINGLE_RANK["train_8b"] = _single_losses(
+            cfg, tok, batch, cfg.llama.num_layers, steps)
+    want = {"sp_ulysses": _SINGLE_RANK["train_8b"][:steps],
+            "sp_ring": _single_losses(cfg, tok, batch, 4, 2),
+            "fsdp_tp": _single_losses(cfg, tok, _two_samples(cfg), 4, 2)}
+    if "coin_eval" not in _SINGLE_RANK:
+        from videollm_online_tpu_torch.evaluate_entry import evaluate
+        with tempfile.TemporaryDirectory() as tmp, \
+                _coin_eval(tmp, EVAL_COIN_NEW):
+            _SINGLE_RANK["coin_eval"] = evaluate([
+                "--live_version", "live1+", "--model_size", "1b",
+                "--eval_datasets", "coin_step_test", "--pad_to_multiple",
+                "16", "--output_dir", tmp + "/out"])
+    t0 = time.perf_counter()
+    ranks = _spawn_ranks(_sp_training_rank, steps)
+    log(f"two ranks, spawned and trained in {time.perf_counter() - t0:.1f} s")
+    L = cfg.llama.num_layers
+    launches = {k: 0 for k in ("K2f", "K2b", "K2q")}
+    for name, w in want.items():
+        got = ranks[0][name]["losses"]
+        rel = [abs(a - b) / max(abs(b), 1e-9) for a, b in zip(got, w)]
+        if len(got) != len(w) or max(rel) > SP_LOSS_REL:
+            raise AssertionError(f"{name}: losses {got} vs single {w}")
+        log(f"{name}: losses {[round(x, 5) for x in got]} vs the single "
+            f"rank's {[round(x, 5) for x in w]}, rel "
+            f"{[float(f'{x:.3g}') for x in rel]} (bound {SP_LOSS_REL})")
+    for rank, r in enumerate(ranks):
+        u = r["sp_ulysses"]
+        per_step = {k: u["launches"][k] / u["steps"]
+                    for k in ("K2f", "K2b", "K2q")}
+        if per_step != {"K2f": 2 * L, "K2b": L, "K2q": L}:
+            raise AssertionError(f"rank {rank}: K2 launches a step "
+                                 f"{per_step}")
+        for k in launches:
+            launches[k] += u["launches"][k]
+        if r["coin_eval"] != _SINGLE_RANK["coin_eval"]:
+            raise AssertionError(f"rank {rank}: evaluate over two ranks "
+                                 f"{r['coin_eval']} vs one "
+                                 f"{_SINGLE_RANK['coin_eval']}")
+        log(f"rank {rank} ({r['backend']}): sp_ulysses K2 launches a step "
+            f"{per_step}; ms a step (two ranks sharing one card, not a "
+            f"speed of SP) " + "; ".join(
+                f"{n} {[round(t, 1) for t in r[n]['step_ms']]}"
+                for n in want) + "; peak GiB " + ", ".join(
+                f"{n} {r[n]['peak_gib']:.2f}" for n in want))
+        log(f"  collectives a step (calls, bytes): " + "; ".join(
+            f"{n} {r[n]['collectives']}" for n in want))
+        log(f"  evaluate_entry over two ranks: {r['coin_eval']} in "
+            f"{r['coin_eval_s']:.1f} s, equal to one process's")
+    errs = {"K2f": max(r["k2"]["fwd"] for r in ranks),
+            "K2b": max(r["k2"]["dkdv"] for r in ranks),
+            "K2q": max(r["k2"]["dq"] for r in ranks)}
+    log(f"phase 24 launches over both ranks {launches}; K2 at the "
+        f"rank-local shapes vs plain, max abs error {errs} [{card}]")
+    return {"launches": launches, "errs": errs}
+
+
+
+def _nccl_shared_card_rank(rank, world, store, out_path):
+    """One rank of an NCCL group whose ranks share card 0: init and one
+    all-reduce, or the error that refuses them."""
+    import datetime
+    import pickle
+    import torch.distributed as dist
+    try:
+        dist.init_process_group(
+            "nccl", init_method=f"file://{store}", world_size=world,
+            rank=rank, timeout=datetime.timedelta(seconds=60))
+        x = torch.full((4,), float(rank + 1), device="cuda")
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        result = f"ok: {x.tolist()}"
+        dist.destroy_process_group()
+    except Exception as e:  # the probe reports what refused the group
+        result = f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+    with open(out_path, "wb") as f:
+        pickle.dump(result, f)
+
+
+def _gloo_direct_rank(rank, world, backend, op):
+    """One collective on a CUDA tensor handed to gloo as it is: "ok", or
+    the error it raises (a crash of the process shows as no result)."""
+    import torch.distributed as dist
+    x = torch.full((4,), float(rank + 1), device="cuda")
+    fns = {"all_reduce": lambda: dist.all_reduce(x.clone()),
+           "broadcast": lambda: dist.broadcast(x.clone(), 0),
+           "all_gather": lambda: dist.all_gather(
+               [torch.empty_like(x) for _ in range(world)], x),
+           "all_to_all_single": lambda: dist.all_to_all_single(
+               torch.empty_like(x), x),
+           "send/recv": lambda: dist.send(x, 1) if rank == 0
+           else dist.recv(torch.empty_like(x), 0)}
+    try:
+        fns[op]()
+        torch.cuda.synchronize()
+        return "ok"
+    except Exception as e:  # the probe reports what gloo refuses
+        return f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+
+
+def _gloo_staged_rank(rank, world, backend):
+    """Each kind through parallel/collectives.py (pinned host buffers) on
+    CUDA tensors; the results, checked by the caller."""
+    from videollm_online_tpu_torch.parallel import collectives as coll
+    from videollm_online_tpu_torch.parallel.mesh import MODEL_AXIS, make_mesh
+    mesh = make_mesh(data=1, model=world, device="cuda")
+    y = (rank * 10 + torch.arange(world * 2, device="cuda",
+                                  dtype=torch.float32))
+    return {"backend": backend, "staging": mesh.host_staging, "staged": {
+        "all_reduce": coll.all_reduce(y, mesh, MODEL_AXIS).tolist(),
+        "all_gather": coll.all_gather(y, mesh, MODEL_AXIS, 0).tolist(),
+        "all_to_all": coll.all_to_all(y, mesh, MODEL_AXIS, 0, 0).tolist(),
+        "ring_shift": coll.ring_shift(y, mesh, MODEL_AXIS).tolist()}}
+
+
+def phase_collective_probe():
+    """Which backend carries which collective for ranks that share the
+    card: an NCCL group of two ranks on card 0 (expected refused), gloo
+    handed CUDA tensors directly (each collective in a world of its own:
+    some abort the process), and gloo through the collectives module's
+    pinned host buffers (the rule parallel/mesh.py follows)."""
+    import multiprocessing as mp
+    import pathlib
+    import pickle
+    d = pathlib.Path(_out_dir("nccl_probe"))
+    ctx = mp.get_context("spawn")
+    outs = [d / f"rank{r}.pkl" for r in range(TP_WORLD)]
+    procs = [ctx.Process(target=_nccl_shared_card_rank, args=(
+        r, TP_WORLD, str(d / "store"), str(outs[r])))
+        for r in range(TP_WORLD)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(120)
+    nccl = []
+    for p, path in zip(procs, outs):
+        if p.is_alive():
+            p.kill()
+            p.join()
+            nccl.append("did not finish in 120 s")
+        else:
+            nccl.append(pickle.load(open(path, "rb")) if path.exists()
+                        else f"exit {p.exitcode}, no result")
+    log(f"NCCL, {TP_WORLD} ranks on one card: {nccl}")
+    direct = {}
+    for op in ("all_reduce", "broadcast", "all_gather", "all_to_all_single",
+               "send/recv"):
+        try:
+            direct[op] = _spawn_ranks(_gloo_direct_rank, op, timeout=60)
+        except AssertionError as e:   # a rank aborted: that is the finding
+            direct[op] = f"a rank aborted: {str(e).splitlines()[0]}"
+    log(f"gloo on CUDA tensors directly: {direct}")
+    ranks = _spawn_ranks(_gloo_staged_rank, timeout=120)
+    W = TP_WORLD
+    ys = [r * 10 + np.arange(W * 2, dtype=np.float32) for r in range(W)]
+    for rank, r in enumerate(ranks):
+        want = {"all_reduce": sum(ys).tolist(),
+                "all_gather": np.concatenate(ys).tolist(),
+                "all_to_all": np.concatenate(
+                    [y[2 * rank:2 * rank + 2] for y in ys]).tolist(),
+                "ring_shift": ys[(rank - 1) % W].tolist()}
+        if r["staged"] != want:
+            raise AssertionError(f"rank {rank}: staged collectives "
+                                 f"{r['staged']} vs {want}")
+        log(f"rank {rank}: the rule picks {r['backend']} (host staging "
+            f"{r['staging']}); through the pinned host buffers every kind "
+            f"is right")
+    return {"nccl": nccl, "gloo_direct": direct}
+
+
 PHASES = {"toolchain": phase_toolchain, "build": phase_build,
           "k1": phase_k1, "small_engine": phase_small_engine,
           "main_path": phase_main_path, "k2": phase_k2,
@@ -4473,7 +5207,9 @@ PHASES = {"toolchain": phase_toolchain, "build": phase_build,
           "main_path_eval": phase_main_path_eval,
           "small_prep": phase_small_prep,
           "main_path_prep": phase_main_path_prep,
-          "main_path_web": phase_main_path_web}
+          "main_path_web": phase_main_path_web,
+          "tp_serving": phase_tp_serving, "sp_training": phase_sp_training,
+          "collective_probe": phase_collective_probe}
 
 
 # the default run's phases, in order
@@ -4482,7 +5218,7 @@ DEFAULT_RUN = ("toolchain", "build", "k1", "small_engine", "main_path", "k2",
                "small_int4_engine", "main_path_int4", "ab_paths", "k3",
                "small_multistream", "main_path_multistream", "small_demo",
                "main_path_demo", "small_eval", "main_path_eval", "small_prep",
-               "main_path_prep", "main_path_web")
+               "main_path_prep", "main_path_web", "tp_serving", "sp_training")
 
 
 def main(argv=None) -> int:
@@ -4512,11 +5248,11 @@ def main(argv=None) -> int:
         out[name] = PHASES[name]()
         log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
     smi, k1, main_path, k2, training, fused, int4_path, ab, k3, \
-        multistream, demo, evals, prep, web = (out[n] for n in (
+        multistream, demo, evals, prep, web, tp, sp = (out[n] for n in (
             "toolchain", "k1", "main_path", "k2", "main_training", "fused",
             "main_path_int4", "ab_paths", "k3", "main_path_multistream",
             "main_path_demo", "main_path_eval", "main_path_prep",
-            "main_path_web"))
+            "main_path_web", "tp_serving", "sp_training"))
     log(f"card: {smi}; total {time.perf_counter() - t_start:.1f} s")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     k2_source = "videollm_online_tpu_torch/csrc/flash_attention.cu"
@@ -4529,9 +5265,9 @@ def main(argv=None) -> int:
                      + multistream["ring, bf16 KV"]["launches"]["K1"]
                      + sum(r["launches"]["K1"] for r in demo.values())
                      + evals["launches"]["K1"] + prep["launches"]["K1"]
-                     + web["launches"]["K1"]),
+                     + web["launches"]["K1"] + tp["launches"]["K1"]),
         "max_abs_err": max(k1["max_abs_err"], main_path["ring_err"],
-                           evals["k1_err"]),
+                           evals["k1_err"], tp["errs"]["K1"]),
         **{key: k1[key] for key in keys},
     }, {
         "name": "paged_decode_attention",
@@ -4539,8 +5275,8 @@ def main(argv=None) -> int:
         "source": "videollm_online_tpu_torch/csrc/paged_attention.cu",
         "replaces": "videollm_online_tpu/ops/paged_attention.py:175",
         "launches": (sum(r["launches"]["K3"] for r in multistream.values())
-                     + web["launches"]["K3"]),
-        "max_abs_err": k3["max_abs_err"],
+                     + web["launches"]["K3"] + tp["launches"]["K3"]),
+        "max_abs_err": max(k3["max_abs_err"], tp["errs"]["K3"]),
         **{key: k3[key] for key in keys},
     }]
     # K2f counts the training and the eval main paths' launches; its error
@@ -4557,20 +5293,24 @@ def main(argv=None) -> int:
         kernels.append({"name": name, "route": "cuda", "source": k2_source,
                         "replaces": replaces,
                         "launches": (training["launches"][label]
-                                     + evals["launches"][label]),
-                        "max_abs_err": k2[part]["max_abs_err"],
+                                     + evals["launches"][label]
+                                     + sp["launches"][label]),
+                        "max_abs_err": max(k2[part]["max_abs_err"],
+                                           sp["errs"][label]),
                         **{key: k2[part][key] for key in keys}})
     # K4 and K5 count the int4 main paths' launches (phases 11 and 17); K6
     # and K7, which no serving main path reaches, those of their own engine
     # runs (phase 12)
     fused_launches = {**{k: n + demo["int4"]["launches"][k]
+                         + tp["launches"].get(k, 0)
                          for k, n in int4_path["launches"].items()}, **ab}
     for label, (name, _, replaces) in FUSED_KERNELS.items():
         kernels.append({"name": name, "route": "cuda",
                         "source": "videollm_online_tpu_torch/csrc/fused_mlp.cu",
                         "replaces": replaces,
                         "launches": fused_launches[label],
-                        "max_abs_err": fused[label]["max_abs_err"],
+                        "max_abs_err": max(fused[label]["max_abs_err"],
+                                           tp["errs"].get(label, 0.0)),
                         **{key: fused[label][key] for key in keys},
                         "dequant_route_ms": fused[label]["dequant_route_ms"]})
     print(json.dumps({"kernels": kernels}))

@@ -1013,3 +1013,19 @@ def test_tiny_evaluators_kernel_equal_plain_on_card(card):
         generation.greedy_from_embeds(params, cfg, ids, batch["frames"],
                                       max_new_tokens=24,
                                       attn_impl=llama._attention))
+
+
+def test_tp2_forward_on_two_ranks_of_the_card(card, tmp_path):
+    """Two ranks on the one card (gloo, the collectives through pinned host
+    buffers: parallel/mesh.py's rule) run a tensor-parallel forward of a
+    small bf16 decoder with params cut ``tp`` over model=2; K1 runs on
+    both ranks at their 4 q / 1 kv heads, and the logits hold to the
+    unsharded forward within a relative norm of 2e-2 (bf16: each
+    row-parallel product is two rounded partial sums added, where one
+    rank rounds one fp32 sum)."""
+    import _torch_parallel_workers as workers
+    from _torch_dist import run_world
+    for rank, r in enumerate(run_world(workers.tp_forward_cuda, 2,
+                                       tmp_path)):
+        assert r["staging"] and r["k1"] == 2, (rank, r)
+        assert r["rel"] < 2e-2, (rank, r)

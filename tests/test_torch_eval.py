@@ -352,11 +352,29 @@ def test_trainer_evaluate_equal_jax(name, count, trainers):
 
 
 def test_trainer_evaluate_refuses_a_process_group(trainers, monkeypatch):
+    """Evaluation in a process group of two no longer refuses it: rank 1
+    evaluates samples 1::2 and hands its predictions, in their sample
+    order, to the gather (the two-process run itself is
+    tests/test_torch_trainer_mesh.py::
+    test_evaluate_over_two_processes_equals_single)."""
     import torch.distributed as dist
+    from videollm_online_tpu_torch.parallel import collectives
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        trainers[1].evaluate("coin_step_test")
+    monkeypatch.setattr(dist, "get_rank", lambda: 1)
+    gathered = []
+
+    def fake_gather(obj):
+        gathered.append(obj)
+        return [obj, obj]
+
+    monkeypatch.setattr(collectives, "all_gather_object", fake_gather)
+    trainer = trainers[1]
+    ds = trainer.eval_dataset_dict["coin_step_test"]
+    trainer.evaluate("coin_step_test")
+    rows = gathered[0]
+    assert [i for i, _, _ in rows] == list(range(1, len(ds), 2))
+    assert len(gathered) == 2    # the predictions, then rank 0's metrics
 
 
 def test_evaluate_entry_equal_jax(tmp_path, monkeypatch):
@@ -451,5 +469,6 @@ def test_train_entry_trains_saves_and_evaluates(tmp_path, monkeypatch):
                        trainer.params["connector"]["fc1"]["w"])
     with open(os.path.join(out, "eval_results.json")) as f:
         assert "accuracy" in json.load(f)["coin_step_test"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    # sequence-parallel attention needs a model axis of its own
+    with pytest.raises(AssertionError, match="mesh_model_axis > 1"):
         train(argv + ["--attn_implementation", "sp_ring"])

@@ -472,25 +472,29 @@ def test_trainer_and_builder_refuse_what_later_slices_bring(setup, tmp_path):
     _, _, cfg, tok, jparams = setup
     params = params_from_numpy(jparams, device="cpu")
     base = ["--output_dir", str(tmp_path)]
-    for extra, match in ((["--mesh_model_axis", "2"], "parallel"),
-                         (["--offload_optimizer", "true"], "16 GiB"),
+    for extra, match in ((["--offload_optimizer", "true"], "16 GiB"),
                          (["--remat_group", "2"], "16 GiB")):
         with pytest.raises(NotImplementedError, match=match):
             LiveTrainer(params=params, cfg=cfg, tokenizer=tok,
                         args=arguments.parse_args(base + extra))
+    # the parallel slice came (tests/test_torch_trainer_mesh.py): a model
+    # axis needs as many processes, and sequence parallelism a model axis
+    with pytest.raises(AssertionError, match="not divisible by model=2"):
+        LiveTrainer(params=params, cfg=cfg, tokenizer=tok,
+                    args=arguments.parse_args(base + ["--mesh_model_axis",
+                                                      "2"]))
     args = arguments.parse_args(base)
-    with pytest.raises(NotImplementedError, match="parallel"):
+    with pytest.raises(AssertionError, match="mesh_model_axis > 1"):
         LiveTrainer(params=params, cfg=cfg, tokenizer=tok, args=args,
                     attn_impl="sp_ring")
     # evaluation came with the eval slice (tests/test_torch_eval.py): with
-    # no eval datasets there is nothing to report; sequence-parallel
-    # attention is still refused by name
+    # no eval datasets there is nothing to report; the sequence-parallel
+    # names pass through for the trainer to bind
     assert LiveTrainer(params=params, cfg=cfg, tokenizer=tok,
                        args=args).evaluate() == {}
     from videollm_online_tpu_torch.ops.auto import resolve_attn_impl
     for name in ("sp_ring", "sp_ulysses"):
-        with pytest.raises(NotImplementedError, match="parallel"):
-            resolve_attn_impl(name)
+        assert resolve_attn_impl(name) == name
     with pytest.raises(NotImplementedError, match="16 GiB"):
         builder.build_model_and_tokenizer(
             arguments.parse_args(base + ["--mlp_chunk", "64"]), device="cpu")

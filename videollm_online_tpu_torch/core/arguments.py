@@ -50,8 +50,8 @@ class LiveTrainingArguments:
     augmentation: bool = False
     # 'auto' | 'xla' | 'pallas_flash' | 'sp_ring' | 'sp_ulysses' (the JAX
     # package's names; in the port 'auto' and 'pallas_flash' dispatch by
-    # shape to the CUDA kernels, 'xla' is the plain attention, sp_* wait
-    # for the parallel slice)
+    # shape to the CUDA kernels, 'xla' is the plain attention, sp_* are
+    # the ring and Ulysses attentions over the model axis)
     attn_implementation: str = "auto"
     output_dir: str = "outputs/debug"
 
@@ -71,7 +71,8 @@ class LiveTrainingArguments:
     dataloader_num_workers: int = 16
     pad_to_multiple: int = 256
     resume_from_checkpoint: str = ""
-    # parallelism (the parallel slice)
+    # parallelism: the model axis of the (data, model) mesh over the
+    # processes, and the partition rules (parallel/sharding.py)
     mesh_model_axis: int = 1
     sharding_policy: str = "fsdp_tp"
     # ZeRO-2 CPU-offload analog in the JAX package; refused by the port

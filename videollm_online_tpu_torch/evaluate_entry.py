@@ -9,7 +9,10 @@ Counterpart of ``videollm_online_tpu/evaluate_entry.py``:
       [--device cpu]
 
 Runs on the card unless ``--device cpu`` asks for the CPU. Prints the
-metrics and writes ``<output_dir>/eval_results.json``.
+metrics and writes ``<output_dir>/eval_results.json``. Started by
+``torchrun`` (``WORLD_SIZE`` > 1) each process joins the group first
+(``parallel.mesh.initialize_distributed``); the samples are split over
+the processes and rank 0 writes the results.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ from __future__ import annotations
 import argparse
 import json
 import os
+
+import torch.distributed as dist
 
 from .core.arguments import parse_args
 from .data.collator import make_collator
@@ -42,7 +47,17 @@ def data_kwargs(args, tokenizer, augmentation: bool):
         frame_fps=args.frame_fps)
 
 
+def maybe_initialize_distributed(device) -> None:
+    """Join torchrun's process group when the run has several processes."""
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 and not (
+            dist.is_available() and dist.is_initialized()):
+        from .parallel.mesh import initialize_distributed
+        initialize_distributed(device=device)
+
+
 def write_results(metrics, output_dir: str) -> None:
+    if dist.is_available() and dist.is_initialized() and dist.get_rank():
+        return
     print(json.dumps(metrics, indent=1))
     os.makedirs(output_dir, exist_ok=True)
     with open(os.path.join(output_dir, "eval_results.json"), "w") as f:
@@ -52,6 +67,7 @@ def write_results(metrics, output_dir: str) -> None:
 def evaluate(argv=None):
     device, argv = split_device(argv)
     args = parse_args(argv)
+    maybe_initialize_distributed(device)
     params, tokenizer, cfg = build_model_and_tokenizer(
         args, is_training=False, device=device)
     eval_dict = build_eval_dataset_dict(

@@ -32,6 +32,10 @@ from torch.utils.checkpoint import checkpoint
 from ..core.config import LlamaConfig, LoraConfig
 from ..core.device import resolve_device, torch_dtype
 from ..ops import fused_mlp
+from ..parallel import collectives as coll
+from ..parallel.context import ParallelContext, local_kv_heads
+from ..parallel.mesh import MODEL_AXIS
+from ..parallel.sharding import MATRICES, logical_shape
 
 Params = Dict[str, Any]
 
@@ -114,14 +118,27 @@ def fold_seed(seed: int, *ids: int) -> int:
     return seed
 
 
-def dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, seed: int,
+            region: Optional[Tuple[tuple, tuple]] = None) -> torch.Tensor:
     """Inverted dropout: keep with probability 1 - rate and scale by
     1 / (1 - rate), in x's dtype; the mask comes from a fresh generator
     seeded with ``seed`` (the JAX package draws ``bernoulli`` from a
-    folded key, so the masks differ, not their law)."""
+    folded key, so the masks differ, not their law). ``region`` = (the
+    global shape, x's offsets in it): a rank's shard of a batch, sequence
+    or column range draws the mask of the whole tensor and takes its
+    block (an offset may be an index tensor: those rows), so a sharded
+    step drops what the single-rank step drops."""
     g = torch.Generator(device=x.device)
     g.manual_seed(seed)
-    keep = torch.rand(x.shape, generator=g, device=x.device) < 1.0 - rate
+    if region is None:
+        u = torch.rand(x.shape, generator=g, device=x.device)
+    else:
+        shape, offsets = region
+        u = torch.rand(shape, generator=g, device=x.device)
+        for d, o in enumerate(offsets):
+            u = (u.index_select(d, o) if isinstance(o, torch.Tensor)
+                 else u.narrow(d, o, x.shape[d]))
+    keep = u < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -133,11 +150,12 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
 
 def dense(x: torch.Tensor, w, lora: Optional[Dict] = None,
           scaling: float = 1.0, drop_seed: Optional[int] = None,
-          drop_rate: float = 0.0) -> torch.Tensor:
+          drop_rate: float = 0.0, drop_region=None) -> torch.Tensor:
     """x @ w for a plain or quantized (int8 ``q8``, int4 ``q4c`` / ``q4p``,
     models/quant.py) weight, plus the LoRA
     branch ``scaling * (x A^T) B^T``; with ``drop_seed`` and a rate, the
-    branch's input goes through dropout first (PEFT's lora_dropout)."""
+    branch's input goes through dropout first (PEFT's lora_dropout; a
+    shard's mask is cut from ``drop_region``, see ``dropout``)."""
     if isinstance(w, dict):
         from .quant import quantized_matmul
         y = quantized_matmul(x, w)
@@ -146,7 +164,7 @@ def dense(x: torch.Tensor, w, lora: Optional[Dict] = None,
     if lora is not None:
         xl = x
         if drop_seed is not None and drop_rate > 0.0:
-            xl = dropout(x, drop_rate, drop_seed)
+            xl = dropout(x, drop_rate, drop_seed, drop_region)
         y = y + scaling * ((xl @ lora["lora_a"].transpose(-1, -2))
                            @ lora["lora_b"].transpose(-1, -2))
     return y
@@ -221,7 +239,8 @@ def _kv_pools(shape, dtype, quant: Optional[str], device):
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, capacity: int, dtype=None,
                   quant: Optional[str] = None, device=None) -> KVCache:
-    shape = (cfg.num_layers, batch, cfg.num_kv_heads, capacity, cfg.head_dim)
+    shape = (cfg.num_layers, batch, local_kv_heads(cfg), capacity,
+             cfg.head_dim)
     return KVCache(
         **_kv_pools(shape, dtype or torch_dtype(cfg.dtype), quant,
                     resolve_device(device)),
@@ -269,7 +288,7 @@ def init_paged_kv_cache(cfg: LlamaConfig, batch: int, *, pool_pages: int,
                         pages_per_stream: int, page_size: int = 512,
                         dtype=None, quant: Optional[str] = None,
                         device=None) -> PagedKVCache:
-    shape = (cfg.num_layers, pool_pages, cfg.num_kv_heads, page_size,
+    shape = (cfg.num_layers, pool_pages, local_kv_heads(cfg), page_size,
              cfg.head_dim)
     return PagedKVCache(
         **_kv_pools(shape, dtype or torch_dtype(cfg.dtype), quant,
@@ -407,8 +426,22 @@ def _index_tree(tree, i: int):
     return tree[i]
 
 
+def _drop_region(x, rows, cols=None):
+    """(global shape, offsets) of a LoRA input x (B, S, K) for ``dropout``:
+    ``rows`` = (batch start, global batch, position start, global length)
+    of a batch or sequence shard, ``cols`` = (start, global width) of a
+    tensor-parallel column range; None when x is the whole tensor."""
+    if rows is None and cols is None:
+        return None
+    b0, Bg, s0, Tg = rows if rows is not None else (0, x.shape[0], 0,
+                                                    x.shape[1])
+    k0, Kg = cols if cols is not None else (0, x.shape[2])
+    return (Bg, Tg, Kg), (b0, s0, k0)
+
+
 def _layer(h, lp, ll, cos, sin, q_pos, kv_ctx, cfg: LlamaConfig,
-           lora_scaling, attn_impl, drop_seed=None, lora_dropout=0.0):
+           lora_scaling, attn_impl, drop_seed=None, lora_dropout=0.0,
+           par: Optional[ParallelContext] = None, rows=None):
     """One transformer block. ``kv_ctx`` = (cache, starts, layer) for a
     ring: this layer's K/V (int8 codes and scales for an int8 ring) are
     written into the stacked ring at ``starts`` (one host int per stream)
@@ -417,15 +450,36 @@ def _layer(h, lp, ll, cos, sin, q_pos, kv_ctx, cfg: LlamaConfig,
     ``row`` (``paged_slots``) with one indexed store per pool, and
     attention is ``ops.paged_attention`` whatever ``attn_impl`` is, as in
     the JAX package. ``drop_seed`` (the layer's) seeds each projection's
-    LoRA dropout."""
+    LoRA dropout. Under a mesh (``par``) the layer's weight shards are
+    gathered and its LoRA and biases cut as ``parallel/context.py`` says,
+    the row-parallel products are summed over the model axis, and
+    ``rows`` places a batch or sequence shard's dropout masks."""
     B, S, _ = h.shape
-    Hq, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
+    Hq, Hkv = (cfg.num_heads, cfg.num_kv_heads) if par is None \
+        else par.heads()
+    if par is not None:
+        lp = {k: (par.weight(v, k) if k in MATRICES else
+                  par.bias(v, "w" + k[1]) if k in ("bq", "bk", "bv") else v)
+              for k, v in lp.items()}
+        if ll is not None:
+            ll = {k: par.lora(v, k) for k, v in ll.items()}
 
     def dns(x, name):
         seed = (None if drop_seed is None
                 else fold_seed(drop_seed, _PROJECTIONS.index(name)))
+        cols = None
+        if par is not None and par.ranges is not None and \
+                name in ("wo", "w_down"):
+            full_in = cfg.q_dim if name == "wo" else cfg.intermediate_size
+            cols = (par.col_range(name)[0], full_in)
+        region = (_drop_region(x, rows, cols) if seed is not None
+                  and lora_dropout > 0.0 else None)
         return dense(x, lp[name], None if ll is None else ll.get(name),
-                     lora_scaling, seed, lora_dropout)
+                     lora_scaling, seed, lora_dropout, region)
+
+    def reduce(y):
+        return y if par is None else par.reduce(y)
 
     x = rms_norm(h, lp["attn_norm"], cfg.rms_norm_eps)
     q, k, v = dns(x, "wq"), dns(x, "wk"), dns(x, "wv")
@@ -471,12 +525,13 @@ def _layer(h, lp, ll, cos, sin, q_pos, kv_ctx, cfg: LlamaConfig,
         attn_out = attn_impl(q, k, v, q_pos, None, num_groups=Hq // Hkv)
 
     attn_out = attn_out.transpose(1, 2).reshape(B, S, Hq * hd)
-    h = h + dns(attn_out, "wo")
+    h = h + reduce(dns(attn_out, "wo"))
     x = rms_norm(h, lp["mlp_norm"], cfg.rms_norm_eps)
     fused = fused_mlp.maybe_fused(x, lp, ll)
     if fused is not None:
-        return h + fused.to(h.dtype)
-    return h + dns(F.silu(dns(x, "w_gate")) * dns(x, "w_up"), "w_down")
+        return h + reduce(fused).to(h.dtype)
+    return h + reduce(dns(F.silu(dns(x, "w_gate")) * dns(x, "w_up"),
+                          "w_down"))
 
 
 def forward(
@@ -497,6 +552,7 @@ def forward(
     logit_gather_positions: Optional[torch.Tensor] = None,
     dropout_seed: Optional[int] = None,
     lora_dropout: float = 0.0,
+    shard_rows: Optional[Tuple[int, int, int, int]] = None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the decoder.
 
@@ -512,7 +568,18 @@ def forward(
     start is clamped into the ring as ``jax.lax.dynamic_update_slice``
     clamps it. Returns (logits, cache) where the cache shares the ring or
     pool and has ``offset + num_valid``.
+
+    Under a mesh (``parallel.mesh.maybe_mesh``) ``params`` is the
+    rank-local tree of ``train.step.shard_params`` and the forward runs
+    tensor parallel, or sequence parallel when ``attn_impl`` is a ring or
+    Ulysses attention (``parallel/context.py``); the logits are whole on
+    every rank. ``shard_rows`` = (batch start, global batch, position
+    start, global length) places a batch or sequence shard in the global
+    tensor for the dropout masks.
     """
+    par = ParallelContext.current(cfg, attn_impl)
+    if par is not None:
+        par.check_sharded(params["layers"]["wq"])
     attn_impl = attn_impl or _attention
     if cfg.sliding_window is not None:
         attn_impl = _windowed(attn_impl, cfg.sliding_window)
@@ -545,7 +612,8 @@ def forward(
         for i in range(cfg.num_layers):
             h = _layer(h, _index_tree(params["layers"], i),
                        _index_tree(layer_lora, i), cos, sin, attn_pos,
-                       (kv_cache, where, i), cfg, lora_scaling, attn_impl)
+                       (kv_cache, where, i), cfg, lora_scaling, attn_impl,
+                       par=par)
         new_cache = kv_cache.replace(offset=kv_cache.offset + nv)
     else:
         use_dropout = (dropout_seed is not None and lora_dropout > 0.0
@@ -555,7 +623,7 @@ def forward(
                     _index_tree(layer_lora, i), cos, sin, positions, None,
                     cfg, lora_scaling, attn_impl,
                     fold_seed(dropout_seed, i) if use_dropout else None,
-                    lora_dropout if use_dropout else 0.0)
+                    lora_dropout if use_dropout else 0.0, par, shard_rows)
             if remat:
                 h = checkpoint(_layer, *args, use_reentrant=False)
             else:
@@ -577,34 +645,80 @@ def forward(
     head_seed = (fold_seed(dropout_seed, cfg.num_layers)
                  if dropout_seed is not None and lora_dropout > 0.0 else None)
     return lm_head(params, h, cfg, lora=lora, lora_scaling=lora_scaling,
-                   drop_seed=head_seed, drop_rate=lora_dropout), new_cache
+                   drop_seed=head_seed, drop_rate=lora_dropout,
+                   drop_region=(_drop_region(h, shard_rows)
+                                if head_seed is not None else None),
+                   par=par), new_cache
 
 
 def embed_tokens(params: Params, input_ids: torch.Tensor, cfg: LlamaConfig
                  ) -> torch.Tensor:
     """Token embedding; ids are clamped into the vocab so the out-of-vocab
     ``<v>`` placeholder id is safe. int8 rows are multiplied by their
-    per-row scale in the model dtype."""
+    per-row scale in the model dtype. Under a mesh the table is the
+    rank's shard: its vocabulary shards over ``data`` are gathered (the
+    ranks of that axis hold other tokens), its hidden columns over
+    ``model`` looked up locally and the rows all-gathered."""
     embed = params["embed"]
+    par = ParallelContext.current(cfg)
+    if par is not None:
+        embed = par.weight(embed, "embed")
     table = embed["q8"] if isinstance(embed, dict) else embed
     ids = torch.as_tensor(input_ids).to(table.device).long().clamp(
         0, cfg.vocab_size - 1)
     if isinstance(embed, dict):
         dtype = torch_dtype(cfg.dtype)
-        return embed["q8"][ids].to(dtype) * embed["scale"][ids][..., None].to(dtype)
-    return embed[ids]
+        out = embed["q8"][ids].to(dtype) * \
+            embed["scale"][ids][..., None].to(dtype)
+    else:
+        out = embed[ids]
+    if par is not None and logical_shape(embed)[1] < cfg.hidden_size:
+        out = coll.all_gather(out, par.mesh, MODEL_AXIS, -1)
+    return out
 
 
 def lm_head(params: Params, h: torch.Tensor, cfg: LlamaConfig, *,
             lora: Optional[Params] = None, lora_scaling: float = 1.0,
-            drop_seed: Optional[int] = None, drop_rate: float = 0.0
+            drop_seed: Optional[int] = None, drop_rate: float = 0.0,
+            drop_region=None, par: Optional[ParallelContext] = None
             ) -> torch.Tensor:
+    """h @ the head (or the tied embedding's transpose), plus its LoRA.
+    ``par`` (default: the current mesh's tensor-parallel context): the
+    head's data shards are gathered, and under tensor parallel each rank
+    computes its vocabulary columns and the logits are all-gathered (a
+    tied head: its hidden columns, summed over the model axis)."""
+    if par is None:
+        par = ParallelContext.current(cfg)
+    head_lora = (lora or {}).get("lm_head")
     if cfg.tie_word_embeddings:
         if isinstance(params["embed"], dict):
             raise ValueError("tied embeddings are not supported with "
                              "quantized (int8 / int4) weights")
-        w = params["embed"].T
-    else:
-        w = params["lm_head"]
-    return dense(h, w, (lora or {}).get("lm_head"), lora_scaling,
-                 drop_seed, drop_rate)
+        w = params["embed"]
+        if par is None:
+            return dense(h, w.T, head_lora, lora_scaling, drop_seed,
+                         drop_rate, drop_region)
+        w = par.weight(w, "embed")
+        if par.ranges is None:
+            return dense(h, w.T, head_lora, lora_scaling, drop_seed,
+                         drop_rate, drop_region)
+        s, c = par.ranges["d"]
+        if head_lora is not None:
+            head_lora = {"lora_a": head_lora["lora_a"].narrow(-1, s, c),
+                         "lora_b": head_lora["lora_b"]}
+        if drop_region is not None:
+            (Bg, Tg, _), (b0, s0, _) = drop_region
+            drop_region = (Bg, Tg, cfg.hidden_size), (b0, s0, s)
+        return par.reduce(dense(h.narrow(-1, s, c), w.T, head_lora,
+                                lora_scaling, drop_seed, drop_rate,
+                                drop_region))
+    w = params["lm_head"]
+    if par is None:
+        return dense(h, w, head_lora, lora_scaling, drop_seed, drop_rate,
+                     drop_region)
+    w = par.weight(w, "lm_head")
+    y = dense(h, w, par.lora(head_lora, "lm_head"), lora_scaling,
+              drop_seed, drop_rate, drop_region)
+    if par.ranges is None:
+        return y
+    return coll.all_gather(y, par.mesh, MODEL_AXIS, -1)

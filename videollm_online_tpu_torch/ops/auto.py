@@ -79,12 +79,11 @@ def resolve_attn_impl(name: str):
     """``--attn_implementation`` -> the attention the forward calls (JAX
     ``ops/auto.py:78``): 'auto', 'pallas' and 'pallas_flash' dispatch by
     shape (``auto_attention``); 'xla' is the plain attention (None, the
-    forward's default). The sequence-parallel 'sp_ring' and 'sp_ulysses'
-    come with the parallel slice."""
+    forward's default). 'sp_ring' and 'sp_ulysses' pass through as
+    strings: they need the mesh, so ``LiveTrainer`` binds them to its model
+    axis (``ops/ring_attention.py``, ``ops/ulysses_attention.py``)."""
     if name in ("auto", "pallas", "pallas_flash"):
         return auto_attention
     if name in ("sp_ring", "sp_ulysses"):
-        raise NotImplementedError(
-            f"attn_implementation {name!r}: sequence-parallel attention "
-            f"comes with the parallel slice (ROADMAP Queue 1 item 8)")
+        return name
     return None

@@ -7,12 +7,22 @@ gradient accumulation, the cosine LR, adapter checkpoints and metric
 logging over the port's train step, and an eval loop that runs each
 dataset's evaluator (stream_evaluate / generate / generate_after_embed) and
 feeds the predictions to the dataset's ``compute_metrics``. The caller
-gives the datasets and the collate function. Refused, with the ROADMAP
-item that brings each: a mesh or ``mesh_model_axis > 1``, the
-``sp_ring``/``sp_ulysses`` attentions and evaluation across more than one
-process (Queue 1 item 8, parallel), and ``offload_optimizer`` and
-``remat_group`` other than 1 (16 GiB-fit mechanisms the port drops: it
-remats every layer on its own).
+gives the datasets and the collate function.
+
+Parallel runs (every rank a process of an initialised
+``torch.distributed`` world): ``mesh_model_axis > 1`` builds a (data,
+model) mesh over the world, the params are cut by ``shard_params`` under
+``sharding_policy``, each step's batch by ``shard_batch``, and the step
+runs under the mesh; ``sp_ring`` / ``sp_ulysses`` bind the sequence-
+parallel attention to the model axis, which then carries the sequence
+(the base is cut over ``data`` only). The loader stripes by the rank's
+DATA coordinate (the ranks of one data index must see the same samples);
+``evaluate`` does too and runs tensor parallel over the model axis, or,
+under a sequence-parallel attention, stripes by rank and runs each rank's
+samples outside the mesh on the base it holds whole; it gathers the
+predictions before ``compute_metrics``. Rank 0 alone logs and saves. Refused:
+``offload_optimizer`` and ``remat_group`` other than 1 (16 GiB-fit
+mechanisms the port drops: it remats every layer on its own).
 """
 
 from __future__ import annotations
@@ -23,6 +33,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.arguments import LiveTrainingArguments
 from ..core.config import LiveConfig
@@ -30,6 +41,10 @@ from ..data.collator import collate
 from ..data.loader import DataLoader
 from ..eval.generation import beam_generate, greedy_from_embeds
 from ..eval.stream_evaluate import StreamEvaluator
+from ..parallel import collectives as coll
+from ..parallel.context import ParallelContext
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, make_mesh, maybe_mesh
+from ..parallel.sharding import MATRICES
 from ..utils.logging import MetricLogger
 from . import checkpoints, optim
 from . import step as step_mod
@@ -41,14 +56,6 @@ class LiveTrainer:
                  train_dataset=None, eval_dataset_dict=None,
                  compute_metrics_dict=None, collate_fn=None, mesh=None,
                  attn_impl=None):
-        if mesh is not None or args.mesh_model_axis > 1:
-            raise NotImplementedError(
-                "meshes and mesh_model_axis > 1 come with the parallel slice "
-                "(ROADMAP Queue 1 item 8)")
-        if isinstance(attn_impl, str):
-            raise NotImplementedError(
-                f"attn_impl {attn_impl!r}: sequence-parallel attention comes "
-                f"with the parallel slice (ROADMAP Queue 1 item 8)")
         for name, value in (("offload_optimizer", args.offload_optimizer),
                             ("remat_group", args.remat_group != 1)):
             if value:
@@ -62,8 +69,29 @@ class LiveTrainer:
         self.eval_dataset_dict = eval_dataset_dict or {}
         self.compute_metrics_dict = compute_metrics_dict or {}
         self.collate_fn = collate_fn
+        device = optim.tree_leaves(params)[0].device
+        self.mesh = mesh
+        if self.mesh is None and args.mesh_model_axis > 1:
+            self.mesh = make_mesh(data=-1, model=args.mesh_model_axis,
+                                  device=device)
+        if isinstance(attn_impl, str) and attn_impl.startswith("sp_"):
+            # sequence-parallel attention over the model axis: 'sp_ring'
+            # (ops/ring_attention.py) or 'sp_ulysses'
+            # (ops/ulysses_attention.py)
+            assert self.mesh is not None and \
+                self.mesh.shape[MODEL_AXIS] > 1, (
+                    f"attn_implementation={attn_impl!r} needs "
+                    f"mesh_model_axis > 1")
+            if attn_impl == "sp_ring":
+                from ..ops.ring_attention import make_ring_attn
+                attn_impl = make_ring_attn(self.mesh, MODEL_AXIS)
+            else:
+                from ..ops.ulysses_attention import make_ulysses_attn
+                attn_impl = make_ulysses_attn(self.mesh, MODEL_AXIS)
         self.attn_impl = attn_impl
-        self.logger = MetricLogger(args.output_dir)
+        self.is_main = not (dist.is_available() and dist.is_initialized()) \
+            or dist.get_rank() == 0
+        self.logger = MetricLogger(args.output_dir) if self.is_main else None
 
         if train_dataset is not None:
             steps_per_epoch = max(
@@ -77,8 +105,38 @@ class LiveTrainer:
             learning_rate=args.learning_rate, warmup_ratio=args.warmup_ratio,
             total_steps=self.total_steps)
         self.schedule = optim.make_schedule(self.optim_cfg)
+        if self.mesh is not None:
+            # with a sequence-parallel attention the model axis carries
+            # the sequence and the base stays whole along it (each rank
+            # runs every weight on its T/N positions; a base cut along it
+            # would be gathered a layer at a time, as fsdp gathers data)
+            axes = ((DATA_AXIS,) if self._sequence_parallel()
+                    else (DATA_AXIS, MODEL_AXIS))
+            params = step_mod.shard_params(params, self.mesh,
+                                           args.sharding_policy, cfg=cfg,
+                                           axes=axes)
         self.state, self.frozen = step_mod.init_train_state(params)
         self.device = optim.tree_leaves(self.state.trainable)[0].device
+
+    def _sequence_parallel(self) -> bool:
+        return getattr(self.attn_impl, "sequence_axis", None) is not None
+
+    def _stripes(self, evaluating: bool = False):
+        """(index, count) of this rank's stripe of the samples: its data
+        coordinate on a mesh, else its rank in the world. An evaluation
+        under a sequence-parallel attention runs outside the mesh (decoding
+        has no sequence to cut), so its stripes are the ranks."""
+        if self.mesh is not None and not (evaluating and
+                                          self._sequence_parallel()):
+            return (self.mesh.coord(DATA_AXIS),
+                    self.mesh.shape[DATA_AXIS])
+        if dist.is_available() and dist.is_initialized():
+            return dist.get_rank(), dist.get_world_size()
+        return 0, 1
+
+    def _log(self, step, metrics):
+        if self.logger is not None:
+            self.logger.log(step, metrics)
 
     def _step(self, state, frozen, batch):
         args = self.args
@@ -118,10 +176,12 @@ class LiveTrainer:
 
     def train(self):
         args = self.args
+        index, count = self._stripes()
         loader = DataLoader(
             self.train_dataset, batch_size=args.per_device_train_batch_size,
             collate_fn=self.collate_fn, shuffle=True, seed=args.seed,
-            num_workers=args.dataloader_num_workers)
+            num_workers=args.dataloader_num_workers, process_index=index,
+            process_count=count)
         accum = args.gradient_accumulation_steps
         micro: List[dict] = []
         t0 = time.time()
@@ -137,11 +197,16 @@ class LiveTrainer:
                     stacked = {k: v[0] for k, v in stacked.items()}
                 tbatch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
                     self.device) for k, v in stacked.items()}
-                self.state, metrics = self._step(self.state, self.frozen,
-                                                 tbatch)
+                if self.mesh is not None:
+                    tbatch = step_mod.shard_batch(
+                        tbatch, self.mesh, accum_axis=accum > 1,
+                        cfg=self.cfg)
+                with maybe_mesh(self.mesh):
+                    self.state, metrics = self._step(self.state,
+                                                     self.frozen, tbatch)
                 step = int(metrics["step"]) + 1
                 if step % args.logging_steps == 0:
-                    self.logger.log(step, {
+                    self._log(step, {
                         "loss": float(metrics["loss"]),
                         "grad_norm": float(metrics["grad_norm"]),
                         "steps_per_sec": args.logging_steps / max(
@@ -161,6 +226,8 @@ class LiveTrainer:
         return self.state
 
     def save_model(self, path: Optional[str] = None):
+        if not self.is_main:   # the trainable tree is the same on every rank
+            return
         path = path or self.args.output_dir
         checkpoints.save_adapter(os.path.join(path, "adapter"),
                                  self.state.trainable)
@@ -170,65 +237,68 @@ class LiveTrainer:
         return optim.merge_params(self.state.trainable, self.frozen)
 
     # ------------------------------------------------------------ evaluation
+    def _eval_params(self) -> Dict[str, Any]:
+        """The params with their data-axis shards gathered: ranks of other
+        data indices evaluate other samples, so only the model axis may
+        carry collectives in the forward (and none outside the mesh)."""
+        params = self.params
+        if self.mesh is None or self.mesh.shape[DATA_AXIS] == 1:
+            return params
+        par = ParallelContext(self.mesh, self.cfg.llama,
+                              sequence_parallel=self._sequence_parallel())
+        lp = params["llama"]
+        llama_p = dict(lp, layers={
+            n: (par.weight(m, n) if n in MATRICES else m)
+            for n, m in lp["layers"].items()})
+        for name in ("embed", "lm_head"):
+            if name in lp:
+                llama_p[name] = par.weight(lp[name], name)
+        return dict(params, llama=llama_p)
+
     def evaluate(self, dataset_name: Optional[str] = None, *,
-                 process_index: int = 0,
-                 process_count: int = 1) -> Dict[str, dict]:
+                 process_index: Optional[int] = None,
+                 process_count: Optional[int] = None) -> Dict[str, dict]:
         """Run each eval dataset through its evaluator and compute metrics
         (reference trainer_with_gen2eval.py + train.py:27-36).
 
-        Samples ``process_index::process_count`` are evaluated (the JAX
-        package's striding, kept so a caller can split the samples); the
-        gather of predictions across processes comes with the parallel
-        slice, so an initialised process group of more than one rank is
-        refused."""
-        import torch.distributed as dist
-        if dist.is_available() and dist.is_initialized() \
-                and dist.get_world_size() > 1:
-            raise NotImplementedError(
-                "evaluation across processes gathers the predictions; that "
-                "comes with the parallel slice (ROADMAP Queue 1 item 8)")
+        Samples ``process_index::process_count`` are evaluated, by default
+        this rank's stripe (``_stripes``); with the default stripes of a
+        run of several, every rank's predictions and sample indices are
+        gathered (``all_gather_object``, the HF eval-loop gather of
+        trainer_with_gen2eval.py:20-21) into the single-process order
+        before ``compute_metrics``, which rank 0 runs and hands to all.
+        On a mesh the evaluators run tensor parallel over the model axis;
+        under a sequence-parallel attention, outside the mesh."""
+        own_index, own_count = self._stripes(evaluating=True)
+        mesh = None if self._sequence_parallel() else self.mesh
+        gather = process_index is None and process_count is None \
+            and dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1
+        if process_index is None:
+            process_index = own_index
+        if process_count is None:
+            process_count = own_count
         results = {}
         names = ([dataset_name] if dataset_name
                  else list(self.eval_dataset_dict))
-        params = self.params
+        params = self._eval_params()
         for name in names:
             ds = self.eval_dataset_dict[name]
-            predictions, sample_idxs = [], []
-            stream_eval = None
-            for i in range(process_index, len(ds), process_count):
-                text, frames, learn_ranges, idx, ekw = ds[i]
-                # right padding to a bucket never enters attention
-                batch = collate([(text, frames, learn_ranges, idx, ekw)],
-                                tokenizer=self.tokenizer,
-                                pad_to_multiple=max(self.args.pad_to_multiple,
-                                                    1))
-                num_valid = int(batch["attention_mask"][0].sum())
-                ekw = ekw or {}
-                evaluator = ekw.get("evaluator", "stream_evaluate")
-                if evaluator == "stream_evaluate":
-                    if stream_eval is None:
-                        stream_eval = StreamEvaluator(params, self.cfg)
-                    pred = stream_eval(
-                        batch["input_ids"], batch["labels"], batch["frames"],
-                        self.args.frame_token_interval_threshold)
-                elif evaluator == "generate":
-                    pred = beam_generate(
-                        params, self.cfg, batch["input_ids"], batch["frames"],
-                        num_beams=ekw.get("num_beams", 1),
-                        max_new_tokens=ekw.get("max_new_tokens", 512),
-                        num_return_sequences=ekw.get("num_return_sequences"),
-                        num_valid=num_valid,
-                    ).reshape(-1)
-                elif evaluator == "generate_after_embed":
-                    pred = greedy_from_embeds(
-                        params, self.cfg, batch["input_ids"], batch["frames"],
-                        max_new_tokens=ekw.get("max_new_tokens", 512),
-                        num_valid=num_valid,
-                    ).reshape(-1)
-                else:
-                    raise ValueError(f"unknown evaluator {evaluator}")
-                predictions.append(np.asarray(pred))
-                sample_idxs.append(idx)
+            predictions, sample_idxs, order = [], [], []
+            evaluators = {}
+            with maybe_mesh(mesh):
+                for i in range(process_index, len(ds), process_count):
+                    pred, idx = self._predict(params, ds[i], evaluators)
+                    predictions.append(pred)
+                    sample_idxs.append(idx)
+                    order.append(i)
+            if gather:
+                rows = [r for part in coll.all_gather_object(
+                    list(zip(order, predictions, sample_idxs)))
+                    for r in part]
+                rows = sorted(dict((o, (p, x)) for o, p, x in rows).items())
+                predictions = [p for _, (p, _) in rows]
+                sample_idxs = [x for _, (_, x) in rows]
             # pad rows to a rectangle as the HF gather does
             L = max((len(p) for p in predictions), default=1)
             rect = np.full((len(predictions), L), -100.0
@@ -241,6 +311,48 @@ class LiveTrainer:
                 fn = lambda preds, idxs: ds.compute_metrics(  # noqa: E731
                     preds, idxs, tokenizer=self.tokenizer,
                     output_dir=self.args.output_dir)
-            results[name] = fn(rect, np.asarray(sample_idxs)) if fn else {}
-            self.logger.log_dict(f"eval/{name}", results[name])
+            metrics = None
+            if self.is_main or not gather:
+                metrics = fn(rect, np.asarray(sample_idxs)) if fn else {}
+            if gather:
+                metrics = coll.all_gather_object(metrics)[0]
+            results[name] = metrics
+            if self.logger is not None:
+                self.logger.log_dict(f"eval/{name}", results[name])
         return results
+
+    def _predict(self, params, item, evaluators):
+        """(prediction, sample index) of one sample through its evaluator;
+        ``evaluators`` keeps the dataset's StreamEvaluator, made at its
+        first use."""
+        text, frames, learn_ranges, idx, ekw = item
+        # right padding to a bucket never enters attention
+        batch = collate([(text, frames, learn_ranges, idx, ekw)],
+                        tokenizer=self.tokenizer,
+                        pad_to_multiple=max(self.args.pad_to_multiple, 1))
+        num_valid = int(batch["attention_mask"][0].sum())
+        ekw = ekw or {}
+        evaluator = ekw.get("evaluator", "stream_evaluate")
+        if evaluator == "stream_evaluate":
+            if "stream" not in evaluators:
+                evaluators["stream"] = StreamEvaluator(params, self.cfg)
+            pred = evaluators["stream"](
+                batch["input_ids"], batch["labels"], batch["frames"],
+                self.args.frame_token_interval_threshold)
+        elif evaluator == "generate":
+            pred = beam_generate(
+                params, self.cfg, batch["input_ids"], batch["frames"],
+                num_beams=ekw.get("num_beams", 1),
+                max_new_tokens=ekw.get("max_new_tokens", 512),
+                num_return_sequences=ekw.get("num_return_sequences"),
+                num_valid=num_valid,
+            ).reshape(-1)
+        elif evaluator == "generate_after_embed":
+            pred = greedy_from_embeds(
+                params, self.cfg, batch["input_ids"], batch["frames"],
+                max_new_tokens=ekw.get("max_new_tokens", 512),
+                num_valid=num_valid,
+            ).reshape(-1)
+        else:
+            raise ValueError(f"unknown evaluator {evaluator}")
+        return np.asarray(pred), idx

@@ -9,7 +9,10 @@ Counterpart of ``videollm_online_tpu/train_entry.py``:
 
 Builds the model and tokenizer, the train and eval datasets, trains, saves
 the adapter, then evaluates each eval dataset with its evaluator. Runs on
-the card unless ``--device cpu`` asks for the CPU.
+the card unless ``--device cpu`` asks for the CPU. Under ``torchrun``
+(``WORLD_SIZE`` > 1) each process joins the group before the trainer is
+built, and ``--mesh_model_axis`` / ``--attn_implementation sp_*`` shard
+the run over it.
 """
 
 from __future__ import annotations
@@ -17,7 +20,8 @@ from __future__ import annotations
 from .core.arguments import parse_args
 from .data.collator import make_collator
 from .data.registry import build_concat_train_dataset, build_eval_dataset_dict
-from .evaluate_entry import data_kwargs, split_device, write_results
+from .evaluate_entry import (data_kwargs, maybe_initialize_distributed,
+                             split_device, write_results)
 from .models.builder import build_model_and_tokenizer
 from .ops.auto import resolve_attn_impl
 from .train.trainer import LiveTrainer
@@ -26,6 +30,7 @@ from .train.trainer import LiveTrainer
 def train(argv=None):
     device, argv = split_device(argv)
     args = parse_args(argv)
+    maybe_initialize_distributed(device)
     params, tokenizer, cfg = build_model_and_tokenizer(
         args, is_training=True, device=device)
     train_dataset = build_concat_train_dataset(
