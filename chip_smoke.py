@@ -95,6 +95,18 @@ any failure raises and exits non-zero:
      of one batched forward of 1, 20, 91 and 128 tokens; then the same traffic with int8 KV and spec
      decode, and on the batched ring (K1 and the plain attention); then a
      close, a re-admission and a fork;
+15b. the engines' dispatch-ahead drivers on those paths, each timed in
+     turns with the blocking engine on the same stream and held to its
+     transcript, every fill run under set_sync_debug_mode("error") (a host
+     synchronisation in one raises): phase 5's stream through
+     ``speculative=True`` a frame a call and ``pipelined=True`` 8 frames a
+     call, then with the gate bias removed (every frame fires, dispatches
+     roll back) speculative in bf16 and pipelined in fp32; phase 11's int4
+     engine built by serve/cli.py with ``--pipelined`` (K4, K5) and
+     ``cli.main --pipelined`` against phase 11's dialogue; phase 15's 8
+     paged streams pipelined, cut to 32 frames a stream: frames/s, wall
+     and device ms a frame, the most dispatches in flight, rollbacks, the
+     host's wait at resolution, K1 / K3 / K4 / K5 launches;
  16. a small fp32 engine with every option of the demo path at once (a
      SigLIP tower on raw uint8 frames, the int8 KV ring compacted to a
      stream_window, 4-token segments through on_delta, spec decode) through
@@ -169,6 +181,7 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -2426,9 +2439,13 @@ def phase_main_path_int4(n_frames: int = 64):
                   "int4", "--spec_decode", "--kv_capacity", "8192",
                   "--num_ticks", "8", "--output", history])
     with open(history) as f:
-        fps = json.load(f)["average_processing_fps"]
+        h = json.load(f)
+    fps = h["average_processing_fps"]
     if not fps > 0:
         raise AssertionError(f"the CLI reported {fps} frames/s")
+    # phase 15b holds serve/cli.py --pipelined to this dialogue
+    _SINGLE_RANK["int4_cli"] = [(m["role"], m["content"])
+                                for m in h["messages"]]
     torch.cuda.empty_cache()
     return {"launches": counts, "frames_per_s": n_frames / dt}
 
@@ -3108,6 +3125,322 @@ def phase_main_path_multistream(n_streams: int = 8, n_frames: int = 64):
         torch.cuda.empty_cache()
     return results
 
+
+# -------------------------------------------------------------- phase 15b
+@contextlib.contextmanager
+def _sync_free_fills():
+    """Every dispatch-ahead fill (the speculative and pipelined drivers'
+    ``_spec_fill`` / ``_pipe_fill``, the batched engine's ``_pipe_fill``)
+    runs under ``torch.cuda.set_sync_debug_mode("error")``: an operation
+    inside one that makes the host wait for the card raises. Yields the
+    counts of checked fills, and of those that dispatched behind work
+    already in flight, per engine class."""
+    from videollm_online_tpu_torch.serve.engine import LiveInferEngine
+    from videollm_online_tpu_torch.serve.multistream import MultiStreamEngine
+    checked = {"fills": 0, "behind": {"LiveInferEngine": 0,
+                                      "MultiStreamEngine": 0}}
+    saved = []
+    for cls, name, queue in ((LiveInferEngine, "_spec_fill", "_inflight"),
+                             (LiveInferEngine, "_pipe_fill", "_inflight"),
+                             (MultiStreamEngine, "_pipe_fill", "_pipe")):
+        fn = getattr(cls, name)
+
+        def fill(self, *a, _fn=fn, _queue=queue, _cls=cls.__name__, **kw):
+            before = len(getattr(self, _queue))
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = _fn(self, *a, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            checked["fills"] += 1
+            if before and len(getattr(self, _queue)) > before:
+                checked["behind"][_cls] += 1
+            return out
+
+        saved.append((cls, name, fn))
+        setattr(cls, name, fill)
+    try:
+        yield checked
+    finally:
+        for cls, name, fn in saved:
+            setattr(cls, name, fn)
+
+
+def _dispatch_drive(engine, feats, feed_every, query_every=8):
+    """One drive of a stream (a query every ``query_every`` frames, frames
+    fed ``feed_every`` at a time) ending with ``flush()``: the transcript,
+    wall seconds, launches and, for a dispatch-ahead driver, its counts."""
+    torch.cuda.synchronize()
+    _zero_launches()
+    t0 = time.perf_counter()
+    transcript = (_drive(engine, feats, query_every, feed_every,
+                         engine.frame_fps) + engine.flush())
+    torch.cuda.synchronize()
+    return {"transcript": transcript, "wall_s": time.perf_counter() - t0,
+            "launches": _read_launches(), "frames": len(feats),
+            "counts": (engine.dispatch_stats()
+                       if engine.speculative or engine.pipelined else {})}
+
+
+def _in_turns(set_mode, run, turns=True):
+    """The blocking run and the dispatch-ahead run in turns (blocking,
+    ahead, ahead, blocking; without ``turns`` one of each) on one engine:
+    ``set_mode(ahead)`` switches it, ``run()`` drives it. Returns (blocking
+    runs, ahead runs)."""
+    runs = {False: [], True: []}
+    for ahead in ((False, True, True, False) if turns else (False, True)):
+        set_mode(ahead)
+        runs[ahead].append(run())
+    set_mode(False)
+    return runs[False], runs[True]
+
+
+def _fps(runs):
+    return "/".join(f"{r['frames'] / r['wall_s']:.3f}" for r in runs)
+
+
+def _dispatch_line(what, runs, blocking, busy=None, ahead=False,
+                   rolls=False, batched=False):
+    """Print a dispatch-ahead driver's figures beside the blocking engine's
+    on the same stream; raise unless every run's transcript is the first
+    blocking run's, and, for a run meant to exercise the driver, unless
+    every run had two dispatches in flight (``ahead``) and rolled some back
+    (``rolls``). A rollback of the batched tick (``batched``) is one
+    stream's share of a tick, whose forward ran whole."""
+    r, ref = runs[-1], blocking[0]["transcript"]
+    n = r["frames"]
+    c, k = r["counts"], r["launches"]
+    dev = ""
+    if busy is not None:
+        dev = (f", device {1e3 * busy[0] / busy[2]:.3f} ms a frame against "
+               f"{1e3 * busy[1] / busy[2]:.3f} of wall in a profiled drive "
+               f"of {busy[2]} frames")
+    log(f"{what}: {n} frames, {_fps(runs)} frames/s (blocking "
+        f"{_fps(blocking)}), wall {1e3 * r['wall_s'] / n:.3f} ms a "
+        f"frame{dev}, {r.get('responses', len(r['transcript']))} responses; "
+        f"dispatches "
+        f"{c['dispatches']}, most in flight {c['max_inflight']}, rolled back "
+        f"{c['rolled_back']} ({c['rolled_back_frames']} frames, "
+        + ("stream shares of a tick" if batched else
+           f"{32 * c['rolled_back']} K1 launches")
+        + f"), resolved {c['resolved']}, "
+        f"host wait at resolution {1e3 * c['wait_s']:.2f} ms ("
+        f"{1e3 * c['wait_s'] / max(c['resolved'], 1):.3f} a resolution); "
+        f"launches K1 "
+        f"{k['K1']}, K3 {k['K3']}, K4 {k['K4']}, K5 {k['K5']}")
+    for x in runs + blocking:
+        if x["transcript"] != ref:
+            bad = next((i for i, (a, b) in enumerate(zip(x["transcript"],
+                                                         ref)) if a != b),
+                       min(len(x["transcript"]), len(ref)))
+            raise AssertionError(
+                f"{what}: response {bad} differs from the blocking engine's "
+                f"({len(x['transcript'])} against {len(ref)} responses)")
+    for x in runs:
+        if ahead and x["counts"]["max_inflight"] != 2:
+            raise AssertionError(f"{what}: never two dispatches in flight")
+        if rolls and not x["counts"]["rolled_back"]:
+            raise AssertionError(f"{what}: nothing rolled back")
+
+
+def _busy(drive, frames):
+    """(device busy s, wall s, frames) of one profiled drive."""
+    busy_us, wall_us, _ = _device_us(drive)
+    return busy_us / 1e6, wall_us / 1e6, frames
+
+
+def phase_main_path_dispatch(n_frames: int = 64, n_fire: int = 10,
+                             n_burst: int = 16, ms_frames: int = 32,
+                             ms_fire: int = 12):
+    """The engines' dispatch-ahead drivers on the main paths, each held to
+    the blocking engine's transcript on the same stream, every fill run
+    under ``set_sync_debug_mode("error")``. A run whose traffic lets the
+    driver run ahead is timed in turns with the blocking engine (blocking,
+    ahead, ahead, blocking) and must reach two dispatches in flight; a run
+    whose every burst ends at a query turn (the pipe drains there) is run
+    once each way, as is the batched run that fires (a response a stream
+    at nearly every frame makes it the longest).
+    (a) phase 5's 8B int8 stream through ``speculative=True`` fed a frame
+    a call and ``pipelined=True`` fed 8 at a time; then, the gate bias
+    removed so that the gate fires and dispatches roll back, ``n_fire``
+    frames speculative a frame a call and ``n_burst`` frames fed at once
+    through the pipelined driver, in the engine's bf16;
+    (b) phase 11's int4 stream through serve/cli.py's engine with
+    ``--quantize int4 --spec_decode --pipelined`` (K4, K5), then
+    ``cli.main`` with ``--pipelined`` on phase 11's 8 frames (its gate
+    fires) against phase 11's dialogue;
+    (c) phase 15's 8 paged streams through ``pipelined=True`` (depth 2),
+    cut to ``ms_frames`` frames a stream; then ``ms_fire`` frames a stream
+    with the gate bias removed and one query at t = 0, so that ticks go
+    out behind ticks in flight and streams roll back (pages unmapped)."""
+    import os
+
+    from videollm_online_tpu_torch.serve import cli
+    from videollm_online_tpu_torch.serve.engine import LiveInferEngine
+    from videollm_online_tpu_torch.serve.multistream import MultiStreamEngine
+    launches = {k: 0 for k in ("K1", "K3", "K4", "K5")}
+
+    def count(runs):
+        for r in runs:
+            for k in launches:
+                launches[k] += r["launches"][k]
+
+    def switch(engine, mode):
+        return lambda ahead: setattr(engine, mode, ahead)
+
+    with _sync_free_fills() as checked:
+        # (a) phase 5's stream, one engine switched between modes
+        cfg, tok, capacity, feats = _int8_stream(n_frames)
+        params = _int8_8b(cfg)
+        engine = LiveInferEngine(params, tok, cfg, kv_capacity=capacity,
+                                 spec_decode=True, device="cuda")
+        for mode, feed in (("speculative", 1), ("pipelined", 8)):
+            set_mode = switch(engine, mode)
+            set_mode(True)
+            _dispatch_drive(engine, feats[:16], feed)          # warm-up
+            busy = _busy(lambda: _dispatch_drive(engine, feats[:16], feed),
+                         16)
+            runs_ahead = mode == "speculative"
+            blocking, ahead = _in_turns(
+                set_mode, lambda: _dispatch_drive(engine, feats, feed),
+                turns=runs_ahead)
+            _dispatch_line(f"int8, {mode}, {feed} frame(s) a call"
+                           + ("" if runs_ahead else
+                              ", a query turn ends every burst"),
+                           ahead, blocking, busy, ahead=runs_ahead)
+            count(ahead)
+        # the gate bias removed: the gate fires
+        engine.cfg = cfg.replace(gate_logit_bias=0.0)
+        blocking, ahead = _in_turns(
+            switch(engine, "speculative"),
+            lambda: _dispatch_drive(engine, feats[:n_fire], 1))
+        _dispatch_line("int8, gate bias 0, speculative, 1 frame a call",
+                       ahead, blocking, ahead=True, rolls=True)
+        count(ahead)
+        blocking, ahead = _in_turns(
+            switch(engine, "pipelined"),
+            lambda: _dispatch_drive(engine, feats[:n_burst], n_burst,
+                                    n_burst))
+        _dispatch_line(f"int8, gate bias 0, pipelined, {n_burst} frames at "
+                       f"once", ahead, blocking, ahead=True, rolls=True)
+        count(ahead)
+        if len(blocking[0]["transcript"]) < n_burst // 2:
+            raise AssertionError("the gate bias 0 runs fire too seldom")
+        engine.cfg = cfg
+        del engine
+        torch.cuda.empty_cache()
+
+        # (b) phase 11's int4 engine as serve/cli.py builds it, pipelined
+        engine, cfg4 = _int4_cli_engine("--pipelined")
+        if not engine.pipelined:
+            raise AssertionError("--pipelined did not reach the engine")
+        feats4 = np.random.RandomState(0).randn(
+            n_frames, cfg4.frame_num_tokens, cfg4.vision_hidden_size
+        ).astype(np.float32)
+        _dispatch_drive(engine, feats4[:16], 8)                # warm-up
+        busy = _busy(lambda: _dispatch_drive(engine, feats4[:16], 8), 16)
+        blocking, ahead = _in_turns(
+            switch(engine, "pipelined"),
+            lambda: _dispatch_drive(engine, feats4, 8), turns=False)
+        _dispatch_line("int4 (serve/cli.py --pipelined), 8 frames a call, "
+                       "a query turn ends every burst", ahead, blocking, busy)
+        if not (ahead[0]["launches"]["K4"] and ahead[0]["launches"]["K5"]):
+            raise AssertionError(f"int4: launches {ahead[0]['launches']}")
+        if ("int4" in _SINGLE_RANK
+                and blocking[0]["transcript"] != _SINGLE_RANK["int4"]):
+            raise AssertionError("the int4 blocking engine answers otherwise "
+                                 "than phase 11's")
+        count(ahead)
+        del engine
+        torch.cuda.empty_cache()
+        out_dir = _out_dir("cli_int4_pipelined")
+        video = os.path.join(out_dir, "features.npy")
+        np.save(video, feats4[:8])
+        seen, run = [], cli.run
+
+        def spy(engine, args):
+            seen.append(engine)
+            return run(engine, args)
+
+        cli.run = spy
+        dialogues = {}
+        try:
+            for flag in ("--pipelined", ""):
+                if not flag and "int4_cli" in _SINGLE_RANK:
+                    dialogues[flag] = _SINGLE_RANK["int4_cli"]
+                    continue
+                history = os.path.join(out_dir, f"history{flag}.json")
+                with _cli_config(max_response_tokens=20):
+                    cli.main(["--video", video, "--model_size", "8b",
+                              "--quantize", "int4", "--spec_decode",
+                              "--kv_capacity", "8192", "--num_ticks", "8",
+                              "--output", history] + ([flag] if flag else []))
+                with open(history) as f:
+                    h = json.load(f)
+                dialogues[flag] = [(m["role"], m["content"])
+                                   for m in h["messages"]]
+                c = seen[-1].dispatch_stats()
+                log(f"cli.main {flag or '(blocking)'}: Average Processing "
+                    f"FPS {h['average_processing_fps']:.2f}, "
+                    f"{len(h['messages'])} messages; dispatches "
+                    f"{c['dispatches']}, rolled back {c['rolled_back']}")
+        finally:
+            cli.run = run
+        if dialogues["--pipelined"] != dialogues[""]:
+            raise AssertionError(f"cli --pipelined: {dialogues['--pipelined']}"
+                                 f" != {dialogues['']}")
+        del seen
+        torch.cuda.empty_cache()
+
+        # (c) phase 15's 8 paged streams, cut to ms_frames a stream, on
+        # (a)'s weights (phase 15's: the same seed and config)
+        ms_capacity, ms_feats = _ms_stream(ms_frames)
+        ms = MultiStreamEngine(params, tok, cfg, num_streams=8,
+                               kv_capacity=ms_capacity, device="cuda")
+        ms.pipelined = True
+        _ms_run(ms, ms_feats[:8], 8)                           # warm-up
+        busy_us, busy_wall_us, _ = _device_us(
+            lambda: _ms_run(ms, ms_feats[:8], 8))
+
+        def ms_run(frames, query_every):
+            dt, out, ticks, fwds, n = _ms_run(ms, ms_feats[:frames],
+                                              query_every)
+            return {"transcript": out, "wall_s": dt, "launches": n,
+                    "frames": 8 * frames, "ticks": ticks, "fwds": fwds,
+                    "responses": sum(map(len, out)),
+                    "counts": ms.dispatch_stats() if ms.pipelined else {}}
+
+        blocking, ahead = _in_turns(switch(ms, "pipelined"),
+                                    lambda: ms_run(ms_frames, 8), turns=False)
+        _dispatch_line(f"8 paged streams x {ms_frames} frames, pipelined, a "
+                       f"query turn ends every burst", ahead, blocking,
+                       (busy_us / 1e6, busy_wall_us / 1e6, 64), batched=True)
+        log(f"  ticks {ahead[0]['ticks']} (blocking {blocking[0]['ticks']}), "
+            f"forwards {ahead[0]['fwds']} (blocking {blocking[0]['fwds']})")
+        count(ahead)
+        # the gate bias removed and one query at t = 0: ticks go out behind
+        # ticks in flight, and a stream whose gate fires rolls back
+        ms.cfg = cfg.replace(gate_logit_bias=0.0)
+        blocking, ahead = _in_turns(switch(ms, "pipelined"),
+                                    lambda: ms_run(ms_fire, ms_fire),
+                                    turns=False)
+        _dispatch_line(f"8 paged streams x {ms_fire} frames, gate bias 0, "
+                       f"pipelined", ahead, blocking, ahead=True, rolls=True,
+                       batched=True)
+        log(f"  ticks {ahead[0]['ticks']} (blocking {blocking[0]['ticks']}), "
+            f"forwards {ahead[0]['fwds']} (blocking {blocking[0]['fwds']})")
+        count(ahead)
+        del ms, params
+        torch.cuda.empty_cache()
+    for name, n in checked["behind"].items():
+        if not n:
+            raise AssertionError(f"no {name} fill dispatched behind work in "
+                                 f"flight")
+    log(f"dispatch-ahead fills checked under set_sync_debug_mode('error'): "
+        f"{checked['fills']} ({checked['behind']} of them behind work in "
+        f"flight), none synchronised the host; every transcript "
+        f"equals the blocking engine's; launches {launches}")
+    return {"launches": launches}
 
 # --------------------------------------------------------------- phase 16
 # the demo's options together, on a ring small enough to compact: the
@@ -4584,13 +4917,13 @@ def _int8_8b(cfg):
             "connector": live.init_connector(gen, cfg, device="cuda")}
 
 
-def _int4_cli_engine():
-    """Phase 11's engine as serve/cli.py builds it, with phase 5's gate
-    and response length."""
+def _int4_cli_engine(*flags):
+    """Phase 11's engine as serve/cli.py builds it (with ``flags`` added),
+    with phase 5's gate and response length."""
     from videollm_online_tpu_torch.serve import cli
     args = cli.parse_args(["--video", "features", "--model_size", "8b",
                            "--quantize", "int4", "--spec_decode",
-                           "--kv_capacity", "8192", "--seed", "0"])
+                           "--kv_capacity", "8192", "--seed", "0", *flags])
     engine, cfg = cli.build_engine(args)
     cfg = cfg.replace(frame_token_interval_threshold=0.725,
                       max_response_tokens=20, gate_logit_bias=30.0)
@@ -5201,6 +5534,7 @@ PHASES = {"toolchain": phase_toolchain, "build": phase_build,
           "tc_configs": phase_tc_configs,
           "small_multistream": phase_small_multistream,
           "main_path_multistream": phase_main_path_multistream,
+          "main_path_dispatch": phase_main_path_dispatch,
           "small_demo": phase_small_demo,
           "main_path_demo": phase_main_path_demo,
           "small_eval": phase_small_eval,
@@ -5216,9 +5550,10 @@ PHASES = {"toolchain": phase_toolchain, "build": phase_build,
 DEFAULT_RUN = ("toolchain", "build", "k1", "small_engine", "main_path", "k2",
                "small_trainer", "main_training", "fused", "k4_profile",
                "small_int4_engine", "main_path_int4", "ab_paths", "k3",
-               "small_multistream", "main_path_multistream", "small_demo",
-               "main_path_demo", "small_eval", "main_path_eval", "small_prep",
-               "main_path_prep", "main_path_web", "tp_serving", "sp_training")
+               "small_multistream", "main_path_multistream",
+               "main_path_dispatch", "small_demo", "main_path_demo",
+               "small_eval", "main_path_eval", "small_prep", "main_path_prep",
+               "main_path_web", "tp_serving", "sp_training")
 
 
 def main(argv=None) -> int:
@@ -5248,11 +5583,13 @@ def main(argv=None) -> int:
         out[name] = PHASES[name]()
         log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
     smi, k1, main_path, k2, training, fused, int4_path, ab, k3, \
-        multistream, demo, evals, prep, web, tp, sp = (out[n] for n in (
-            "toolchain", "k1", "main_path", "k2", "main_training", "fused",
-            "main_path_int4", "ab_paths", "k3", "main_path_multistream",
-            "main_path_demo", "main_path_eval", "main_path_prep",
-            "main_path_web", "tp_serving", "sp_training"))
+        multistream, dispatch, demo, evals, prep, web, tp, sp = (
+            out[n] for n in (
+                "toolchain", "k1", "main_path", "k2", "main_training",
+                "fused", "main_path_int4", "ab_paths", "k3",
+                "main_path_multistream", "main_path_dispatch",
+                "main_path_demo", "main_path_eval", "main_path_prep",
+                "main_path_web", "tp_serving", "sp_training"))
     log(f"card: {smi}; total {time.perf_counter() - t_start:.1f} s")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     k2_source = "videollm_online_tpu_torch/csrc/flash_attention.cu"
@@ -5265,7 +5602,8 @@ def main(argv=None) -> int:
                      + multistream["ring, bf16 KV"]["launches"]["K1"]
                      + sum(r["launches"]["K1"] for r in demo.values())
                      + evals["launches"]["K1"] + prep["launches"]["K1"]
-                     + web["launches"]["K1"] + tp["launches"]["K1"]),
+                     + web["launches"]["K1"] + tp["launches"]["K1"]
+                     + dispatch["launches"]["K1"]),
         "max_abs_err": max(k1["max_abs_err"], main_path["ring_err"],
                            evals["k1_err"], tp["errs"]["K1"]),
         **{key: k1[key] for key in keys},
@@ -5275,7 +5613,8 @@ def main(argv=None) -> int:
         "source": "videollm_online_tpu_torch/csrc/paged_attention.cu",
         "replaces": "videollm_online_tpu/ops/paged_attention.py:175",
         "launches": (sum(r["launches"]["K3"] for r in multistream.values())
-                     + web["launches"]["K3"] + tp["launches"]["K3"]),
+                     + web["launches"]["K3"] + tp["launches"]["K3"]
+                     + dispatch["launches"]["K3"]),
         "max_abs_err": max(k3["max_abs_err"], tp["errs"]["K3"]),
         **{key: k3[key] for key in keys},
     }]
@@ -5298,11 +5637,12 @@ def main(argv=None) -> int:
                         "max_abs_err": max(k2[part]["max_abs_err"],
                                            sp["errs"][label]),
                         **{key: k2[part][key] for key in keys}})
-    # K4 and K5 count the int4 main paths' launches (phases 11 and 17); K6
-    # and K7, which no serving main path reaches, those of their own engine
-    # runs (phase 12)
+    # K4 and K5 count the int4 main paths' launches (phases 11, 15b and
+    # 17); K6 and K7, which no serving main path reaches, those of their own
+    # engine runs (phase 12)
     fused_launches = {**{k: n + demo["int4"]["launches"][k]
                          + tp["launches"].get(k, 0)
+                         + dispatch["launches"].get(k, 0)
                          for k, n in int4_path["launches"].items()}, **ab}
     for label, (name, _, replaces) in FUSED_KERNELS.items():
         kernels.append({"name": name, "route": "cuda",

@@ -193,6 +193,72 @@ def test_engine_transcripts_kernel_equal_plain_on_card(card):
     assert with_k1
 
 
+def test_to_device_and_deferred_read_on_card(card):
+    """Host tensors reach the card by pinned non-blocking copies, expanded
+    views included, with no host synchronisation; two readbacks in flight
+    keep their own buffers."""
+    from videollm_online_tpu_torch.core.device import DeferredRead, to_device
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        x = to_device(torch.arange(4)[None].expand(3, 4), card)
+        reads = [DeferredRead(x * k) for k in (1, 2)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(reads[1].read(), 2 * torch.arange(4).expand(3, 4))
+    assert torch.equal(reads[0].read(), torch.arange(4).expand(3, 4))
+
+
+@pytest.mark.parametrize("mode,feed", [("speculative", 1),
+                                       ("pipelined", 4)])
+def test_dispatch_modes_on_card(card, mode, feed, monkeypatch):
+    """The dispatch-ahead drivers on the card serve the blocking engine's
+    transcripts, and their fills make no host synchronisation
+    (``set_sync_debug_mode("error")`` raises on one)."""
+    lcfg = LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                       num_layers=2, num_heads=8, num_kv_heads=2, head_dim=64,
+                       dtype="float32")
+    cfg = LiveConfig(llama=lcfg, lora=None, vision_hidden_size=64)
+    tok = LiveTokenizer(ByteTokenizer(), cfg)
+    cfg = tok.cfg.replace(max_response_tokens=20)
+    gen = torch.Generator(device=card).manual_seed(0)
+    params = {"llama": llama.init_params(gen, cfg.llama, device=card),
+              "connector": live.init_connector(gen, cfg, device=card)}
+    feats = np.random.RandomState(0).randn(
+        16, cfg.frame_num_tokens, cfg.vision_hidden_size).astype(np.float32)
+    name = "_spec_fill" if mode == "speculative" else "_pipe_fill"
+    fill = getattr(LiveInferEngine, name)
+
+    def checked(self, *a, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fill(self, *a, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    monkeypatch.setattr(LiveInferEngine, name, checked)
+
+    def drive(**kw):
+        eng = LiveInferEngine(params, tok, cfg, kv_capacity=2048,
+                              spec_decode=True, device=card, **kw)
+        eng.load_video(feats)
+        out = []
+        for i in range(16):
+            if i % 8 == 0:
+                eng.input_query_stream("narrate?", video_time=i / 2)
+            if i % feed == feed - 1:
+                eng.input_video_stream(i / 2)
+            while True:
+                q, r = eng()
+                if r is None:
+                    break
+                out.append((q, r))
+        return out + eng.flush(), eng
+
+    got, eng = drive(**{mode: True})
+    assert got == drive()[0] and got
+    assert eng.dispatch_stats()["max_inflight"] >= 1
+
+
 @pytest.mark.parametrize("dtype,shape,kw", [
     ("bfloat16", (1, 8, 2, 512, 512, 128), {}),
     ("float32", (2, 4, 4, 256, 256, 64), {}),

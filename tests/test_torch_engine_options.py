@@ -212,8 +212,22 @@ def test_stats_threshold_swap_backoff_flush():
 @pytest.mark.parametrize("mode", ["fused_respond", "multi_respond",
                                   "pipelined", "speculative"])
 def test_dispatch_modes_refused(mode):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        _tiny_engine(**{mode: True})
+    """Each of the JAX engine's dispatch modes builds and serves a short
+    stream (a query, gate fires) with the blocking engine's transcript;
+    the modes the JAX engine excludes raise."""
+    feats = np.random.RandomState(3).randn(6, 10, 32).astype(np.float32)
+    times, queries = [i / 2 for i in range(6)], [(1.0, "what now?")]
+    off = dict(fused_respond=False, multi_respond=False)
+    eng, _ = _tiny_engine(kv_capacity=1024, **{**off, mode: True})
+    blocking, _ = _tiny_engine(kv_capacity=1024, **off)
+    got = _drive(eng, feats, times, queries) + eng.flush()
+    assert got == _drive(blocking, feats, times, queries)
+    assert len(got) >= 2 and eng.stats()["offset"] == blocking._host_offset
+    if mode in ("pipelined", "speculative"):
+        with pytest.raises(ValueError, match="exclude"):
+            _tiny_engine(pipelined=True, speculative=True)
+        with pytest.raises(ValueError, match="stream_tokens"):
+            _tiny_engine(stream_tokens=4, **{mode: True})
 
 
 @pytest.mark.parametrize("kw,match", [

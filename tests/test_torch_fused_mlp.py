@@ -776,12 +776,30 @@ def test_cli_build_model_layouts(small_sizes):
 @pytest.mark.parametrize("flag", [
     {"with_vision": True}, {"vision_checkpoint": "x"}, {"kv_quant": "int8"},
     {"speculative": True}, {"pipelined": True}, {"stream_tokens": 4}])
-def test_cli_refuses_what_the_engine_does_not_carry(flag):
-    """The JAX engine's dispatch modes (--speculative, --pipelined) are
-    still refused; the engine options the port now carries build."""
+def test_cli_refuses_what_the_engine_does_not_carry(flag, tmp_path, capsys):
+    """Every engine option the cli names builds: the dispatch modes
+    (--speculative, --pipelined) too, and ``cli.main`` with one prints and
+    saves the dialogue of the blocking cli, the tail ``flush()`` resolves
+    included; a vision checkpoint that is not there raises."""
     if "speculative" in flag or "pipelined" in flag:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-            cli.build_engine(_cli_args(**flag))
+        engine, _ = cli.build_engine(_cli_args(**flag))
+        assert engine.speculative == bool(flag.get("speculative"))
+        assert engine.pipelined == bool(flag.get("pipelined"))
+        feats = np.random.RandomState(1).randn(6, 10, 1024).astype(
+            np.float32)
+        np.save(tmp_path / "feats.npy", feats)
+        argv = ["--device", "cpu", "--model_size", "tiny", "--dtype",
+                "float32", "--video", str(tmp_path / "feats.npy"),
+                "--num_ticks", "6", "--kv_capacity", "1024"]
+        dialogues = []
+        for extra in ([], ["--" + next(iter(flag))]):
+            cli.main(argv + extra + ["--output", str(tmp_path / "h.json")])
+            printed = capsys.readouterr().out
+            messages = json.loads((tmp_path / "h.json").read_text())[
+                "messages"]
+            assert all(m["content"] in printed for m in messages)
+            dialogues.append([(m["role"], m["content"]) for m in messages])
+        assert dialogues[1] == dialogues[0] and len(dialogues[0]) >= 3
         return
     if "vision_checkpoint" in flag:
         with pytest.raises(FileNotFoundError):

@@ -263,14 +263,20 @@ def test_ring_window_compaction_equal_jax(ring_window_run):
 
 
 def test_refused_options_raise():
-    """The pipelined mode is still refused (ROADMAP Queue 1 item 2);
-    segmented responses need a segment length that divides the budget.
-    stream_tokens, on_delta and vision_params are carried now
+    """The pipelined tick builds (tests/test_torch_dispatch.py serves it)
+    and excludes segmented responses, as the JAX engine's does; segmented
+    responses need a segment length that divides the budget.
+    stream_tokens, on_delta and vision_params are carried
     (tests/test_torch_engine_options.py holds them against JAX)."""
     cfg = tiny_live_config()
     tok = LiveTokenizer(ByteTokenizer(), cfg)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        MultiStreamEngine({"llama": {}}, tok, device="cpu", pipelined=True)
+    ms = MultiStreamEngine({"llama": {}}, tok, device="cpu", pipelined=True,
+                           pipeline_depth=3, num_streams=2, kv_capacity=512)
+    assert ms.pipelined and ms.pipeline_depth == 3
+    assert ms.stats()["inflight_dispatches"] == 0 and not ms.pending()
+    with pytest.raises(ValueError, match="stream_tokens"):
+        MultiStreamEngine({"llama": {}}, tok, device="cpu", pipelined=True,
+                          stream_tokens=4)
     with pytest.raises(ValueError, match="divide"):
         MultiStreamEngine({"llama": {}}, tok, device="cpu",
                           max_new_tokens=8, stream_tokens=3)

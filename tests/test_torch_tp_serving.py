@@ -10,8 +10,8 @@ and 4 ranks on the CPU (``tests/_torch_dist.py``), each rank holding its
 transcripts must equal the JAX single-device engine's, byte for byte
 (fp32). At model=4 the tiny config's 2 kv heads are replicated (each rank
 keeps the one its query head reads). The JAX multistream test runs its
-pipelined tick, which the port does not have (ROADMAP Queue 1b item 2);
-the port runs its blocking tick, ring and paged. int8 weights and spec
+pipelined tick; the port's pipelined tick is not yet held under a mesh
+(ROADMAP Queue 1), so the port runs its blocking tick, ring and paged. int8 weights and spec
 decode under TP are held to the port's own unsharded engine (the port's
 int8 engine equals JAX's in tests/test_torch_engine.py). The int4 serving
 layout (q4c columns repacked to each rank's pairing) and the paged pool's

@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..core.config import LlamaConfig, LoraConfig
-from ..core.device import resolve_device, torch_dtype
+from ..core.device import resolve_device, to_device, torch_dtype
 from ..ops import fused_mlp
 from ..parallel import collectives as coll
 from ..parallel.context import ParallelContext, local_kv_heads
@@ -589,23 +589,30 @@ def forward(
     B, S, _ = h.shape
     dev = h.device
 
+    # host-built index tensors reach the card through pinned, non-blocking
+    # copies (core/device.py::to_device): the forward makes the host wait
+    # for nothing, so work can be dispatched ahead of its readback
     if positions is None:
         base = (kv_cache.pos_base + kv_cache.offset if kv_cache is not None
                 else torch.zeros((B,), dtype=torch.int32))
         positions = base[:, None] + torch.arange(S, dtype=torch.int32)[None]
-    positions = positions.to(device=dev, dtype=torch.int32)
+    positions = positions.to(torch.int32)
+    if kv_cache is not None:
+        pos_base = kv_cache.pos_base.to(positions.device)
+        attn_pos = to_device((positions - pos_base[:, None]).to(
+            torch.int32).contiguous(), dev)
+    positions = to_device(positions, dev)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     layer_lora = (lora or {}).get("layers") or None
 
     if kv_cache is not None:
-        attn_pos = (positions - kv_cache.pos_base.to(dev)[:, None]).to(
-            torch.int32).contiguous()
         nv = (torch.full((B,), S, dtype=torch.int32) if num_valid is None
               else torch.as_tensor(num_valid, dtype=torch.int32).cpu())
         if isinstance(kv_cache, PagedKVCache):
             phys, row = paged_slots(kv_cache.table, kv_cache.offset,
                                     kv_cache.page_size, S, nv)
-            where = (kv_cache.table.to(dev), phys.to(dev), row.to(dev))
+            where = tuple(to_device(t, dev)
+                          for t in (kv_cache.table, phys, row))
         else:
             C = kv_cache.capacity
             where = [min(max(int(o), 0), C - S) for o in kv_cache.offset]
@@ -632,7 +639,8 @@ def forward(
 
     if logit_gather_positions is not None:
         # (B,) or (B, G) positions within the chunk
-        pos = torch.as_tensor(logit_gather_positions).to(dev).long()
+        pos = to_device(torch.as_tensor(logit_gather_positions),
+                        dev).long()
         if pos.ndim == 2:
             h = torch.take_along_dim(h, pos[..., None], dim=1)
         else:
@@ -664,7 +672,7 @@ def embed_tokens(params: Params, input_ids: torch.Tensor, cfg: LlamaConfig
     if par is not None:
         embed = par.weight(embed, "embed")
     table = embed["q8"] if isinstance(embed, dict) else embed
-    ids = torch.as_tensor(input_ids).to(table.device).long().clamp(
+    ids = to_device(torch.as_tensor(input_ids), table.device).long().clamp(
         0, cfg.vocab_size - 1)
     if isinstance(embed, dict):
         dtype = torch_dtype(cfg.dtype)

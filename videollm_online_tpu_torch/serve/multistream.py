@@ -26,9 +26,18 @@ through the SigLIP tower and the connector.
 
 The JAX engine's ``fused=True`` tick is one device dispatch whose
 transcripts its own tests prove equal to the blocking tick's; here
-``fused`` runs the same blocking tick. ``pipelined`` (a dispatch mode
-that hides round trips to a remote TPU) raises: its counterpart on this
-card is ROADMAP Queue 1 item 2.
+``fused`` runs the same blocking tick. With ``pipelined`` the tick's
+batched ingest is dispatched up to ``pipeline_depth`` ticks ahead of its
+gates being read: each dispatch's gate ids travel to a pinned host buffer
+of their own (``core.device.DeferredRead``), the host offsets advance on
+the guess that no gate fires, and a stream whose gate fired gets its newer
+frames re-queued and its offset rewound while the other streams keep their
+work. A stream is not dispatched past a query turn; responses run at
+resolution. Transcripts are the blocking tick's; a response may surface a
+step later, and ``flush()`` resolves what is in flight. After a rollback
+the streams can share ticks otherwise than in the blocking tick, so a
+1-frame burst can go out in the other of its two layouts, which rounds
+differently in bf16 (ROADMAP, documented divergences).
 """
 
 from __future__ import annotations
@@ -42,12 +51,12 @@ import numpy as np
 import torch
 
 from ..core.config import LiveConfig
-from ..core.device import resolve_device
+from ..core.device import DeferredRead, resolve_device, to_device
 from ..models import generate as gen_mod
 from ..models import live, llama
 from ..tokenizer.live_tokenizer import LiveTokenizer
 from ..utils.profiling import LatencyHistogram
-from .engine import _check_same_tree
+from .engine import DispatchCounts, _check_same_tree
 
 TEXT_BUCKET = 4
 PROMPT_BUCKET = 128
@@ -78,16 +87,17 @@ def _roll_valid_first(embeds: torch.Tensor, n, bucket: int) -> torch.Tensor:
     vmapped ``jnp.roll``)."""
     B, T = embeds.shape[:2]
     shift = bucket - torch.as_tensor(np.asarray(n), dtype=torch.long)
-    idx = (torch.arange(T)[None] + shift[:, None]) % T
-    idx = idx.to(embeds.device)
+    idx = to_device((torch.arange(T)[None] + shift[:, None]) % T,
+                    embeds.device)
     return torch.gather(embeds, 1,
                         idx[..., None].expand(-1, -1, embeds.shape[2]))
 
 
 class MultiStreamEngine:
     """The JAX engine's constructor signature; ``fused`` is accepted and
-    changes nothing (one blocking tick), ``device`` picks the card (the
-    default) or ``"cpu"``."""
+    changes nothing (one blocking tick), ``pipelined`` dispatches ticks
+    ahead (module docstring), ``device`` picks the card (the default) or
+    ``"cpu"``."""
 
     def __init__(self, params, tokenizer: LiveTokenizer,
                  cfg: Optional[LiveConfig] = None, *, num_streams: int = 8,
@@ -96,6 +106,7 @@ class MultiStreamEngine:
                  chunk_frames: int = CHUNK_FRAMES,
                  stream_window: Optional[int] = None,
                  fused: bool = True, pipelined: bool = False,
+                 pipeline_depth: int = 2,
                  kv_quant: Optional[str] = None,
                  spec_decode: bool = False,
                  spec_draft: Optional[int] = None,
@@ -108,12 +119,11 @@ class MultiStreamEngine:
                  vision_params=None,
                  max_lag_frames: Optional[int] = None,
                  device=None):
-        if pipelined:
-            raise NotImplementedError(
-                "not ported: pipelined. The JAX engine's dispatch modes "
-                "hide round trips to a remote TPU; their counterpart here, "
-                "a CUDA graph per forward shape, is ROADMAP Queue 1 item 2. "
-                "The blocking tick serves the same transcripts.")
+        if pipelined and stream_tokens is not None:
+            raise ValueError("stream_tokens is a blocking-tick mode (no "
+                             "pipelined dispatch)")
+        self.pipelined = pipelined
+        self.pipeline_depth = max(1, pipeline_depth)
         if kv_quant not in (None, "int8"):
             raise ValueError(f"kv_quant {kv_quant!r}")
         if spec_draft_mode not in ("ngram", "zero"):
@@ -221,65 +231,91 @@ class MultiStreamEngine:
             self.params["llama"], torch.as_tensor(np.asarray(ids)),
             self.cfg.llama)
 
-    def _gate_ids(self, logits) -> np.ndarray:
-        cfg = self.cfg
-        return _gate(logits, self._gate_id,
-                     float(cfg.frame_token_interval_threshold),
-                     cfg.gate_logit_bias).cpu().numpy()
-
-    def _frame_step(self, text_ids, n_text, frames, active):
-        """text_ids (N, TEXT_BUCKET) right-aligned; frames (N, fnt, D);
-        active (N,) bool. Appends [prepend, frame] of every active stream
-        and reads its gate. Returns (fire, next_id)."""
-        t_emb = self._embed(text_ids)
-        embeds = _roll_valid_first(
-            torch.cat([t_emb, frames.to(t_emb.dtype)], dim=1), n_text,
-            TEXT_BUCKET)
-        num_valid = np.where(active, n_text + self.fnt, 0)
-        gather = torch.as_tensor(np.maximum(num_valid - 1, 0))
-        next_id = self._gate_ids(self._fwd(embeds, num_valid, gather)[:, 0])
-        return active & (next_id != self._gate_id), next_id
-
-    def _chunk_step(self, text_ids, n_text, frames, n_frames, active):
-        """Batched catch-up ingest: per active stream [prepend] f0 , f1 ...
-        (up to K frames) in ONE forward, the gate read at every frame's
-        last token, and each stream's offset rewound to the end of its
-        first fired frame. frames (N, K, fnt, D), n_frames (N,) in [0, K].
-        Returns (consumed, fire, next_id)."""
-        N, K, fnt = self.N, frames.shape[1], self.fnt
-        iv = self.cfg.frame_token_interval_id
-        itv = 1 if iv is not None else 0
-        per = fnt + itv
-        t_emb = self._embed(text_ids)
-        f_emb = frames.to(t_emb.dtype)
-        D = t_emb.shape[-1]
-        if itv:
-            iv_emb = self._embed([[iv]])[0]                      # (1, D)
-            unit = torch.cat([iv_emb[None, None].expand(N, K, 1, D), f_emb],
-                             dim=2)
-            body = torch.cat([f_emb[:, 0], unit[:, 1:].reshape(N, -1, D)],
-                             dim=1)
-        else:
-            body = f_emb.reshape(N, -1, D)
-        embeds = _roll_valid_first(torch.cat([t_emb, body], dim=1), n_text,
-                                   TEXT_BUCKET)
-        valid = np.where(active, n_text + n_frames * fnt
-                         + np.maximum(n_frames - 1, 0) * itv, 0)
-        ends = torch.as_tensor(n_text[:, None] + fnt - 1
-                               + np.arange(K)[None] * per)
+    def _dispatch_ingest(self, coll) -> Dict[str, Any]:
+        """Dispatch a tick's batched ingest (``_collect_ingest``'s bursts),
+        taking the active streams' prepends, and start reading its gate ids
+        back without waiting for them: a 1-frame step when no stream has
+        more than one frame ([prepend, frame] of every active stream, its
+        gate at the frame's last token), else ONE chunked forward (per
+        active stream [prepend] f0 , f1 ... up to chunk_frames frames, a
+        gate at every frame's last token, zero frames past its burst).
+        Returns the in-flight tick: the collection, the offsets before it
+        and the gate ids' readback."""
+        N, fnt = self.N, self.fnt
+        active, bursts = coll["active"], coll["bursts"]
+        text_ids, n_text = coll["text_ids"], coll["n_text"]
+        for i in np.flatnonzero(active):
+            self.prepends[i] = []
         base = self.cache.offset.numpy().astype(np.int64)
-        next_ids = self._gate_ids(self._fwd(embeds, valid, ends))   # (N, K)
-        fires = ((next_ids != self._gate_id)
-                 & (np.arange(K)[None] < n_frames[:, None]) & active[:, None])
-        any_fire = fires.any(axis=1)
-        consumed = np.where(any_fire, fires.argmax(axis=1) + 1, n_frames)
+        t_emb = self._embed(text_ids)
+        if coll["max_burst"] <= 1:
+            frames = torch.zeros((N, fnt, self.hidden),
+                                 dtype=self._frame_dtype(bursts),
+                                 device=self.device)
+            for i in np.flatnonzero(active):
+                src, j = bursts[i][0][1]
+                frames[i] = src[j]
+            embeds = _roll_valid_first(
+                torch.cat([t_emb, frames.to(t_emb.dtype)], dim=1), n_text,
+                TEXT_BUCKET)
+            num_valid = np.where(active, n_text + fnt, 0)
+            gather = torch.as_tensor(np.maximum(num_valid - 1, 0))
+            logits = self._fwd(embeds, num_valid, gather)[:, 0]
+        else:
+            K = self.chunk_frames
+            n_frames = np.array([len(b) for b in bursts], np.int64)
+            iv = self.cfg.frame_token_interval_id
+            itv = 1 if iv is not None else 0
+            f_emb = self._gather_chunks(bursts, active, K).to(t_emb.dtype)
+            D = t_emb.shape[-1]
+            if itv:
+                iv_emb = self._embed([[iv]])[0]                  # (1, D)
+                unit = torch.cat([iv_emb[None, None].expand(N, K, 1, D),
+                                  f_emb], dim=2)
+                body = torch.cat([f_emb[:, 0],
+                                  unit[:, 1:].reshape(N, -1, D)], dim=1)
+            else:
+                body = f_emb.reshape(N, -1, D)
+            embeds = _roll_valid_first(torch.cat([t_emb, body], dim=1),
+                                       n_text, TEXT_BUCKET)
+            valid = np.where(active, n_text + n_frames * fnt
+                             + np.maximum(n_frames - 1, 0) * itv, 0)
+            ends = torch.as_tensor(n_text[:, None] + fnt - 1
+                                   + np.arange(K)[None] * (fnt + itv))
+            logits = self._fwd(embeds, valid, ends)               # (N, K)
+        cfg = self.cfg
+        ids = _gate(logits, self._gate_id,
+                    float(cfg.frame_token_interval_threshold),
+                    cfg.gate_logit_bias)
+        self._counts.dispatched()
+        return {"coll": coll, "base": base, "ids": DeferredRead(ids)}
+
+    def _settle_ingest(self, e):
+        """Read an in-flight tick's gate ids (waiting on its own readback
+        alone). Per stream still active in it: frames consumed up to and
+        including its first fired frame, whether one fired, the next id
+        after its last consumed frame, and the ring slots those frames
+        take. Returns (consumed, fire, next_id, tokens)."""
+        coll = e["coll"]
+        active, n_text, fnt = coll["active"], coll["n_text"], self.fnt
+        ids = self._counts.read(e["ids"]).numpy()
+        if coll["max_burst"] <= 1:
+            fire = active & (ids != self._gate_id)
+            consumed = active.astype(np.int64)
+            return consumed, fire, ids, np.where(active, n_text + fnt, 0)
+        N, K = ids.shape
+        itv = 1 if self.cfg.frame_token_interval_id is not None else 0
+        n_frames = np.array([len(b) for b in coll["bursts"]], np.int64)
+        fires = ((ids != self._gate_id) & (np.arange(K)[None]
+                                           < n_frames[:, None])
+                 & active[:, None])
+        fire = fires.any(axis=1)
+        consumed = np.where(fire, fires.argmax(axis=1) + 1, n_frames)
         consumed = np.where(active, consumed, 0)
         tokens = np.where(active, n_text + consumed * fnt
                           + np.maximum(consumed - 1, 0) * itv, 0)
-        self.cache = self.cache.replace(offset=torch.as_tensor(
-            base + tokens, dtype=torch.int32))
         last = np.clip(consumed - 1, 0, K - 1)
-        return consumed, any_fire, next_ids[np.arange(N), last]
+        return consumed, fire, ids[np.arange(N), last], tokens
 
     def _prompt_embeds(self, prompt_ids, num_valid):
         return _roll_valid_first(self._embed(prompt_ids), num_valid,
@@ -404,7 +440,7 @@ class MultiStreamEngine:
 
     def _copy_page_multi(self, p_src: int, dsts: List[int]):
         """One source page copied into each of ``dsts``, in place."""
-        idx = torch.as_tensor(dsts, device=self.device)
+        idx = to_device(torch.as_tensor(dsts), self.device)
         for pool in self._pools():
             pool.index_copy_(1, idx, pool[:, p_src:p_src + 1].expand(
                 (-1, len(dsts)) + pool.shape[2:]).contiguous())
@@ -416,8 +452,14 @@ class MultiStreamEngine:
                                self.cache.offset),
             pos_base=torch.where(m, 0, self.cache.pos_base).to(torch.int32))
 
-    def _sync_offsets(self):
-        self._host_offsets[:] = self.cache.offset.numpy()
+    def _sync_offsets(self, mask=None):
+        """The host offsets of the ``mask`` streams (all by default) from
+        the cache's."""
+        off = self.cache.offset.numpy()
+        if mask is None:
+            self._host_offsets[:] = off
+        else:
+            self._host_offsets[mask] = off[mask]
 
     # ---------------------------------------------------------------- state
     def reset(self):
@@ -467,6 +509,10 @@ class MultiStreamEngine:
             collections.OrderedDict() for _ in range(self.N)]
         # stream_tokens: each stream's open response, or None
         self._open: List[Optional[Dict[str, Any]]] = [None] * self.N
+        # pipelined: ticks dispatched whose gates are not read yet, oldest
+        # first, and the drivers' counts (dispatch_stats)
+        self._pipe: collections.deque = collections.deque()
+        self._counts = DispatchCounts()
 
     def _set_table(self):
         self.cache = self.cache.replace(
@@ -609,6 +655,11 @@ class MultiStreamEngine:
         while any(self._open[i] is not None for i in streams):
             self._respond_segments()
 
+    def dispatch_stats(self) -> Dict[str, Any]:
+        """``DispatchCounts`` since ``reset``: a dispatch is a tick, a
+        rollback one stream's share of a tick."""
+        return self._counts.as_dict()
+
     def spec_stats(self) -> np.ndarray:
         """[verify_steps, emitted_tokens] accumulated across all streams'
         spec_decode responses. Mean accepted drafts per step =
@@ -624,14 +675,17 @@ class MultiStreamEngine:
         steps, emitted = (int(x) for x in self.spec_stats())
         if steps < min_steps or emitted >= min_tokens_per_step * steps:
             return False
+        self._resolve_all()
         self.spec_decode = False
         return True
 
     def swap_params(self, params):
         """Swap the model weights for every stream (same tree, shapes and
-        dtypes). The prefix cache's KV was computed under the old weights
-        and is dropped."""
+        dtypes). In-flight ticks resolve first, so no tick mixes two weight
+        sets. The prefix cache's KV was computed under the old weights and
+        is dropped."""
         _check_same_tree(self.params, params)
+        self._resolve_all()
         # open segmented responses finish under the old weights
         self._finish_open_responses()
         self._clear_prefix_cache()
@@ -666,6 +720,7 @@ class MultiStreamEngine:
             "ticks": self._tick_hist.summary().get("tick", {}),
             "response_latency": self._resp_hist.summary(),
             "open_responses": sum(o is not None for o in self._open),
+            "inflight_dispatches": len(self._pipe),
         }
         if self.paged:
             tmpl_refs = self._template_refs()
@@ -739,16 +794,17 @@ class MultiStreamEngine:
         return torch.float32
 
     # -------------------------------------------------------- page allocator
-    def _ensure_pages(self, idxs, budget: int) -> bool:
+    def _ensure_pages(self, idxs, budget: int, ahead=None) -> bool:
         """Map enough pool pages that each stream in ``idxs`` can append
-        ``budget`` more tokens. Returns False when the pool runs dry."""
+        ``budget`` more tokens past its host offset and its ``ahead``
+        tokens in flight. Returns False when the pool runs dry."""
         if not self.paged:
             return True
         changed = False
         for i in idxs:
-            need = min(self._maxp,
-                       -(-(int(self._host_offsets[i]) + budget)
-                         // self.page_size))
+            off = int(self._host_offsets[i]) + (
+                0 if ahead is None else int(ahead[i]))
+            need = min(self._maxp, -(-(off + budget) // self.page_size))
             while self._pages_alloc[i] < need:
                 if not self._free_pages:
                     if changed:
@@ -768,6 +824,7 @@ class MultiStreamEngine:
         the attention window (the window mask defines the semantics, so
         transcripts equal the ring's slot-granular compaction). No device
         data moves: only the table, offsets and pos_base change."""
+        assert not self._pipe, "compaction with ticks in flight"
         w = self.stream_window
         if w is None:
             return
@@ -794,25 +851,32 @@ class MultiStreamEngine:
                 pos_base=torch.from_numpy(
                     self._pos_base_host.astype(np.int32)))
 
-    def _paged_admit(self, idxs, budget: int) -> bool:
+    def _paged_admit(self, idxs, budget: int, ahead=None) -> bool:
         """Capacity pipeline for one dispatch in paged mode: the per-stream
         logical guard, page-granular compaction, page allocation, and the
-        prefix cache's eviction under pool pressure. Returns False when the
-        dispatch cannot proceed."""
+        prefix cache's eviction under pool pressure. ``ahead``: per stream,
+        the tokens of its ticks in flight, past its host offset (the
+        pipelined fill's). Returns False when the dispatch cannot
+        proceed."""
         if not self.paged:
             return True
-        over = [i for i in idxs
-                if int(self._host_offsets[i]) + budget > self.kv_capacity]
-        if over or not self._ensure_pages(idxs, budget):
+
+        def over():
+            return [i for i in idxs if int(self._host_offsets[i]) + budget
+                    + (0 if ahead is None else int(ahead[i]))
+                    > self.kv_capacity]
+
+        # in-flight ticks append through the current table: no compaction
+        # while one is in flight
+        if (over() or not self._ensure_pages(idxs, budget, ahead)) \
+                and not self._pipe:
             self._compact_paged()
-        over = [i for i in idxs
-                if int(self._host_offsets[i]) + budget > self.kv_capacity]
-        if not over and not self._ensure_pages(idxs, budget) \
+        if not over() and not self._ensure_pages(idxs, budget, ahead) \
                 and self._prefix_entries:
             # frees every page whose sole owner is a template; no stream
             # table references any of them
             self._clear_prefix_cache()
-        return not over and self._ensure_pages(idxs, budget)
+        return not over() and self._ensure_pages(idxs, budget, ahead)
 
     # ------------------------------------------------------------------ tick
     def _prefill_starts(self):
@@ -825,6 +889,9 @@ class MultiStreamEngine:
                 and self.frame_queues[i]]
         if not todo:
             return
+        # an admission writes through the table and the host offsets:
+        # in-flight ticks resolve first
+        self._resolve_all()
         key = tuple(self._start_ids)
         if self.prefix_cache:
             ent = self._prefix_entries.get(key)
@@ -920,12 +987,15 @@ class MultiStreamEngine:
         """One scheduler tick: ingest up to ``chunk_frames`` queued frames
         per stream in one batched forward (gated at every frame), then
         answer every stream whose gate fired or whose query came due in a
-        second batched program. Returns per stream (query, response) or
-        None; responses beyond one per stream per call surface on later
-        calls (FIFO)."""
+        second batched program; with ``pipelined`` the ingest of later
+        ticks is dispatched before this one's gates are read. Returns per
+        stream (query, response) or None; responses beyond one per stream
+        per call surface on later calls (FIFO)."""
         self._shed_lag()
         t0 = _time.perf_counter()
         try:
+            if self.pipelined:
+                return self._step_pipe()
             if self.stream_tokens:
                 # one continuation segment for every open response, before
                 # the other streams' ingest
@@ -934,15 +1004,20 @@ class MultiStreamEngine:
         finally:
             self._tick_hist.add("tick", _time.perf_counter() - t0)
 
-    def _step_unfused(self) -> List[Optional[Tuple[Optional[str], str]]]:
-        self._prefill_starts()
-        K = self.chunk_frames
-        N = self.N
+    def _collect_ingest(self) -> Optional[Dict[str, Any]]:
+        """A tick's ingest from the queues: per stream, up to
+        ``chunk_frames`` queued frames up to its next query's time (none
+        for a stream that still needs its prefill, has a response open or
+        has a query due before its next frame), its prepend (taken at
+        dispatch), and the ring slots the tick reserves a stream: the
+        chunk write as a full static-size slab, a prompt bucket and the
+        whole response budget (segmented responses reserve it here too).
+        None when no stream has a frame to ingest."""
+        K, N = self.chunk_frames, self.N
         text_ids = np.zeros((N, TEXT_BUCKET), np.int32)
         n_text = np.zeros((N,), np.int32)
         bursts: List[List[Tuple[float, Any]]] = [[] for _ in range(N)]
         active = np.zeros((N,), bool)
-        frame_times = [None] * N
         for i in range(N):
             if (not self.frame_queues[i] or self._needs_prefill[i]
                     or self._open[i] is not None):
@@ -962,77 +1037,96 @@ class MultiStreamEngine:
             if pre:
                 text_ids[i, TEXT_BUCKET - len(pre):] = pre
             n_text[i] = len(pre)
-            self.prepends[i] = []
             active[i] = True
-
-        max_burst = max((len(b) for b in bursts), default=0)
+        if not active.any():
+            return None
+        max_burst = max(len(b) for b in bursts)
         itv = 1 if self.cfg.frame_token_interval_id is not None else 0
-        if active.any():
-            # capacity guard: the chunk write is a full static-size slab per
-            # stream, plus a prompt bucket and the whole response budget
-            # (segmented responses reserve it here too)
-            write_len = (TEXT_BUCKET + self.fnt if max_burst <= 1 else
-                         TEXT_BUCKET + K * self.fnt + (K - 1) * itv)
-            budget = write_len + PROMPT_BUCKET + self.resp_budget
-            if self.paged:
-                idxs = [i for i in range(N) if active[i]]
-                if not self._paged_admit(idxs, budget):
-                    raise RuntimeError(
-                        f"streams {idxs}: paged KV pool/logical capacity "
-                        f"exceeded (offsets "
-                        f"{[int(self._host_offsets[i]) for i in idxs]}, "
-                        f"budget {budget}); raise kv_capacity/pool_pages or "
-                        f"set stream_window")
-            over = [] if self.paged else [
-                i for i in range(N) if active[i]
-                and int(self._host_offsets[i]) + budget > self.kv_capacity]
-            if over and self.stream_window is not None:
-                # compact every stream past its window (streams at or under
-                # the window are untouched: keep = min(window, offset))
-                self.cache = llama.compact_kv_cache(self.cache,
-                                                    self.stream_window)
-                self._host_offsets = np.minimum(self._host_offsets,
-                                                self.stream_window)
-                over = [i for i in over
-                        if int(self._host_offsets[i]) + budget
-                        > self.kv_capacity]
-            for i in over:
-                raise RuntimeError(
-                    f"stream {i}: KV ring capacity {self.kv_capacity} "
-                    f"would be exceeded (offset "
-                    f"{int(self._host_offsets[i])}); raise kv_capacity or "
-                    f"set stream_window")
+        write_len = (TEXT_BUCKET + self.fnt if max_burst <= 1 else
+                     TEXT_BUCKET + K * self.fnt + (K - 1) * itv)
+        return {"bursts": bursts, "active": active, "text_ids": text_ids,
+                "n_text": n_text, "max_burst": max_burst,
+                "budget": write_len + PROMPT_BUCKET + self.resp_budget}
 
+    def _admit_tick(self, coll):
+        """The blocking tick's capacity guard: pages (paged) or the ring's
+        room for every active stream, compacting past ``stream_window``
+        where that makes room; raises when it cannot."""
+        N, budget = self.N, coll["budget"]
+        active = coll["active"]
+        if self.paged:
+            idxs = [i for i in range(N) if active[i]]
+            if not self._paged_admit(idxs, budget):
+                raise RuntimeError(
+                    f"streams {idxs}: paged KV pool/logical capacity "
+                    f"exceeded (offsets "
+                    f"{[int(self._host_offsets[i]) for i in idxs]}, "
+                    f"budget {budget}); raise kv_capacity/pool_pages or "
+                    f"set stream_window")
+            return
+        over = [i for i in range(N) if active[i]
+                and int(self._host_offsets[i]) + budget > self.kv_capacity]
+        if over and self.stream_window is not None:
+            # compact every stream past its window (streams at or under
+            # the window are untouched: keep = min(window, offset))
+            self.cache = llama.compact_kv_cache(self.cache,
+                                                self.stream_window)
+            self._host_offsets = np.minimum(self._host_offsets,
+                                            self.stream_window)
+            over = [i for i in over
+                    if int(self._host_offsets[i]) + budget > self.kv_capacity]
+        for i in over:
+            raise RuntimeError(
+                f"stream {i}: KV ring capacity {self.kv_capacity} "
+                f"would be exceeded (offset "
+                f"{int(self._host_offsets[i])}); raise kv_capacity or "
+                f"set stream_window")
+
+    def _step_unfused(self) -> List[Optional[Tuple[Optional[str], str]]]:
+        self._prefill_starts()
+        N = self.N
+        active = np.zeros((N,), bool)
         fire = np.zeros((N,), bool)
         next_id = np.zeros((N,), np.int64)
         consumed = np.zeros((N,), np.int64)
-        if active.any():
-            if max_burst <= 1:
-                frames = torch.zeros((N, self.fnt, self.hidden),
-                                     dtype=self._frame_dtype(bursts),
-                                     device=self.device)
-                for i in np.flatnonzero(active):
-                    src, j = bursts[i][0][1]
-                    frames[i] = src[j]
-                fire, next_id = self._frame_step(text_ids, n_text, frames,
-                                                 active)
-                consumed = active.astype(np.int64)
-            else:
-                n_frames = np.array([len(b) for b in bursts], np.int64)
-                frames = self._gather_chunks(bursts, active, K)
-                consumed, fire, next_id = self._chunk_step(
-                    text_ids, n_text, frames, n_frames, active)
+        frame_times = [None] * N
+        coll = self._collect_ingest()
+        if coll is not None:
+            self._admit_tick(coll)
+            e = self._dispatch_ingest(coll)
+            consumed, fire, next_id, tokens = self._settle_ingest(e)
+            active = coll["active"]
+            # each stream's offset at the end of its consumed frames
+            self.cache = self.cache.replace(offset=torch.as_tensor(
+                e["base"] + tokens, dtype=torch.int32))
             self._sync_offsets()
-
-        # pop consumed frames; record each stream's last processed time
+            # pop consumed frames; record each stream's last processed time
+            for i in range(N):
+                c = int(consumed[i])
+                for _ in range(c):
+                    self.frame_queues[i].popleft()
+                if c:
+                    frame_times[i] = coll["bursts"][i][c - 1][0]
+        results = self._respond_turn(*self._schedule(
+            active, consumed, fire, next_id, frame_times), frame_times)
+        # surface queued entries FIFO; this tick's result queues behind them
         for i in range(N):
-            c = int(consumed[i])
-            for _ in range(c):
-                self.frame_queues[i].popleft()
-            if c:
-                frame_times[i] = bursts[i][c - 1][0]
+            if self._resp_out[i]:
+                if results[i] is not None:
+                    self._resp_out[i].append(results[i])
+                results[i] = self._resp_out[i].popleft()
+        return results
 
-        # bookkeeping + response scheduling
+    def _schedule(self, active, consumed, fire, next_id, frame_times,
+                  in_newer=None):
+        """After a tick's gates are read: the prepends of the streams that
+        went on, and which streams answer now: a fired stream (its query
+        instead when that query's time is the fired frame's), and a stream
+        whose query came due: the frame just processed reaches the query
+        time, or its next frame is strictly later (a frame in a newer
+        dispatch, ``in_newer``, counts as next). Returns (respond_mask,
+        respond_query)."""
+        N = self.N
         respond_mask = np.zeros((N,), bool)
         respond_query: List[Optional[Tuple[float, str]]] = [None] * N
         for i in range(N):
@@ -1047,79 +1141,207 @@ class MultiStreamEngine:
                     respond_query[i] = qq.popleft()
                 respond_mask[i] = True
                 self.prepends[i] = []
-            # answer a query once the stream has caught up to it: the frame
-            # just processed reaches the query time, or the next queued
-            # frame is strictly later. A fired stream's query waits a tick.
+            # answer a query once the stream has caught up to it. A fired
+            # stream's query waits a tick.
             qq = self.query_queues[i]
+            next_later = (not (in_newer is not None and in_newer[i])
+                          and self.frame_queues[i]
+                          and self.frame_queues[i][0][0] > qq[0][0]
+                          if qq else False)
             if not fire[i] and qq and not self._needs_prefill[i] \
                     and self._open[i] is None and (
                     (frame_times[i] is not None and frame_times[i] >= qq[0][0])
-                    or (self.frame_queues[i]
-                        and self.frame_queues[i][0][0] > qq[0][0])):
+                    or next_later):
                 respond_query[i] = qq.popleft()
                 respond_mask[i] = True
+        return respond_mask, respond_query
 
+    def _respond_turn(self, respond_mask, respond_query, frame_times
+                      ) -> List[Optional[Tuple[Optional[str], str]]]:
+        """One batched respond program for the streams of ``respond_mask``
+        (a query prompt where ``respond_query`` names one, the stream
+        prompt after a gate fire). Returns per stream its (query,
+        response), or None (also while a segmented response stays open)."""
+        N = self.N
         results: List[Optional[Tuple[Optional[str], str]]] = [None] * N
-        if respond_mask.any():
-            prompts: Dict[int, List[int]] = {}
-            for i in range(N):
-                if not respond_mask[i]:
-                    continue
-                if respond_query[i] is not None:
-                    prompts[i] = list(self.tokenizer.apply_chat_template(
-                        [{"role": "user", "content": respond_query[i][1]}],
-                        tokenize=True, add_stream_query_prompt=True,
-                        add_generation_prompt=True))
-                    self.prepends[i] = []
-                else:
-                    prompts[i] = self._gen_prompt_ids
-            longest = max(len(p) for p in prompts.values())
-            P = -(-max(longest, 1) // PROMPT_BUCKET) * PROMPT_BUCKET
-            ids = np.zeros((N, P), np.int64)
-            nv = np.zeros((N,), np.int64)
-            for i, prompt in prompts.items():
-                ids[i, P - len(prompt):] = prompt
-                nv[i] = len(prompt)
-            out, lengths = self._respond(ids, nv, respond_mask)
-            self._sync_offsets()
-            for i in range(N):
-                if not respond_mask[i]:
-                    continue
-                toks = out[i, :lengths[i]]
-                t = (respond_query[i][0] if respond_query[i] is not None
-                     else frame_times[i])
-                if self.stream_tokens:
-                    # the first segment opens the response; a completed one
-                    # lands in _resp_out and surfaces below, this tick
-                    query = respond_query[i]
-                    self._begin_open(i, "q" if query is not None else "f", t,
-                                     query[1] if query is not None else None)
-                    self._extend_open(i, toks.astype(np.int32))
-                    continue
-                if toks.size and toks[-1] == self.cfg.eos_token_id:
-                    self.prepends[i] = ([int(toks[-1])]
-                                        + self._stream_prompt_ids)
-                elif toks.size:
-                    self.prepends[i] = [int(toks[-1])]
-                resp = self.tokenizer.decode(toks.astype(np.int32),
-                                             skip_special_tokens=True)
-                q_str = (f"(Video Time = {t}s) User: {respond_query[i][1]}"
-                         if respond_query[i] is not None else None)
-                results[i] = (q_str, f"(Video Time = {t}s) Assistant:{resp}")
-                self._record_response_latency(
-                    i, "q" if respond_query[i] is not None else "f", t)
-                self.transcripts[i].append(results[i])
-        # surface queued entries FIFO; this tick's result queues behind them
+        if not respond_mask.any():
+            return results
+        prompts: Dict[int, List[int]] = {}
         for i in range(N):
-            if self._resp_out[i]:
-                if results[i] is not None:
-                    self._resp_out[i].append(results[i])
-                results[i] = self._resp_out[i].popleft()
+            if not respond_mask[i]:
+                continue
+            if respond_query[i] is not None:
+                prompts[i] = list(self.tokenizer.apply_chat_template(
+                    [{"role": "user", "content": respond_query[i][1]}],
+                    tokenize=True, add_stream_query_prompt=True,
+                    add_generation_prompt=True))
+                self.prepends[i] = []
+            else:
+                prompts[i] = self._gen_prompt_ids
+        longest = max(len(p) for p in prompts.values())
+        P = -(-max(longest, 1) // PROMPT_BUCKET) * PROMPT_BUCKET
+        ids = np.zeros((N, P), np.int64)
+        nv = np.zeros((N,), np.int64)
+        for i, prompt in prompts.items():
+            ids[i, P - len(prompt):] = prompt
+            nv[i] = len(prompt)
+        out, lengths = self._respond(ids, nv, respond_mask)
+        self._sync_offsets(respond_mask)
+        for i in range(N):
+            if not respond_mask[i]:
+                continue
+            toks = out[i, :lengths[i]]
+            t = (respond_query[i][0] if respond_query[i] is not None
+                 else frame_times[i])
+            if self.stream_tokens:
+                # the first segment opens the response; a completed one
+                # lands in _resp_out and surfaces this tick
+                query = respond_query[i]
+                self._begin_open(i, "q" if query is not None else "f", t,
+                                 query[1] if query is not None else None)
+                self._extend_open(i, toks.astype(np.int32))
+                continue
+            if toks.size and toks[-1] == self.cfg.eos_token_id:
+                self.prepends[i] = ([int(toks[-1])]
+                                    + self._stream_prompt_ids)
+            elif toks.size:
+                self.prepends[i] = [int(toks[-1])]
+            resp = self.tokenizer.decode(toks.astype(np.int32),
+                                         skip_special_tokens=True)
+            q_str = (f"(Video Time = {t}s) User: {respond_query[i][1]}"
+                     if respond_query[i] is not None else None)
+            results[i] = (q_str, f"(Video Time = {t}s) Assistant:{resp}")
+            self._record_response_latency(
+                i, "q" if respond_query[i] is not None else "f", t)
+            self.transcripts[i].append(results[i])
         return results
 
+    # ------------------------------------------------------ pipelined mode
+    def _step_pipe(self) -> List[Optional[Tuple[Optional[str], str]]]:
+        self._prefill_starts()
+        while len(self._pipe) >= self.pipeline_depth:
+            self._pipe_resolve()
+        blocked, added = self._pipe_fill()
+        if blocked:
+            # resolve what is in flight, then one blocking tick (its guard
+            # compacts or raises), so a tight ring still makes progress
+            self._resolve_all()
+            return self._step_unfused()
+        if not self._pipe:
+            # nothing to dispatch: a blocking tick answers what is due
+            return self._step_unfused()
+        if not added:
+            # every stream waits on the oldest tick, a gate or a query
+            # turn: resolve it, then send the next tick out behind it
+            self._pipe_resolve()
+            self._pipe_fill()
+        return self._drain_out()
+
+    def _drain_out(self):
+        return [self._resp_out[i].popleft() if self._resp_out[i] else None
+                for i in range(self.N)]
+
+    def _pipe_fill(self) -> Tuple[bool, int]:
+        """Dispatch ticks up to the pipeline depth, each stream assuming its
+        gates in the ticks before hold (frames popped, the interval token as
+        its next prepend). The ring, or the pages, must hold every in-flight
+        tick's worst case before another is dispatched; no compaction runs
+        while a tick is in flight. Returns (blocked by that guard, ticks
+        dispatched)."""
+        iv = self.cfg.frame_token_interval_id
+        added = 0
+        while len(self._pipe) < self.pipeline_depth:
+            coll = self._collect_ingest()
+            if coll is None:
+                return False, added
+            idxs = [int(i) for i in np.flatnonzero(coll["active"])]
+            # each stream's tokens in flight: the tick is admitted from the
+            # offset its stream would have if no gate in flight fires, as
+            # the blocking tick would admit it there
+            ahead = (self.cache.offset.numpy().astype(np.int64)
+                     - self._host_offsets)
+            if any(int(self._host_offsets[i] + ahead[i]) + coll["budget"]
+                   > self.kv_capacity for i in idxs):
+                return True, added
+            before = list(self._pages_alloc) if self.paged else None
+            if self.paged and not self._paged_admit(idxs, coll["budget"],
+                                                    ahead):
+                return True, added
+            e = self._dispatch_ingest(coll)
+            # the pages this tick's admission mapped, freed again if its
+            # stream's work here is rolled back
+            e["pages"] = ({i: before[i] for i in idxs} if self.paged
+                          else {})
+            for i in idxs:
+                for _ in coll["bursts"][i]:
+                    self.frame_queues[i].popleft()
+                self.prepends[i] = [iv] if iv is not None else []
+            self._pipe.append(e)
+            added += 1
+            self._counts.inflight(len(self._pipe))
+        return False, added
+
+    def _pipe_resolve(self):
+        """Resolve the oldest in-flight tick: each stream's resolved offset;
+        a stream whose gate fired gets its frames in newer ticks and its
+        unconsumed frames here re-queued and its ring offset rewound (the
+        stale slots past it are never attended), while the other streams
+        keep their work; then one respond program for the streams that
+        answer now. Their responses queue in ``_resp_out``."""
+        e = self._pipe.popleft()
+        coll = e["coll"]
+        consumed, fire, next_id, tokens = self._settle_ingest(e)
+        N = self.N
+        frame_times = [None] * N
+        for i in np.flatnonzero(coll["active"]):
+            self._host_offsets[i] = e["base"][i] + tokens[i]
+            if consumed[i]:
+                frame_times[i] = coll["bursts"][i][consumed[i] - 1][0]
+        for i in np.flatnonzero(fire):
+            for newer in reversed(self._pipe):
+                nc = newer["coll"]
+                if nc["active"][i]:
+                    self.frame_queues[i].extendleft(reversed(nc["bursts"][i]))
+                    nc["active"][i] = False
+                    if self.paged:
+                        self._unmap_tail(i, newer["pages"][i])
+                    self._counts.rolled_back(len(nc["bursts"][i]))
+            self.frame_queues[i].extendleft(
+                reversed(coll["bursts"][i][consumed[i]:]))
+        if fire.any():
+            offs = self.cache.offset.clone()
+            offs[fire] = torch.as_tensor(self._host_offsets[fire],
+                                         dtype=torch.int32)
+            self.cache = self.cache.replace(offset=offs)
+        in_newer = [any(n["coll"]["active"][i] for n in self._pipe)
+                    for i in range(N)]
+        results = self._respond_turn(*self._schedule(
+            coll["active"], consumed, fire, next_id, frame_times, in_newer),
+            frame_times)
+        for i, r in enumerate(results):
+            if r is not None:
+                self._resp_out[i].append(r)
+
+    def _unmap_tail(self, i: int, keep: int):
+        """Drop stream ``i``'s page-table entries past its first ``keep``
+        (pages a rolled-back tick mapped; the work in flight that writes
+        them comes first on the stream, so a page's next owner overwrites
+        it)."""
+        while self._pages_alloc[i] > keep:
+            self._pages_alloc[i] -= 1
+            self._unref_page(int(self._table_host[i, self._pages_alloc[i]]))
+            self._table_host[i, self._pages_alloc[i]] = 0
+        self._set_table()
+
+    def _resolve_all(self):
+        while self._pipe:
+            self._pipe_resolve()
+
     def flush(self) -> List[List[Tuple[Optional[str], str]]]:
-        """Finish every open segmented response and drain every queued
-        response; returns them per stream."""
+        """Resolve every in-flight tick, finish every open segmented
+        response and drain every queued response; returns them per
+        stream."""
+        self._resolve_all()
         self._finish_open_responses()
         out = [list(self._resp_out[i]) for i in range(self.N)]
         for i in range(self.N):
@@ -1130,7 +1352,8 @@ class MultiStreamEngine:
         return (any(q for q in self.frame_queues)
                 or any(q for q in self.query_queues)
                 or any(q for q in self._resp_out)
-                or any(o is not None for o in self._open))
+                or any(o is not None for o in self._open)
+                or bool(self._pipe))
 
     def close_stream(self, i: int) -> List[Tuple[Optional[str], str]]:
         """End stream ``i``'s dialogue and return its transcript. The slot
@@ -1138,7 +1361,9 @@ class MultiStreamEngine:
         prefills the system prompt again, or admits it from the prefix
         cache); in paged mode its pages return to the pool now. Sibling
         streams are untouched."""
-        # an open segmented response belongs to this dialogue: finish it
+        # in-flight ticks resolve first; an open segmented response
+        # belongs to this dialogue: finish it
+        self._resolve_all()
         self._finish_open_responses([i])
         out = self.transcripts[i]
         self.transcripts[i] = []
@@ -1184,7 +1409,9 @@ class MultiStreamEngine:
             raise ValueError("fork_stream requires the paged KV layout")
         if src == dst:
             raise ValueError("fork_stream: src == dst")
-        # fork a quiescent source: finish its open response first
+        # fork a quiescent source: in-flight ticks resolve and its open
+        # response finishes first
+        self._resolve_all()
         self._finish_open_responses([src])
         if (self._pages_alloc[dst] or self.frame_queues[dst]
                 or self.query_queues[dst] or self._resp_out[dst]
