@@ -159,7 +159,20 @@ any failure raises and exits non-zero:
      two sessions, each transcript byte-equal to a fresh engine driven
      through the same polls; StreamingPipeline over the single engine with
      the caller on a non-default CUDA stream, its events equal to a
-     sequential drive of the same interleaving.
+     sequential drive of the same interleaving;
+ 23. tensor-parallel serving on two ranks of the card (gloo): phases 5, 11
+     and 15's engines on params cut ``tp``, and phase 15's 8 paged streams
+     again through the pipelined tick, each rank's transcripts equal to one
+     rank's pipelined run;
+ 24. sharded training on two ranks: phase 8's step under sp_ulysses,
+     sp_ring and fsdp_tp;
+ 25. training's memory-fit mechanisms at T 12288 on phase 8's
+     configuration (after phase 8 in the default run): per-layer remat and
+     the whole int8 head; --remat_group 2 --mlp_chunk 3072 with the
+     column-tiled head; --offload_optimizer --remat_group 2; ms/step,
+     tokens/s, peak and held memory, K2 launches a step, the offload's
+     bytes a step, losses against the first run's; K2's three kernels at
+     T 12288 against their plain versions and timed.
 
 ``--phases a,b`` runs the named phases alone and prints no summary;
 ``--phases train_seeds`` (in no default run) prints the 2-layer step's loss
@@ -1534,6 +1547,496 @@ def phase_main_training(steps: int = 4, seq: int = 4096):
     torch.cuda.empty_cache()
     _two_layer_parity(cfg, batch)
     return {"launches": counts, "step_ms": step_ms, "peak": peak}
+
+
+# --------------------------------------------------------------- phase 25
+# Training's memory-fit mechanisms at the reference's longest live1+
+# sample: phase 8's configuration at T 12288, three steps a run.
+FIT_SEQ = 12288
+FIT_STEPS = 3
+FIT_MLP_CHUNK = 3072
+# the runs' losses against the baseline's, relative: phase 8's bound for
+# two correct bf16 attentions (the sliced MLP's and the tiled head's
+# products sum in another order)
+FIT_LOSS_REL = TRAIN_BF16_LOSS_TOL
+# query rows a block of the plain K2 versions at T 12288: their fp32
+# (Hq, rows, T) scores, probabilities and gradients fit in a few GiB
+FIT_PLAIN_ROWS = 1024
+# K2 against its plain versions at T 12288. Both round each P term to
+# bf16 before its product with dO; where their fp32 P differ by an ulp
+# across a bf16 rounding boundary, one term of dV (or, through dS, of dK
+# and dQ) moves by a bf16 step of P times |dO|. The large P terms sit on
+# the first few hundred keys, so that is where the needed atol lives.
+# `--phases k2_fit_probe` read, on an H100 80GB HBM3 at 700 W, over seeds
+# 25 and 26 at T 4096 and 12288: dV 2.05e-4 to 2.64e-3 (the largest on key
+# 29, |err| 3.4e-3: a P near 0.4, whose bf16 step is 2^-9, times |dO| near
+# 1.75), dK up to 5.1e-4, dQ up to 1.1e-3; the needed atol moves with the
+# seed, not with T. So the limit is a step of 2^-9 times |dO| up to 1.8;
+# K2_TOL's rtol and relative norm bound stay.
+FIT_K2_TOL = {**K2_TOL[torch.bfloat16], "atol": 3.5e-3}
+# ... and against the exact function in fp64 on kv head 0 (P unrounded),
+# where kernel and plain version read the same atol and relative norm to
+# three digits: the kernel may be no farther from it than this times the
+# plain version's distance.
+FIT_K2_FP64_RATIO = 1.1
+
+
+@contextlib.contextmanager
+def _untiled_head():
+    """The chunked CE loss with the whole int8 head cast on every call, as
+    before the column-tiled head (run (a)'s baseline)."""
+    from videollm_online_tpu_torch.models import quant
+    tiles = quant.head_tile_cols
+    quant.head_tile_cols = lambda v, max_tile=32768: None
+    try:
+        yield
+    finally:
+        quant.head_tile_cols = tiles
+
+
+def _k2_plain_rows(q, k, v, do, scale, rows):
+    """K2's plain versions at causal T = S, computed a block of query rows
+    at a time (flash_attention_fwd_reference with the block's q_offset;
+    flash_bwd_plain's algorithm with dK and dV summed over the blocks in
+    fp32 and cast once): out, lse, delta, dq, dk, dv."""
+    from videollm_online_tpu_torch.ops import flash_attention as fa
+    B, Hq, T, d = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    outs, lses = [], []
+    for r in range(0, T, rows):
+        o, l = fa.flash_attention_fwd_reference(q[:, :, r:r + rows], k, v,
+                                                scale, True, r)
+        outs.append(o)
+        lses.append(l)
+    out, lse = torch.cat(outs, 2), torch.cat(lses, 2)
+    delta = fa.softmax_delta(do, out)
+    kf, vf = fa._grouped(k, G).float(), fa._grouped(v, G).float()
+    dk = torch.zeros(B, Hq, S, d, device=q.device)
+    dv = torch.zeros_like(dk)
+    dq = torch.empty_like(q)
+    for r in range(0, T, rows):
+        n = min(rows, T - r)
+        qb, dob = q[:, :, r:r + n], do[:, :, r:r + n]
+        mask = fa.visible_mask(n, S, r, True, None, S, q.device)
+        s = torch.matmul(qb.float(), kf.transpose(-1, -2)) * scale
+        p = torch.where(mask, torch.exp(s - lse[:, :, r:r + n, None]),
+                        torch.zeros_like(s))
+        del s
+        dof = dob.float()
+        dv += torch.matmul(p.to(do.dtype).float().transpose(-1, -2), dof)
+        ds = p * (torch.matmul(dof, vf.transpose(-1, -2))
+                  - delta[:, :, r:r + n, None]) * scale
+        del p
+        dk += torch.matmul(ds.to(q.dtype).float().transpose(-1, -2),
+                           qb.float())
+        dq[:, :, r:r + n] = torch.matmul(ds.to(k.dtype).float(),
+                                         kf).to(q.dtype)
+        del ds
+    dk = dk.reshape(B, Hkv, G, S, d).sum(2).to(k.dtype)
+    dv = dv.reshape(B, Hkv, G, S, d).sum(2).to(v.dtype)
+    return out, lse, delta, dq, dk, dv
+
+
+def _k2_fit_hold(T=FIT_SEQ):
+    """K2's three kernels at the fit runs' shapes (B 1, 32 q / 8 kv heads,
+    T = S = T, d 128, bf16, causal) against their plain versions (a block
+    of query rows at a time; the backward kernels take the plain forward's
+    lse and delta, as in phase 6), then each timed by CUDA events beside
+    the plain version, SDPA (its forward; its backward, fwd+bwd minus fwd;
+    on K and V expanded to the query heads, whose GQA form may take the
+    math route at this T) and the bound."""
+    from videollm_online_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    B, Hq, Hkv, d = 1, 32, 8, 128
+    q, k, v, do = _k2_inputs(B, Hq, Hkv, T, T, d, torch.bfloat16, gen)
+    scale = d ** -0.5
+    t0 = time.perf_counter()
+    ref_out, ref_lse, delta, ref_dq, ref_dk, ref_dv = _k2_plain_rows(
+        q, k, v, do, scale, FIT_PLAIN_ROWS)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    out, lse = fa.flash_fwd(q, k, v, scale)
+    dk, dv = fa.flash_dkdv(q, k, v, do, ref_lse, delta, scale)
+    dq = fa.flash_dq(q, k, v, do, ref_lse, delta, scale)
+    tol = FIT_K2_TOL
+    label = f"T = S = {T} (B 1, Hq 32, Hkv 8, d 128, bf16, causal)"
+    r = {name: _close(f"{kern} {label} {name}", got, want,
+                      K2_LSE_TOL if name == "lse" else tol)
+         for kern, name, got, want in (
+             ("K2f", "out", out, ref_out), ("K2f", "lse", lse, ref_lse),
+             ("K2b", "dk", dk, ref_dk), ("K2b", "dv", dv, ref_dv),
+             ("K2q", "dq", dq, ref_dq))}
+    log(f"K2 vs plain at {label}, the plain versions {FIT_PLAIN_ROWS} "
+        f"query rows at a time ({plain_s:.1f} s; tolerance {tol}, lse "
+        f"{K2_LSE_TOL}):")
+    for name, reading in r.items():
+        log(f"  {name}: {_readings(reading)}")
+    for name, got, want in (("dk", dk, ref_dk), ("dv", dv, ref_dv),
+                            ("dq", dq, ref_dq)):
+        idx, ref_abs, err, buckets = _k2_where(got, want, tol["rtol"])
+        log(f"  {name} worst at (b, h, pos, dim) {idx}, |ref| {ref_abs:.3g},"
+            f" |err| {err:.3g}; atol needed by position "
+            + ", ".join(f"{b} {x:.3g}" for b, x in buckets.items()))
+    G = Hq // Hkv
+    xq, xk, xv = _k2_fp64_head(q, k, v, do, scale)
+    for name, got, want, exact in (("dk", dk[0, 0], ref_dk[0, 0], xk),
+                                   ("dv", dv[0, 0], ref_dv[0, 0], xv),
+                                   ("dq", dq[0, :G], ref_dq[0, :G], xq)):
+        kx, px = (_k2_vs(t, exact, tol["rtol"]) for t in (got, want))
+        log(f"  {name} of kv head 0 against fp64: kernel atol needed "
+            f"{kx['atol']:.3g}, rel {kx['rel']:.3g}; plain atol needed "
+            f"{px['atol']:.3g}, rel {px['rel']:.3g} (ratio bound "
+            f"{FIT_K2_FP64_RATIO})")
+        if kx["atol"] > FIT_K2_FP64_RATIO * px["atol"] or \
+                kx["rel"] > FIT_K2_FP64_RATIO * px["rel"]:
+            raise AssertionError(f"K2 {name} at T {T}: farther from the "
+                                 f"fp64 function than the plain version: "
+                                 f"{kx} against {px}")
+    del out, dk, dv, dq, ref_out, ref_dq, ref_dk, ref_dv, xq, xk, xv
+    torch.cuda.empty_cache()
+    F = torch.nn.functional
+    kx, vx = (x.repeat_interleave(Hq // Hkv, dim=1) for x in (k, v))
+    qg, kg, vg = (t.detach().clone().requires_grad_(True)
+                  for t in (q, kx, vx))
+
+    def sdpa_fwd(_):
+        return F.scaled_dot_product_attention(q, kx, vx, is_causal=True,
+                                              scale=scale)
+
+    def sdpa_fwd_bwd(_):
+        F.scaled_dot_product_attention(qg, kg, vg, is_causal=True,
+                                       scale=scale).backward(do)
+
+    t = {"fwd": cuda_ms(lambda _: fa.flash_fwd(q, k, v, scale), 10, 2),
+         "dkdv": cuda_ms(lambda _: fa.flash_dkdv(q, k, v, do, ref_lse,
+                                                 delta, scale), 10, 2),
+         "dq": cuda_ms(lambda _: fa.flash_dq(q, k, v, do, ref_lse, delta,
+                                             scale), 10, 2),
+         "plain": cuda_ms(lambda _: _k2_plain_rows(q, k, v, do, scale,
+                                                   FIT_PLAIN_ROWS), 2, 1),
+         "sdpa_fwd": cuda_ms(sdpa_fwd, 10, 2)}
+    t["sdpa_bwd"] = cuda_ms(sdpa_fwd_bwd, 10, 2) - t["sdpa_fwd"]
+    pairs = B * Hq * T * (T + 1) // 2
+    q_bytes, kv_bytes, row_bytes = q.numel() * 2, k.numel() * 2, B * Hq * T * 4
+    work = {"fwd": (4 * d * pairs, 2 * q_bytes + 2 * kv_bytes + row_bytes),
+            "dkdv": (8 * d * pairs, 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes),
+            "dq": (6 * d * pairs, 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes)}
+    res = {}
+    for name, (flops, bytes_) in work.items():
+        t_ops = flops / BF16_FLOPS_PER_S * 1e3
+        t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+        res[name] = {"ms": t[name], "plain_ms": t["plain"],
+                     "library_ms": t["sdpa_fwd" if name == "fwd"
+                                     else "sdpa_bwd"],
+                     "bound_ms": max(t_ops, t_bytes),
+                     "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                     "tflops": flops / t[name] / 1e9}
+    res["fwd"]["max_abs_err"] = max(r["out"]["max"], r["lse"]["max"])
+    res["dkdv"]["max_abs_err"] = max(r["dk"]["max"], r["dv"]["max"])
+    res["dq"]["max_abs_err"] = r["dq"]["max"]
+    for name, x in res.items():
+        log(f"K2 {name} at T {T}: {x['ms']:.4f} ms, {x['tflops']:.1f} "
+            f"TFLOP/s, bound {x['bound_ms']:.4f} ms ({x['bound_by']}, "
+            f"{100 * x['bound_ms'] / x['ms']:.1f} %), SDPA "
+            f"{x['library_ms']:.4f} ms, plain (forward and backward, by "
+            f"blocks) {x['plain_ms']:.1f} ms")
+    del q, k, v, do, kx, vx, qg, kg, vg, ref_lse, delta
+    torch.cuda.empty_cache()
+    return res
+
+
+# position buckets of _k2_where: the first keys (whose dV and dK sum the
+# most query rows), then wider bands
+K2_BUCKETS = (0, 16, 256, 1024, 4096, 8192, 12288)
+
+
+def _k2_where(got, want, rtol, rows_axis=2):
+    """Where an output of K2 needs its atol at ``rtol``: (the worst
+    element's index (B, H, position, dim), its |want| and |got - want|,
+    the needed atol by position bucket of K2_BUCKETS)."""
+    g, w = got.float(), want.float()
+    need = ((g - w).abs() - rtol * w.abs()).clamp(min=0)
+    idx = tuple(int(i) for i in np.unravel_index(int(need.argmax()),
+                                                 need.shape))
+    n = need.shape[rows_axis]
+    edges = [e for e in K2_BUCKETS if e < n] + [n]
+    buckets = {f"{a}-{b}": float(need.narrow(rows_axis, a, b - a).max())
+               for a, b in zip(edges, edges[1:])}
+    return idx, float(w[idx].abs()), float((g - w)[idx].abs()), buckets
+
+
+def _k2_fp64_head(q, k, v, do, scale, rows=1024):
+    """The exact function in fp64 for kv head 0 and its G query heads of a
+    causal T = S attention (P unrounded, its own lse and delta): dq (G, T,
+    d), dk (S, d), dv (S, d)."""
+    Hq, Hkv = q.shape[1], k.shape[1]
+    G = Hq // Hkv
+    qh, doh = q[0, :G].double(), do[0, :G].double()
+    kh, vh = k[0, 0].double(), v[0, 0].double()
+    T = qh.shape[1]
+    pos = torch.arange(T, device=q.device)
+    lse = torch.empty(G, T, dtype=torch.float64, device=q.device)
+    delta = torch.empty_like(lse)
+
+    def probs(r, n):
+        s = torch.matmul(qh[:, r:r + n], kh.T) * scale
+        return s.masked_fill(pos[None, :] > pos[r:r + n, None],
+                             float("-inf"))
+    for r in range(0, T, rows):
+        n = min(rows, T - r)
+        s = probs(r, n)
+        lse[:, r:r + n] = torch.logsumexp(s, -1)
+        out = torch.matmul(torch.exp(s - lse[:, r:r + n, None]), vh)
+        delta[:, r:r + n] = (doh[:, r:r + n] * out).sum(-1)
+    dk = torch.zeros_like(kh)
+    dv = torch.zeros_like(vh)
+    dq = torch.empty_like(qh)
+    for r in range(0, T, rows):
+        n = min(rows, T - r)
+        p = torch.exp(probs(r, n) - lse[:, r:r + n, None])
+        dob = doh[:, r:r + n]
+        dv += torch.matmul(p.transpose(-1, -2), dob).sum(0)
+        ds = p * (torch.matmul(dob, vh.T) - delta[:, r:r + n, None]) * scale
+        dk += torch.matmul(ds.transpose(-1, -2), qh[:, r:r + n]).sum(0)
+        dq[:, r:r + n] = torch.matmul(ds, kh)
+    return dq, dk, dv
+
+
+def _k2_vs(got, want, rtol):
+    g, w = got.double(), want.double()
+    err = (g - w).abs()
+    return {"max": float(err.max()),
+            "atol": max(float((err - rtol * w.abs()).max()), 0.0),
+            "rel": float((g - w).norm() / w.norm())}
+
+
+def phase_k2_fit_probe(lengths=(4096, FIT_SEQ), seeds=(25, 26)):
+    """Where K2's backward parts from its plain version at the fit
+    runs' shape, and why (not in the default run): for T 4096 and 12288
+    and two seeds, K2b / K2q against the plain versions (a block of query
+    rows at a time, as phase 25 holds them): the worst element of dK, dV
+    and dQ, its |ref|, and the atol needed by position bucket; then for kv
+    head 0 and its 4 query heads, kernel and plain version each against
+    the exact function in fp64 (P unrounded), so a gap that is the two
+    roundings' shows as kernel and plain equally far from fp64."""
+    from videollm_online_tpu_torch.ops import flash_attention as fa
+    card = _card()
+    rtol = FIT_K2_TOL["rtol"]
+    B, Hq, Hkv, d = 1, 32, 8, 128
+    G = Hq // Hkv
+    scale = d ** -0.5
+    out = {}
+    for T in lengths:
+        for seed in seeds:
+            gen = torch.Generator(device="cuda").manual_seed(seed)
+            q, k, v, do = _k2_inputs(B, Hq, Hkv, T, T, d, torch.bfloat16,
+                                     gen)
+            _, lse, delta, ref_dq, ref_dk, ref_dv = _k2_plain_rows(
+                q, k, v, do, scale, FIT_PLAIN_ROWS)
+            dk, dv = fa.flash_dkdv(q, k, v, do, lse, delta, scale)
+            dq = fa.flash_dq(q, k, v, do, lse, delta, scale)
+            log(f"K2 backward at T = S = {T}, seed {seed}, kernel against "
+                f"the plain version (rtol {rtol}) [{card}]:")
+            res = {}
+            for name, got, want in (("dk", dk, ref_dk), ("dv", dv, ref_dv),
+                                    ("dq", dq, ref_dq)):
+                idx, ref_abs, err, buckets = _k2_where(got, want, rtol)
+                res[name] = {"worst": idx, "ref": ref_abs, "err": err,
+                             "buckets": buckets,
+                             "vs_plain": _k2_vs(got, want, rtol)}
+                terms = ""
+                if name == "dv":
+                    # the magnitude of the worst element's terms: sum over
+                    # its query rows of |P dO| in its kv head's group
+                    _, h, j, c = idx
+                    hs = slice(h * G, (h + 1) * G)
+                    sc = torch.matmul(q[0, hs, j:].float(),
+                                      k[0, h, j].float()) * scale
+                    pj = torch.exp(sc - lse[0, hs, j:])
+                    mag = float((pj * do[0, hs, j:, c].float()).abs().sum())
+                    res[name]["terms"] = mag
+                    terms = (f", sum of its |P dO| terms {mag:.3g} over "
+                             f"{T - j} query rows")
+                log(f"  {name}: worst at (b, h, pos, dim) {idx}, |ref| "
+                    f"{ref_abs:.3g}, |err| {err:.3g}{terms}; atol needed "
+                    f"by position "
+                    + ", ".join(f"{b} {x:.3g}" for b, x in buckets.items()))
+            xq, xk, xv = _k2_fp64_head(q, k, v, do, scale)
+            for name, got, want, exact in (
+                    ("dk", dk[0, 0], ref_dk[0, 0], xk),
+                    ("dv", dv[0, 0], ref_dv[0, 0], xv),
+                    ("dq", dq[0, :G], ref_dq[0, :G], xq)):
+                kx, px = _k2_vs(got, exact, rtol), _k2_vs(want, exact, rtol)
+                res[name]["kernel_vs_fp64"], res[name]["plain_vs_fp64"] = \
+                    kx, px
+                log(f"  {name} of kv head 0 against fp64: kernel max "
+                    f"{kx['max']:.3g}, atol needed {kx['atol']:.3g}, rel "
+                    f"{kx['rel']:.3g}; plain max {px['max']:.3g}, atol "
+                    f"needed {px['atol']:.3g}, rel {px['rel']:.3g}")
+            out[T, seed] = res
+            del q, k, v, do, lse, delta, ref_dq, ref_dk, ref_dv, dk, dv, dq
+            torch.cuda.empty_cache()
+    return out
+
+
+def _moments_on_card(state) -> int:
+    """Bytes of the Adam moments that live on the card."""
+    from videollm_online_tpu_torch.train import optim
+    return sum(x.numel() * x.element_size() for x in optim.tree_leaves(
+        {"mu": state.opt_state.mu, "nu": state.opt_state.nu}) if x.is_cuda)
+
+
+def phase_main_path_fit(seq: int = FIT_SEQ, steps: int = FIT_STEPS):
+    """Training's memory-fit mechanisms on phase 8's configuration (the
+    8B int8 base built at random on the card, LoRA r 128 / alpha 256 with
+    dropout 0.05, the connector, the chunked CE loss) at one live1+ sample
+    of T 12288, through LiveTrainer, ``steps`` steps a run from the same
+    weights: (a) per-layer remat and the whole int8 head cast each call;
+    (b) the JAX package's fit recipe, ``--remat_group 2 --mlp_chunk
+    3072`` and the column-tiled head; (c) ``--offload_optimizer
+    --remat_group 2`` (the in-step variant); (d) ``--remat_group 2``
+    alone, which (c)'s trainables, moments and losses must equal bit for
+    bit after the last step. Each run: ms/step over the
+    steps after the first, tokens/s, peak memory, the memory held between
+    steps, a profile of one more step by kernel class ((a) to (c)), K2
+    launches a step
+    (K2f 2L under per-layer remat, 2L + L/2
+    under remat_group 2: the outer recompute stops after the group's
+    last layer input; K2b and K2q L), and for (c) the bytes moved each way
+    a step. The losses of (b), (c) and (d) are held to (a)'s within
+    FIT_LOSS_REL, and (c) must keep no moment on the card between steps.
+    Then K2's three kernels at T 12288 against their plain versions, and
+    kernel and plain version against the fp64 function on kv head 0."""
+    from videollm_online_tpu_torch.ops.auto import auto_attention
+    from videollm_online_tpu_torch.train import optim
+    card = _card()
+    cfg, tok = _train_config()
+    L = cfg.llama.num_layers
+    batch, n_frames = synthetic_batch(cfg, seq, np.random.RandomState(0))
+    t0 = time.perf_counter()
+    params = _lora_8b_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    log(f"fit runs: the 8B int8 base + LoRA r 128 built in "
+        f"{time.perf_counter() - t0:.2f} s; sample T {seq}, {n_frames} "
+        f"frames, {steps} steps a run, chunked CE loss [{card}]")
+    sliced = cfg.replace(llama=dataclasses.replace(cfg.llama,
+                                                   mlp_chunk=FIT_MLP_CHUNK))
+    runs = (("a", cfg, (), False),
+            ("b", sliced, ("--remat_group", "2", "--mlp_chunk",
+                           str(FIT_MLP_CHUNK)), True),
+            ("c", cfg, ("--offload_optimizer", "true", "--remat_group", "2"),
+             True),
+            ("d", cfg, ("--remat_group", "2"), True))
+    res, launches = {}, {k: 0 for k in ("K2f", "K2b", "K2q")}
+    after = {}
+    for name, rcfg, extra, tiled in runs:
+        out_dir = _out_dir(f"fit_{name}")
+        trainer = _trainer(params, rcfg, tok, out_dir, batch, steps,
+                           auto_attention, extra=("--chunked_loss", "true",
+                                                  *extra))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launches()
+        with contextlib.nullcontext() if tiled else _untiled_head():
+            trainer.train()
+            torch.cuda.synchronize()
+            counts = _read_launches()
+            peak = torch.cuda.max_memory_allocated()
+            held = torch.cuda.memory_allocated()
+            on_card = _moments_on_card(trainer.state)
+            moved = (dict(trainer._offload_step.moved)
+                     if trainer._offload_step is not None else None)
+            if name in ("c", "d"):
+                # the trained state, copied before anything steps again
+                # (the offloaded moments are updated in place)
+                after[name] = [x.detach().to("cpu", copy=True)
+                               for x in optim.tree_leaves(
+                                   {"p": trainer.state.trainable,
+                                    "mu": trainer.state.opt_state.mu,
+                                    "nu": trainer.state.opt_state.nu})]
+            if name != "d":
+                log(f"fit run ({name}), one more step profiled:")
+                _profile_step(trainer, {k: torch.from_numpy(v).cuda()
+                                        for k, v in batch.items()})
+        logs = _logged(out_dir)
+        G = trainer.args.remat_group
+        per_step = {k: counts[k] / steps for k in launches}
+        want = {"K2f": 2 * L + (L - L // G if G > 1 else 0), "K2b": L,
+                "K2q": L}
+        if per_step != want:
+            raise AssertionError(f"run ({name}): K2 launches a step "
+                                 f"{per_step}, want {want}")
+        if len(logs) != steps or not all(np.isfinite(r["loss"])
+                                         for r in logs):
+            raise AssertionError(f"run ({name}): bad losses {logs}")
+        step_ms = [1e3 / r["steps_per_sec"] for r in logs[1:]]
+        res[name] = {"losses": [r["loss"] for r in logs],
+                     "ms": float(np.mean(step_ms)), "peak": peak,
+                     "held": held, "moments_on_card": on_card,
+                     "launches": per_step, "moved": moved,
+                     "n_train": optim.count_params(trainer.state.trainable),
+                     "moment_bytes": sum(
+                         x.numel() * x.element_size()
+                         for x in optim.tree_leaves(
+                             {"mu": trainer.state.opt_state.mu,
+                              "nu": trainer.state.opt_state.nu}))}
+        for k in launches:
+            launches[k] += counts[k]
+        log(f"fit run ({name}) {' '.join(extra) or 'per-layer remat'}"
+            f"{', tiled head' if tiled else ', untiled head'}: losses "
+            + ", ".join(f"{x:.6f}" for x in res[name]["losses"])
+            + f"; {res[name]['ms']:.1f} ms/step over steps 2-{steps} "
+              f"({', '.join(f'{x:.1f}' for x in step_ms)}), "
+              f"{seq / res[name]['ms'] * 1e3:.1f} tokens/s; peak "
+              f"{peak / 2**30:.2f} GiB, held between steps "
+              f"{held / 2**30:.2f} GiB (moments on the card "
+              f"{on_card / 2**30:.3f} GiB); K2 launches a step {per_step}"
+            + (f"; moved a step {moved['to_device'] / steps / 2**30:.3f} "
+               f"GiB to the card, {moved['to_host'] / steps / 2**30:.3f} "
+               f"GiB to the host" if moved else "") + f" [{card}]")
+        del trainer
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    base = res["a"]["losses"]
+    for name in ("b", "c", "d"):
+        rel = max(abs(x - y) / abs(y) for x, y in zip(res[name]["losses"],
+                                                      base))
+        log(f"fit run ({name}) losses against (a)'s: relative {rel:.3e} "
+            f"(bound {FIT_LOSS_REL})")
+        if rel > FIT_LOSS_REL:
+            raise AssertionError(f"run ({name}) losses {res[name]['losses']}"
+                                 f" part from (a)'s {base}")
+    # (c)'s offloaded update against (d), the same run with the moments on
+    # the card: every trainable and moment bit for bit, and the losses
+    differ = [i for i, (x, y) in enumerate(zip(after["c"], after["d"]))
+              if not torch.equal(x, y)]
+    log(f"fit run (c) against (d) --remat_group 2 without offload, after "
+        f"{steps} steps: {len(after['c'])} leaves of trainables and "
+        f"moments, {len(differ)} differ; losses "
+        f"{res['c']['losses']} against {res['d']['losses']}")
+    if differ or res["c"]["losses"] != res["d"]["losses"]:
+        worst = max((float((after["c"][i].float()
+                            - after["d"][i].float()).abs().max())
+                     for i in differ), default=0.0)
+        raise AssertionError(f"run (c) parts from (d): leaves {differ}, "
+                             f"max abs {worst}, losses {res['c']['losses']}"
+                             f" against {res['d']['losses']}")
+    del after
+    if res["c"]["moments_on_card"] or not res["c"]["moved"]["to_device"]:
+        raise AssertionError(f"run (c) keeps {res['c']['moments_on_card']} "
+                             f"bytes of moments on the card, moved "
+                             f"{res['c']['moved']}")
+    log(f"fit: trainable parameters {res['a']['n_train'] / 1e6:.1f} M, "
+        f"Adam moments {res['a']['moment_bytes'] / 2**30:.3f} GiB; "
+        + "; ".join(f"({n}) peak {r['peak'] / 2**30:.2f} GiB, held "
+                    f"{r['held'] / 2**30:.2f} GiB, {r['ms']:.1f} ms/step"
+                    for n, r in res.items()) + f" [{card}]")
+    k2 = _k2_fit_hold(seq)
+    return {"launches": launches, "runs": res, "k2": k2}
+
 
 
 # ---------------------------------------------------------------- phase 9
@@ -4827,6 +5330,9 @@ SP_LOSS_REL = 2e-3
 SP_SEQ = 4096          # phase 8's training length
 # phase 15's traffic cut from 64 frames a stream to 16 under TP, for time
 TP_MS_FRAMES = 16
+# phase 15b's gate-bias-0 fire run of the 8 paged streams (one query at
+# t = 0), frames a stream
+TP_FIRE_FRAMES = 12
 
 
 def _rank_main(fn, rank, world, store, args, out_path, timeout):
@@ -5114,14 +5620,38 @@ def _tp_serving_rank(rank, world, backend):
                               _k3_qpos(offsets, S), layer, Hq=hq,
                               dtype=torch.bfloat16, gen=gen)
                      for layer in (0, L - 1) for S in (1, 20)])
+        # the same streams through the pipelined tick (depth 2). No
+        # set_sync_debug_mode check here (phase 15b's): under this mesh
+        # every all-reduce goes through pinned host buffers and makes the
+        # host wait, so a fill cannot be free of host synchronisation
+        ms.pipelined = True
+        p_dt, p_out, p_ticks, p_fwds, p_counts = _ms_run(ms, ms_feats, 8)
+        pipe = {"transcripts": p_out, "fps": 8 * len(ms_feats) / p_dt,
+                "ticks": p_ticks, "forwards": p_fwds, "launches": p_counts,
+                "counts": ms.dispatch_stats()}
+        # phase 15b's fire run: the gate bias removed and one query at
+        # t = 0, so ticks go out behind ticks in flight and streams whose
+        # gate fires roll back; each rank must take the same decisions
+        ms.cfg = cfg.replace(gate_logit_bias=0.0)
+        f_dt, f_out, f_ticks, f_fwds, f_counts = _ms_run(
+            ms, ms_feats[:TP_FIRE_FRAMES], TP_FIRE_FRAMES)
+        fire = {"transcripts": f_out, "ticks": f_ticks, "forwards": f_fwds,
+                "launches": f_counts, "counts": ms.dispatch_stats()}
     out["multistream"] = {"logits": paged_logits, "transcripts": ms_out,
                           "fps": 8 * len(ms_feats) / dt, "ticks": ticks,
                           "forwards": fwds, "launches": counts, "k3": k3,
-                          "kv_heads": int(c.k.shape[2])}
+                          "kv_heads": int(c.k.shape[2]), "pipelined": pipe,
+                          "fire": fire}
     log(f"[rank {rank}] TP multistream (8 streams, paged): "
         f"{8 * len(ms_feats) / dt:.3f} frames/s aggregate, {ticks} ticks, "
         f"{fwds} forwards, launches {counts}; K3 at Hq {hq} / Hkv "
         f"{int(c.k.shape[2])} vs plain: {_readings(k3)}")
+    log(f"[rank {rank}] TP multistream pipelined: {pipe['fps']:.3f} frames/s "
+        f"aggregate, {p_ticks} ticks, {p_fwds} forwards, launches "
+        f"{p_counts}, dispatch counts {pipe['counts']}")
+    log(f"[rank {rank}] TP multistream pipelined, gate bias 0: {f_ticks} "
+        f"ticks, {f_fwds} forwards, launches {f_counts}, dispatch counts "
+        f"{fire['counts']}")
     del ms, params, c
     torch.cuda.empty_cache()
     return out
@@ -5133,9 +5663,13 @@ def phase_tp_serving():
     ``maybe_mesh``: phase 5's int8 stream, phase 11's int4 stream (K4 at
     a local F of 7168, K5 at a local vocabulary of 64128) and phase 15's 8
     paged streams cut to TP_MS_FRAMES frames each (K3 at 16 q / 4 kv
-    heads), each against the single-rank engine on the same full weights
-    (no warm-up: what the ranks time is two processes sharing one
-    card)."""
+    heads), blocking and then pipelined (the pipelined transcripts equal
+    to one rank's pipelined run, byte for byte, on both ranks), then
+    pipelined at gate bias 0 with one query at t = 0 (both ranks' the same
+    transcripts and dispatch counts, two ticks in flight, some rolled
+    back, the transcripts equal to one rank's pipelined run), each
+    against the single-rank engine on the same full weights (no warm-up:
+    what the ranks time is two processes sharing one card)."""
     from videollm_online_tpu_torch.serve.multistream import MultiStreamEngine
     card = _card()
     cfg, tok, capacity, feats = _int8_stream()
@@ -5151,6 +5685,11 @@ def phase_tp_serving():
     ms = MultiStreamEngine(params, tok, cfg, num_streams=8,
                            kv_capacity=ms_capacity, device="cuda")
     ms_ref = _ms_run(ms, ms_feats, 8)[1]
+    ms.pipelined = True
+    pipe_ref = _ms_run(ms, ms_feats, 8)[1]
+    ms.cfg = cfg.replace(gate_logit_bias=0.0)
+    fire_ref = _ms_run(ms, ms_feats[:TP_FIRE_FRAMES], TP_FIRE_FRAMES)[1]
+    fire_ref_counts = ms.dispatch_stats()
     del ms
     del params
     torch.cuda.empty_cache()
@@ -5192,6 +5731,55 @@ def phase_tp_serving():
         if min(s for _, s in ms_shares) < TP_BF16_SHARE:
             raise AssertionError(f"rank {rank} multistream: shares "
                                  f"{ms_shares}")
+        pipe = ms["pipelined"]
+        if pipe["transcripts"] != pipe_ref or \
+                pipe["transcripts"] != ranks[0]["multistream"]["pipelined"][
+                    "transcripts"]:
+            raise AssertionError(f"rank {rank} pipelined multistream: "
+                                 f"{pipe['transcripts']} != one rank's "
+                                 f"{pipe_ref}")
+        if pipe["launches"]["K3"] != L * pipe["forwards"]:
+            raise AssertionError(f"rank {rank} pipelined: K3 "
+                                 f"{pipe['launches']['K3']} for "
+                                 f"{pipe['forwards']} forwards")
+        pc = pipe["counts"]
+        log(f"  pipelined 8 streams x {TP_MS_FRAMES}: transcripts equal one "
+            f"rank's pipelined run and the other rank's; {pipe['fps']:.3f} "
+            f"frames/s aggregate (two ranks sharing one card), "
+            f"{pc['dispatches']} dispatches, {pc['rolled_back']} rolled back "
+            f"({pc['rolled_back_frames']} frames), at most "
+            f"{pc['max_inflight']} in flight, host wait at resolution "
+            f"{1e3 * pc['wait_s']:.2f} ms over {pc['resolved']} "
+            f"resolutions; no sync-free check (gloo's host-staged "
+            f"collectives make the host wait)")
+        fire, fc = ms["fire"], ms["fire"]["counts"]
+        f_equal = fire["transcripts"] == fire_ref
+        if fire["transcripts"] != ranks[0]["multistream"]["fire"][
+                "transcripts"] or not f_equal:
+            raise AssertionError(f"rank {rank} pipelined fire run: "
+                                 f"{fire['transcripts']} against rank 0's "
+                                 f"and one rank's {fire_ref}")
+        if fc["max_inflight"] < 2 or not fc["rolled_back"] or \
+                fc != ranks[0]["multistream"]["fire"]["counts"] | {
+                    "wait_s": fc["wait_s"]}:
+            raise AssertionError(f"rank {rank} pipelined fire run: counts "
+                                 f"{fc} (rank 0 "
+                                 f"{ranks[0]['multistream']['fire']['counts']}"
+                                 f"): needs two ticks in flight, a rollback "
+                                 f"and rank 0's decisions")
+        if fire["launches"]["K3"] != L * fire["forwards"]:
+            raise AssertionError(f"rank {rank} pipelined fire run: K3 "
+                                 f"{fire['launches']['K3']} for "
+                                 f"{fire['forwards']} forwards")
+        log(f"  pipelined 8 streams x {TP_FIRE_FRAMES}, gate bias 0, one "
+            f"query at t = 0: transcripts equal one rank's pipelined run "
+            f"and the other rank's; "
+            f"{fc['dispatches']} dispatches, {fc['rolled_back']} stream "
+            f"shares rolled back ({fc['rolled_back_frames']} frames), at "
+            f"most {fc['max_inflight']} in flight, host wait at resolution "
+            f"{1e3 * fc['wait_s']:.2f} ms over {fc['resolved']} "
+            f"resolutions (one rank: {fire_ref_counts['dispatches']} "
+            f"dispatches, {fire_ref_counts['rolled_back']} rolled back)")
         if min(i8["launches"]["K1"], i4["launches"]["K4"],
                i4["launches"]["K5"], ms["launches"]["K3"]) == 0 or \
                 ms["launches"]["K3"] != L * ms["forwards"] or \
@@ -5201,7 +5789,9 @@ def phase_tp_serving():
                                  f"20-token int4 forward {i4['per_forward']}")
         for k in launches:
             launches[k] += (i8["launches"][k] + i4["launches"][k]
-                            + ms["launches"][k])
+                            + ms["launches"][k]
+                            + ms["pipelined"]["launches"][k]
+                            + ms["fire"]["launches"][k])
         errs["K1"] = max(errs["K1"], i8["k1"]["max"])
         errs["K3"] = max(errs["K3"], ms["k3"]["max"])
         for k, v in i4["errs"].items():
@@ -5526,6 +6116,8 @@ PHASES = {"toolchain": phase_toolchain, "build": phase_build,
           "main_path": phase_main_path, "k2": phase_k2,
           "small_trainer": phase_small_trainer,
           "main_training": phase_main_training,
+          "main_path_fit": phase_main_path_fit,
+          "k2_fit_probe": phase_k2_fit_probe,
           "train_seeds": phase_train_seeds, "fused": phase_fused,
           "k4_profile": phase_k4_profile, "wo_probe": phase_wo_probe,
           "small_int4_engine": phase_small_int4_engine,
@@ -5548,7 +6140,8 @@ PHASES = {"toolchain": phase_toolchain, "build": phase_build,
 
 # the default run's phases, in order
 DEFAULT_RUN = ("toolchain", "build", "k1", "small_engine", "main_path", "k2",
-               "small_trainer", "main_training", "fused", "k4_profile",
+               "small_trainer", "main_training", "main_path_fit", "fused",
+               "k4_profile",
                "small_int4_engine", "main_path_int4", "ab_paths", "k3",
                "small_multistream", "main_path_multistream",
                "main_path_dispatch", "small_demo", "main_path_demo",
@@ -5582,11 +6175,11 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         out[name] = PHASES[name]()
         log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
-    smi, k1, main_path, k2, training, fused, int4_path, ab, k3, \
+    smi, k1, main_path, k2, training, fit, fused, int4_path, ab, k3, \
         multistream, dispatch, demo, evals, prep, web, tp, sp = (
             out[n] for n in (
                 "toolchain", "k1", "main_path", "k2", "main_training",
-                "fused", "main_path_int4", "ab_paths", "k3",
+                "main_path_fit", "fused", "main_path_int4", "ab_paths", "k3",
                 "main_path_multistream", "main_path_dispatch",
                 "main_path_demo", "main_path_eval", "main_path_prep",
                 "main_path_web", "tp_serving", "sp_training"))
@@ -5618,10 +6211,14 @@ def main(argv=None) -> int:
         "max_abs_err": max(k3["max_abs_err"], tp["errs"]["K3"]),
         **{key: k3[key] for key in keys},
     }]
-    # K2f counts the training and the eval main paths' launches; its error
-    # is the worst of phase 6's cases and the eval prefill's hold
+    # K2f counts the training, fit and eval main paths' launches; its error
+    # is the worst of phase 6's cases, the T 12288 hold and the eval
+    # prefill's hold (K2b and K2q: phase 6's and the T 12288 hold)
     k2["fwd"]["max_abs_err"] = max(k2["fwd"]["max_abs_err"],
                                    evals["k2f"]["max_abs_err"])
+    for part in ("fwd", "dkdv", "dq"):
+        k2[part]["max_abs_err"] = max(k2[part]["max_abs_err"],
+                                      fit["k2"][part]["max_abs_err"])
     for name, part, label, replaces in (
             ("flash_fwd", "fwd", "K2f",
              "videollm_online_tpu/ops/flash_attention.py:144"),
@@ -5632,6 +6229,7 @@ def main(argv=None) -> int:
         kernels.append({"name": name, "route": "cuda", "source": k2_source,
                         "replaces": replaces,
                         "launches": (training["launches"][label]
+                                     + fit["launches"][label]
                                      + evals["launches"][label]
                                      + sp["launches"][label]),
                         "max_abs_err": max(k2[part]["max_abs_err"],

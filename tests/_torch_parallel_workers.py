@@ -132,7 +132,10 @@ def tp_engine(rank, world, model, jparams, feats, quant):
 
 
 def tp_multistream(rank, world, model, jparams, feats):
-    """The JAX package's TP multistream scenario on the blocking tick."""
+    """The JAX package's TP multistream scenario on the blocking tick and
+    on the pipelined one (depth 2, as the JAX test runs it): {(paged,
+    pipelined): (transcripts, kv heads in the cache, the dispatch counts
+    but the host's wait)}."""
     from videollm_online_tpu_torch.parallel.mesh import maybe_mesh
     from videollm_online_tpu_torch.serve.multistream import MultiStreamEngine
     from videollm_online_tpu_torch.train import step
@@ -141,18 +144,26 @@ def tp_multistream(rank, world, model, jparams, feats):
     sharded = step.shard_params(params, mesh, policy="tp", cfg=cfg)
     out = {}
     for paged in (True, False):
-        with maybe_mesh(mesh):
-            ms = MultiStreamEngine(sharded, tok, cfg, num_streams=len(feats),
-                                   kv_capacity=1024, chunk_frames=4,
-                                   paged=paged, device="cpu")
-            for i in range(len(feats)):
-                ms.input_frames(i, 0.0, feats[i])
-            ms.input_query(0, "what now?", video_time=1.2)
-            for _ in range(64):
-                ms.step()
-                if not ms.pending():
-                    break
-        out[paged] = (ms.transcripts, int(ms.cache.k.shape[2]))
+        for pipelined in (False, True):
+            with maybe_mesh(mesh):
+                ms = MultiStreamEngine(sharded, tok, cfg,
+                                       num_streams=len(feats),
+                                       kv_capacity=1024, chunk_frames=4,
+                                       paged=paged, device="cpu",
+                                       pipelined=pipelined, pipeline_depth=2)
+                for i in range(len(feats)):
+                    ms.input_frames(i, 0.0, feats[i])
+                ms.input_query(0, "what now?", video_time=1.2)
+                for _ in range(64):
+                    ms.step()
+                    if not ms.pending():
+                        break
+                if pipelined:
+                    ms.flush()
+            counts = ms.dispatch_stats()
+            counts.pop("wait_s")      # a time, not a decision
+            out[paged, pipelined] = (ms.transcripts,
+                                     int(ms.cache.k.shape[2]), counts)
     return out
 
 

@@ -427,6 +427,101 @@ def test_fp32_train_step_through_flash_matches_plain_on_card(card):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
 
 
+def _small_train_setup(card, dtype="float32"):
+    from videollm_online_tpu_torch.core.config import LoraConfig
+    lcfg = LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                       num_layers=2, num_heads=8, num_kv_heads=2, head_dim=64,
+                       dtype=dtype)
+    cfg = LiveTokenizer(ByteTokenizer(), LiveConfig(
+        llama=lcfg, lora=LoraConfig(r=8, alpha=16, dropout=0.1),
+        vision_hidden_size=64)).cfg
+    rng = np.random.RandomState(0)
+    ids = rng.randint(4, 250, (1, 256))
+    ids[0, 100:200:3] = cfg.v_placeholder_id
+    batch = {"input_ids": torch.from_numpy(ids).to(card),
+             "labels": torch.from_numpy(np.roll(ids, -1)).to(card),
+             "frames": torch.from_numpy(rng.randn(
+                 34, 64).astype(np.float32)).to(card)}
+    return cfg, batch
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_in_step_offload_equals_plain_step_on_card(card, dtype):
+    """Three steps of the in-step offload (moments streamed leaf by leaf
+    from pinned host memory on side streams) and of the boundary variant
+    equal three plain steps bit for bit: loss, trainables and moments;
+    between steps the moments are pinned host tensors."""
+    from videollm_online_tpu_torch.train import offload, optim
+    from videollm_online_tpu_torch.train import step as step_mod
+    cfg, batch = _small_train_setup(card, dtype)
+    ocfg = optim.OptimConfig(learning_rate=1e-2, total_steps=6,
+                             warmup_ratio=0.2)
+    sched = optim.make_schedule(ocfg)
+    assert offload.supports_in_step_offload(card)
+
+    def fresh():
+        gen = torch.Generator(device=card).manual_seed(0)
+        return step_mod.init_train_state(live.init_params(gen, cfg,
+                                                          device=card))
+    plain, frozen = fresh()
+    runs = {}
+    for in_step in (True, False):
+        state = offload.offload_state(fresh()[0])
+        runs[in_step] = (state, offload.make_offload_train_step(
+            cfg, ocfg, sched, in_step=in_step, remat_group=2))
+    for _ in range(3):
+        plain, m = step_mod.train_step(plain, frozen, batch, cfg=cfg,
+                                       optim_cfg=ocfg, schedule=sched,
+                                       remat_group=2)
+        for in_step, (state, step) in list(runs.items()):
+            state, mo = step(state, frozen, batch)
+            runs[in_step] = (state, step)
+            assert torch.equal(mo["loss"], m["loss"]), in_step
+            for x in optim.tree_leaves({"m": state.opt_state.mu,
+                                        "v": state.opt_state.nu}):
+                assert x.device.type == "cpu" and x.is_pinned()
+    for state, step in runs.values():
+        for a, b in zip(*(optim.tree_leaves(
+                {"p": t.trainable, "m": t.opt_state.mu, "v": t.opt_state.nu})
+                for t in (plain, state))):
+            assert torch.equal(a.detach(), b.detach().to(card))
+        n = sum(x.numel() * x.element_size() * 2
+                for x in optim.tree_leaves(plain.trainable))
+        assert step.moved == {"to_device": 3 * n, "to_host": 3 * n}
+
+
+def test_tiled_int8_head_on_card(card):
+    """The column-tiled int8 head on the card (a ragged last tile) against
+    the untiled one: the product and its gradient within a bf16 rounding
+    (relative norm), both near the same function on the CPU in fp32."""
+    rng = np.random.RandomState(4)
+    w = torch.from_numpy(rng.randn(256, 4000).astype(np.float32))
+    qw = {k: v.to(card) for k, v in quant.quantize_weight(w, axis=0).items()}
+    x = torch.from_numpy(rng.randn(3, 64, 256).astype(np.float32))
+    g = torch.from_numpy(rng.randn(3, 64, 4000).astype(np.float32))
+    xc, gc = x.to(card).bfloat16(), g.to(card).bfloat16()
+
+    def run(fn):
+        xr = xc.clone().requires_grad_(True)
+        out = fn(xr)
+        (dx,) = torch.autograd.grad(out, xr, gc)
+        return out.detach().float().cpu(), dx.float().cpu()
+    tiled = run(lambda t: quant.quantized_matmul(t, qw, 1024))
+    whole = run(lambda t: quant.quantized_matmul(t, qw))
+    qcpu = {k: v.cpu() for k, v in qw.items()}
+    xf = xc.float().cpu().requires_grad_(True)
+    ref = quant.quantized_matmul(xf, qcpu)
+    (dref,) = torch.autograd.grad(ref, xf, gc.float().cpu())
+    ref = ref.detach()
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+    for got, want in ((tiled[0], whole[0]), (tiled[1], whole[1])):
+        assert rel(got, want) <= 4e-3
+    for got, want in ((tiled[0], ref), (tiled[1], dref)):
+        assert rel(got, want) <= 8e-3
+
+
 # ------------------------------------------------- fused MLP (K4, K5, K6, K7)
 # chip_smoke.py's FUSED_TOL: (atol, rtol, relative norm) for MLP outputs in
 # bf16 and in fp32 and for K5's fp32 output

@@ -10,8 +10,8 @@ and 4 ranks on the CPU (``tests/_torch_dist.py``), each rank holding its
 transcripts must equal the JAX single-device engine's, byte for byte
 (fp32). At model=4 the tiny config's 2 kv heads are replicated (each rank
 keeps the one its query head reads). The JAX multistream test runs its
-pipelined tick; the port's pipelined tick is not yet held under a mesh
-(ROADMAP Queue 1), so the port runs its blocking tick, ring and paged. int8 weights and spec
+pipelined tick; the port runs its blocking tick and its pipelined tick
+(depth 2), ring and paged, on every rank. int8 weights and spec
 decode under TP are held to the port's own unsharded engine (the port's
 int8 engine equals JAX's in tests/test_torch_engine.py). The int4 serving
 layout (q4c columns repacked to each rank's pairing) and the paged pool's
@@ -123,9 +123,29 @@ def test_tp_multistream_transcripts_equal_jax_single_device(
     ref = scenario[1]
     assert sum(len(t) for t in ref) >= 1
     for rank, (_, ms, _) in enumerate(scenario[2][model]):
-        transcripts, kv_heads = ms[paged]
+        transcripts, kv_heads, _ = ms[paged, False]
         assert transcripts == ref, rank
         assert kv_heads == max(2 // model, 1)
+
+
+@pytest.mark.parametrize("model", [2, 4])
+@pytest.mark.parametrize("paged", [True, False])
+def test_tp_multistream_pipelined_transcripts_equal_jax_single_device(
+        scenario, model, paged):
+    """The JAX test's own mode: the pipelined tick under the mesh. Every
+    rank takes the same dispatch and rollback decisions (their collectives
+    would part otherwise and the world would hang), with two ticks in
+    flight and some rolled back, and serves the JAX single-device
+    transcripts."""
+    ref = scenario[1]
+    stats = []
+    for rank, (_, ms, _) in enumerate(scenario[2][model]):
+        transcripts, kv_heads, st = ms[paged, True]
+        assert transcripts == ref, rank
+        assert kv_heads == max(2 // model, 1)
+        stats.append(st)
+    assert all(st == stats[0] for st in stats)
+    assert stats[0]["max_inflight"] == 2 and stats[0]["rolled_back"] > 0
 
 
 @pytest.mark.parametrize("model", [2, 4])

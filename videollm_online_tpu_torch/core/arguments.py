@@ -75,7 +75,8 @@ class LiveTrainingArguments:
     # processes, and the partition rules (parallel/sharding.py)
     mesh_model_axis: int = 1
     sharding_policy: str = "fsdp_tp"
-    # ZeRO-2 CPU-offload analog in the JAX package; refused by the port
+    # the ZeRO-2 CPU-offload analog: the Adam moments live in pinned host
+    # memory between steps (train/offload.py)
     offload_optimizer: bool = False
     # QLoRA-analog: the frozen base decoder as weight-only int8 ("int8");
     # LoRA + connector stay trainable and gradients flow through the
@@ -85,9 +86,12 @@ class LiveTrainingArguments:
     # (models/live.py _stream_ce_loss_chunked); the loss value is the same
     chunked_loss: bool = False
     loss_chunk: int = 0           # 0 = models/live.py LOSS_CHUNK
-    # 16 GiB-fit mechanisms of the JAX package; the port refuses values
-    # other than these defaults
+    # nested grouped remat: an outer checkpoint over every remat_group
+    # layers (models/llama.py forward): the saved layer inputs shrink
+    # remat_group-fold for one more forward of each layer in the backward
     remat_group: int = 1
+    # each layer's MLP in mlp_chunk-position sequence slices
+    # (LlamaConfig.mlp_chunk; the same values)
     mlp_chunk: int = 0
     # proxy model for smoke runs ('': use llm_pretrained weights)
     model_size: str = ""

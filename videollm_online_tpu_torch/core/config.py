@@ -42,10 +42,12 @@ class LlamaConfig:
     attention_bias: bool = False
     # numerics policy: parameters/activations bf16, softmax/norm/loss fp32
     dtype: str = "bfloat16"
-    # The JAX package's long-sequence training memory knob (each layer's
-    # SwiGLU MLP in (B, mlp_chunk, D) sequence slices, to fit 8B into one
-    # 16 GiB chip). The port drops it: the builder refuses it, and
-    # llama.forward computes each MLP whole (the same function).
+    # Long-sequence training memory: each layer's SwiGLU MLP runs in
+    # (B, mlp_chunk, D) sequence slices, each checkpointed, so the
+    # backward holds one slice's (mlp_chunk, intermediate) temps instead of
+    # the whole sequence's (models/llama.py ``_mlp_seq_chunked``; the same
+    # values). 0 = off; applies only when S is a multiple of mlp_chunk and
+    # larger, so decode shapes are unaffected.
     mlp_chunk: int = 0
 
     @property

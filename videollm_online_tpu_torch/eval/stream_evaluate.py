@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..core.config import LiveConfig
-from ..models import live, llama
+from ..models import live, llama, quant
 from ..ops.flash_attention import flash_attention
 from ..train.optim import tree_leaves
 
@@ -80,12 +80,16 @@ def _lora(params, cfg: LiveConfig):
 def _chunk_stats(params, cfg: LiveConfig, h, interval_id: int, labels=None):
     """(nll or None, argmax, argmax excluding the interval id, P(interval))
     for the hidden rows h (T, D), through lm_head LM_CHUNK rows at a time;
-    each chunk's fp32 logits reduce to those four per row."""
+    each chunk's fp32 logits reduce to those four per row. An int8 head
+    is applied a column tile at a time (``quant.head_tile_cols``), so a
+    chunk casts one tile of it, not the whole head."""
     lora, scaling = _lora(params, cfg)
+    tile_cols = quant.head_tile_cols(cfg.llama.vocab_size)
     outs = []
     for i in range(0, h.shape[0], LM_CHUNK):
         lg = llama.lm_head(params["llama"], h[i:i + LM_CHUNK], cfg.llama,
-                           lora=lora, lora_scaling=scaling).float()
+                           lora=lora, lora_scaling=scaling,
+                           tile_cols=tile_cols).float()
         lse = torch.logsumexp(lg, dim=-1)
         nll = (None if labels is None else
                lse - lg.gather(1, labels[i:i + LM_CHUNK, None])[:, 0])

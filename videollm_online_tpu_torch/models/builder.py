@@ -13,6 +13,7 @@ from an HF checkpoint, restored from a saved tree, or random.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Any, Dict, Tuple
 
@@ -44,11 +45,8 @@ def build_model_and_tokenizer(args: LiveTrainingArguments, *,
     ``device`` (the card unless the caller asks for the CPU).
     ``is_training`` has no effect, as in the JAX builder: evaluation builds
     the same tree (LoRA stays attached, the adapter is restored over it).
-    It is kept so the entry points call the builder as the JAX ones do."""
-    if args.mlp_chunk:
-        raise NotImplementedError(
-            "mlp_chunk fits 8B into one 16 GiB chip; the port drops it "
-            "(ROADMAP, dropped 16 GiB-fit mechanisms)")
+    It is kept so the entry points call the builder as the JAX ones do.
+    ``args.mlp_chunk`` becomes the decoder's ``LlamaConfig.mlp_chunk``."""
     if args.quantize_base not in ("", "int8"):
         raise ValueError(f"quantize_base must be '' or 'int8', got "
                          f"{args.quantize_base!r}")
@@ -58,6 +56,9 @@ def build_model_and_tokenizer(args: LiveTrainingArguments, *,
         cfg = cfg.replace(llama=LlamaConfig(
             **PROXY_SIZES[args.model_size],
             dtype="bfloat16" if args.bf16 else "float32"))
+    if args.mlp_chunk:
+        cfg = cfg.replace(llama=dataclasses.replace(
+            cfg.llama, mlp_chunk=args.mlp_chunk))
 
     if args.tokenizer_path:
         from transformers import AutoTokenizer

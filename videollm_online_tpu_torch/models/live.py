@@ -23,7 +23,7 @@ from ..core.device import resolve_device, torch_dtype
 from ..parallel import collectives as coll
 from ..parallel.context import ParallelContext
 from ..parallel.mesh import MODEL_AXIS, current_mesh
-from . import llama
+from . import llama, quant
 
 Params = Dict[str, Any]
 
@@ -187,11 +187,16 @@ def _stream_ce_loss_chunked(params: Params, cfg: LiveConfig,
     head_seed = (llama.fold_seed(dropout_seed, cfg.llama.num_layers)
                  if use_drop else None)
 
+    # an int8 head is applied a column tile at a time: one tile's cast
+    # copy in each chunk's forward and backward, not the whole head's
+    tile_cols = quant.head_tile_cols(cfg.llama.vocab_size)
+
     def chunk_weighted_nll(hc, lc, wc, seed, offsets):
         lg = llama.lm_head(params["llama"], hc, cfg.llama, lora=lora,
                            lora_scaling=scaling, drop_seed=seed,
                            drop_rate=drop_rate if seed is not None else 0.0,
-                           drop_region=((C, D), (offsets, 0)), par=par)
+                           drop_region=((C, D), (offsets, 0)), par=par,
+                           tile_cols=tile_cols)
         logp = F.log_softmax(lg.float(), dim=-1)
         return (-logp.gather(1, lc[:, None])[:, 0] * wc).sum()
 
@@ -216,13 +221,15 @@ def forward(params: Params, cfg: LiveConfig, input_ids=None, frames=None,
             inputs_embeds: Optional[torch.Tensor] = None, labels=None, *,
             remat: bool = False, attn_impl=None,
             dropout_seed: Optional[int] = None, chunked_loss: bool = False,
-            loss_chunk: Optional[int] = None, shard=None
+            loss_chunk: Optional[int] = None, shard=None,
+            remat_group: int = 1
             ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """The cache-free forward: (logits, loss or None). Labels arrive
     pre-shifted from the collator, so logits[t] is scored against
     labels[t]. LoRA dropout (``cfg.lora.dropout``) is on when
     ``dropout_seed`` is given. ``chunked_loss`` (needs labels) streams the
-    CE through lm_head chunks and returns (None, loss).
+    CE through lm_head chunks and returns (None, loss). ``remat_group``
+    groups the decoder's remat (``llama.forward``).
 
     Under a mesh: ``shard`` = (row start, global rows, ``<v>`` offset) of
     a data shard of the batch (``train.step.shard_batch``); with a
@@ -258,7 +265,7 @@ def forward(params: Params, cfg: LiveConfig, input_ids=None, frames=None,
     kw = dict(cfg=cfg.llama, inputs_embeds=inputs_embeds, lora=lora,
               lora_scaling=scaling, remat=remat, attn_impl=attn_impl,
               dropout_seed=dropout_seed, lora_dropout=lora_dropout,
-              positions=positions, shard_rows=rows)
+              positions=positions, shard_rows=rows, remat_group=remat_group)
     if chunked_loss:
         if labels is None:
             raise ValueError("chunked_loss needs labels")

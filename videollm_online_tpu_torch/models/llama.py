@@ -3,7 +3,8 @@
 Counterpart of ``videollm_online_tpu/models/llama.py``: inference with a KV
 ring (``KVCache``) or a shared page pool (``PagedKVCache``), either in the
 model dtype or as int8 codes with per-slot scales, and the cache-free
-training forward with LoRA, LoRA-input dropout and per-layer remat.
+training forward with LoRA, LoRA-input dropout, per-layer or grouped
+remat and the sequence-sliced MLP (``LlamaConfig.mlp_chunk``).
 Parameters are the JAX package's tree: ``layers`` leaves are stacked on a
 leading layer axis, and a quantized matrix is a ``{"q8" | "q4c" | "q4p",
 "scale"}`` dict (models/quant.py). A layer's MLP goes to the whole-MLP
@@ -150,15 +151,18 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
 
 def dense(x: torch.Tensor, w, lora: Optional[Dict] = None,
           scaling: float = 1.0, drop_seed: Optional[int] = None,
-          drop_rate: float = 0.0, drop_region=None) -> torch.Tensor:
+          drop_rate: float = 0.0, drop_region=None,
+          tile_cols: Optional[int] = None) -> torch.Tensor:
     """x @ w for a plain or quantized (int8 ``q8``, int4 ``q4c`` / ``q4p``,
     models/quant.py) weight, plus the LoRA
     branch ``scaling * (x A^T) B^T``; with ``drop_seed`` and a rate, the
     branch's input goes through dropout first (PEFT's lora_dropout; a
-    shard's mask is cut from ``drop_region``, see ``dropout``)."""
+    shard's mask is cut from ``drop_region``, see ``dropout``). With
+    ``tile_cols`` an int8 weight is applied one column tile at a time
+    (``quant.quantized_matmul``); other weights ignore it."""
     if isinstance(w, dict):
         from .quant import quantized_matmul
-        y = quantized_matmul(x, w)
+        y = quantized_matmul(x, w, tile_cols)
     else:
         y = x @ w
     if lora is not None:
@@ -453,7 +457,9 @@ def _layer(h, lp, ll, cos, sin, q_pos, kv_ctx, cfg: LlamaConfig,
     LoRA dropout. Under a mesh (``par``) the layer's weight shards are
     gathered and its LoRA and biases cut as ``parallel/context.py`` says,
     the row-parallel products are summed over the model axis, and
-    ``rows`` places a batch or sequence shard's dropout masks."""
+    ``rows`` places a batch or sequence shard's dropout masks. With
+    ``cfg.mlp_chunk`` (S a multiple of it and larger) the MLP runs in
+    sequence slices (``_mlp_seq_chunked``)."""
     B, S, _ = h.shape
     hd = cfg.head_dim
     Hq, Hkv = (cfg.num_heads, cfg.num_kv_heads) if par is None \
@@ -465,7 +471,9 @@ def _layer(h, lp, ll, cos, sin, q_pos, kv_ctx, cfg: LlamaConfig,
         if ll is not None:
             ll = {k: par.lora(v, k) for k, v in ll.items()}
 
-    def dns(x, name):
+    def dns(x, name, at=None):
+        # ``at``: x is the sequence slice of the layer's input starting at
+        # that position (an MLP slice): its mask is cut from the whole draw
         seed = (None if drop_seed is None
                 else fold_seed(drop_seed, _PROJECTIONS.index(name)))
         cols = None
@@ -473,7 +481,11 @@ def _layer(h, lp, ll, cos, sin, q_pos, kv_ctx, cfg: LlamaConfig,
                 name in ("wo", "w_down"):
             full_in = cfg.q_dim if name == "wo" else cfg.intermediate_size
             cols = (par.col_range(name)[0], full_in)
-        region = (_drop_region(x, rows, cols) if seed is not None
+        where = rows
+        if at is not None:
+            b0, Bg, s0, Tg = rows if rows is not None else (0, B, 0, S)
+            where = (b0, Bg, s0 + at, Tg)
+        region = (_drop_region(x, where, cols) if seed is not None
                   and lora_dropout > 0.0 else None)
         return dense(x, lp[name], None if ll is None else ll.get(name),
                      lora_scaling, seed, lora_dropout, region)
@@ -530,8 +542,33 @@ def _layer(h, lp, ll, cos, sin, q_pos, kv_ctx, cfg: LlamaConfig,
     fused = fused_mlp.maybe_fused(x, lp, ll)
     if fused is not None:
         return h + reduce(fused).to(h.dtype)
+    if cfg.mlp_chunk and S > cfg.mlp_chunk and S % cfg.mlp_chunk == 0:
+        return h + reduce(_mlp_seq_chunked(x, dns, cfg.mlp_chunk))
     return h + reduce(dns(F.silu(dns(x, "w_gate")) * dns(x, "w_up"),
                           "w_down"))
+
+
+def _mlp_seq_chunked(x, dns, chunk: int) -> torch.Tensor:
+    """The SwiGLU MLP over (B, chunk, D) sequence slices of x (B, S, D),
+    joined on the sequence (``cfg.mlp_chunk``). The MLP mixes features
+    only, so each position's value is the unsliced one; the backward's
+    (S, intermediate) temps shrink to one slice's, as each slice runs under
+    ``torch.utils.checkpoint`` when autograd records (it keeps only its
+    input slice). A slice's LoRA dropout masks are cut from the whole
+    layer's draws (``dns``'s ``at``), so the sliced MLP drops what the
+    whole one drops. Under a mesh the row-parallel ``w_down`` partial sums
+    are reduced by the caller once over the joined slices, as for the
+    whole MLP."""
+    def body(xc, at):
+        return dns(F.silu(dns(xc, "w_gate", at)) * dns(xc, "w_up", at),
+                   "w_down", at)
+
+    parts = []
+    for at in range(0, x.shape[1], chunk):
+        xc = x[:, at:at + chunk]
+        parts.append(checkpoint(body, xc, at, use_reentrant=False)
+                     if torch.is_grad_enabled() else body(xc, at))
+    return torch.cat(parts, dim=1)
 
 
 def forward(
@@ -553,12 +590,16 @@ def forward(
     dropout_seed: Optional[int] = None,
     lora_dropout: float = 0.0,
     shard_rows: Optional[Tuple[int, int, int, int]] = None,
+    remat_group: int = 1,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the decoder.
 
     Without a cache: full causal forward over (B, S), the training path:
     with ``remat`` each layer runs under ``torch.utils.checkpoint`` (its
-    activations are recomputed in the backward), and with ``dropout_seed``
+    activations are recomputed in the backward; with ``remat_group`` G > 1
+    dividing the depth, an outer checkpoint over each group of G
+    checkpointed layers keeps only the groups' inputs, for one more
+    forward of each layer in the backward), and with ``dropout_seed``
     and ``lora_dropout`` every LoRA branch (the head's too) drops its input;
     layer i's masks are seeded by ``fold_seed(dropout_seed, i)`` and the
     head's by ``fold_seed(dropout_seed, num_layers)``. With a cache: writes
@@ -625,16 +666,31 @@ def forward(
     else:
         use_dropout = (dropout_seed is not None and lora_dropout > 0.0
                        and layer_lora is not None)
-        for i in range(cfg.num_layers):
+
+        def layer(h, i):
+            # layer i's masks are seeded by i alone, so a recompute under
+            # either remat draws them again the same
             args = (h, _index_tree(params["layers"], i),
                     _index_tree(layer_lora, i), cos, sin, positions, None,
                     cfg, lora_scaling, attn_impl,
                     fold_seed(dropout_seed, i) if use_dropout else None,
                     lora_dropout if use_dropout else 0.0, par, shard_rows)
             if remat:
-                h = checkpoint(_layer, *args, use_reentrant=False)
-            else:
-                h = _layer(*args)
+                return checkpoint(_layer, *args, use_reentrant=False)
+            return _layer(*args)
+
+        G = remat_group
+        if remat and G > 1 and cfg.num_layers % G == 0:
+            def group(h, g0):
+                for i in range(g0, g0 + G):
+                    h = layer(h, i)
+                return h
+
+            for g0 in range(0, cfg.num_layers, G):
+                h = checkpoint(group, h, g0, use_reentrant=False)
+        else:
+            for i in range(cfg.num_layers):
+                h = layer(h, i)
         new_cache = None
 
     if logit_gather_positions is not None:
@@ -688,13 +744,17 @@ def embed_tokens(params: Params, input_ids: torch.Tensor, cfg: LlamaConfig
 def lm_head(params: Params, h: torch.Tensor, cfg: LlamaConfig, *,
             lora: Optional[Params] = None, lora_scaling: float = 1.0,
             drop_seed: Optional[int] = None, drop_rate: float = 0.0,
-            drop_region=None, par: Optional[ParallelContext] = None
-            ) -> torch.Tensor:
+            drop_region=None, par: Optional[ParallelContext] = None,
+            tile_cols: Optional[int] = None) -> torch.Tensor:
     """h @ the head (or the tied embedding's transpose), plus its LoRA.
     ``par`` (default: the current mesh's tensor-parallel context): the
     head's data shards are gathered, and under tensor parallel each rank
     computes its vocabulary columns and the logits are all-gathered (a
-    tied head: its hidden columns, summed over the model axis)."""
+    tied head: its hidden columns, summed over the model axis).
+    ``tile_cols`` (``quant.head_tile_cols(V)``): an int8 head is applied
+    one column tile at a time, so its cast copy is one tile's, not the
+    whole head's (the chunked CE loss, the evaluator's chunked stats); the
+    same values, and no effect on other heads."""
     if par is None:
         par = ParallelContext.current(cfg)
     head_lora = (lora or {}).get("lm_head")
@@ -723,10 +783,10 @@ def lm_head(params: Params, h: torch.Tensor, cfg: LlamaConfig, *,
     w = params["lm_head"]
     if par is None:
         return dense(h, w, head_lora, lora_scaling, drop_seed, drop_rate,
-                     drop_region)
+                     drop_region, tile_cols)
     w = par.weight(w, "lm_head")
     y = dense(h, w, par.lora(head_lora, "lm_head"), lora_scaling,
-              drop_seed, drop_rate, drop_region)
+              drop_seed, drop_rate, drop_region, tile_cols)
     if par.ranges is None:
         return y
     return coll.all_gather(y, par.mesh, MODEL_AXIS, -1)

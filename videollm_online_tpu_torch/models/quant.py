@@ -28,14 +28,19 @@ differentiable with respect to ``x`` only (the int8 base is frozen), and
 its backward keeps the int8 codes and the scale, never the cast copy: at 8B
 a kept bf16 copy of every frozen matrix would be 16 GB.
 
-The JAX package's ``quantized_matmul_tiled``/``head_tile_cols`` exist only
-to stop XLA hoisting the dequantized head out of a loop; eager PyTorch
-hoists nothing, so they are not ported.
+``quantized_matmul(..., tile_cols)`` (with ``head_tile_cols``; the JAX
+package's ``quantized_matmul_tiled``) is the int8 product one
+output-column tile at a time, for the head of the chunked CE loss and
+of the evaluator's chunked stats: the untiled int8 path casts the whole
+(in, out) matrix to x's dtype on every call, forward and backward, which
+for the 8B head (4096 x 128256) is a 1002 MiB copy in each chunk; a tile
+of 21376 columns casts 167 MiB. Each output column still reduces over the
+whole ``in`` axis, so the forward equals the untiled one.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -166,34 +171,73 @@ def dequantize_weight(qw: Dict[str, torch.Tensor], axis: int = 0,
     return (qw[QUANT_KEY].float() * scale).to(dtype)
 
 
-def _qmm(x, q8, scale):
-    return (x @ q8.to(x.dtype)) * scale.to(x.dtype)
+def head_tile_cols(v: int, max_tile: int = 32768) -> Optional[int]:
+    """The largest multiple of 128 that divides ``v`` and is at most
+    ``max_tile``: the column tile of ``quantized_matmul`` for a head of
+    ``v`` columns (None when ``v`` fits in one tile). 21376 (6 tiles) for
+    Llama-3's 128256."""
+    if v <= max_tile:
+        return None
+    best = None
+    for d in range(128, max_tile + 1, 128):
+        if v % d == 0:
+            best = d
+    return best
+
+
+def _tiles(v: int, tile_cols: Optional[int]):
+    step = tile_cols or v
+    return [(c, min(c + step, v)) for c in range(0, v, step)]
+
+
+def _qmm(x, q8, scale, tile_cols: Optional[int] = None):
+    """x @ q8, then * scale, one ``tile_cols`` column tile at a time (None:
+    one tile of the whole width), each tile casting only its own slice."""
+    v = q8.shape[-1]
+    if not tile_cols or tile_cols >= v:
+        return (x @ q8.to(x.dtype)) * scale.to(x.dtype)
+    out = x.new_empty(*x.shape[:-1], v)
+    for c0, c1 in _tiles(v, tile_cols):
+        out[..., c0:c1] = _qmm(x, q8[:, c0:c1], scale[c0:c1])
+    return out
 
 
 class _QuantizedMatmul(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x, q8, scale):
+    def forward(ctx, x, q8, scale, tile_cols):
         ctx.save_for_backward(q8, scale)
-        return _qmm(x, q8, scale)
+        ctx.tile_cols = tile_cols
+        return _qmm(x, q8, scale, tile_cols)
 
     @staticmethod
     def backward(ctx, g):
-        # what JAX's autodiff of (x @ w) * s gives: (g * s) @ w^T in g's dtype
+        # what JAX's autodiff of (x @ w) * s gives: (g * s) @ w^T in g's
+        # dtype, one tile's cast copy at a time; several tiles' parts are
+        # summed in fp32 and rounded once to g's dtype
         q8, scale = ctx.saved_tensors
-        return (g * scale.to(g.dtype)) @ q8.to(g.dtype).transpose(-1, -2), \
-            None, None
+        dx = None
+        for c0, c1 in _tiles(q8.shape[-1], ctx.tile_cols):
+            part = (g[..., c0:c1] * scale[c0:c1].to(g.dtype)) @ \
+                q8[:, c0:c1].to(g.dtype).transpose(-1, -2)
+            dx = part if dx is None else dx.float() + part.float()
+        return dx.to(g.dtype), None, None, None
 
 
-def quantized_matmul(x: torch.Tensor, qw: Dict[str, torch.Tensor]
-                     ) -> torch.Tensor:
+def quantized_matmul(x: torch.Tensor, qw: Dict[str, torch.Tensor],
+                     tile_cols: Optional[int] = None) -> torch.Tensor:
     """x (.., in) @ the quantized (in, out) matrix, in x's dtype.
 
     int8: x @ q8, then * scale (out,), in that order (the JAX epilogue
-    order); differentiable in x, and calls that autograd does not record
-    (serving) skip the Function's per-call host cost. ``q4c``: the kernel
-    where ``maybe_matmul_int4c`` dispatches it, else, like ``q4p``,
-    x @ the matrix dequantized in x's dtype."""
+    order); with ``tile_cols`` (the JAX package's
+    ``quantized_matmul_tiled``) one output-column tile at a time, the last
+    tile possibly narrower, as a rank's slice of a tensor-parallel head
+    is, and the tiles joined on the last dim. Differentiable in x, the
+    backward keeping the codes and the scale and casting one tile at a
+    time too; calls that autograd does not record (serving) skip the
+    Function's per-call host cost. ``q4c``: the kernel where
+    ``maybe_matmul_int4c`` dispatches it, else, like ``q4p``, x @ the
+    matrix dequantized in x's dtype (``tile_cols`` ignored)."""
     if QUANT4C_KEY in qw:
         from ..ops.fused_mlp import maybe_matmul_int4c
         y = maybe_matmul_int4c(x, qw)
@@ -203,8 +247,9 @@ def quantized_matmul(x: torch.Tensor, qw: Dict[str, torch.Tensor]
     if QUANT4_KEY in qw:
         return x @ _dequantize_int4(qw, x.dtype)
     if torch.is_grad_enabled() and x.requires_grad:
-        return _QuantizedMatmul.apply(x, qw[QUANT_KEY], qw["scale"])
-    return _qmm(x, qw[QUANT_KEY], qw["scale"])
+        return _QuantizedMatmul.apply(x, qw[QUANT_KEY], qw["scale"],
+                                      tile_cols)
+    return _qmm(x, qw[QUANT_KEY], qw["scale"], tile_cols)
 
 
 # The int4 serving layout: column-packed int4 for the matrices the fused

@@ -38,6 +38,14 @@ step later, and ``flush()`` resolves what is in flight. After a rollback
 the streams can share ticks otherwise than in the blocking tick, so a
 1-frame burst can go out in the other of its two layouts, which rounds
 differently in bf16 (ROADMAP, documented divergences).
+
+Under a tensor-parallel mesh (``parallel.mesh.maybe_mesh`` around the
+engine, params cut ``tp``) every rank runs the same tick: the gate ids
+each rank reads back come from logits all-gathered whole on every rank,
+so all ranks dispatch, resolve and roll back alike and their collectives
+stay in step. Where those collectives stage through host buffers (gloo on
+the card) each of them makes the host wait, so nothing runs ahead there;
+the transcripts are the same.
 """
 
 from __future__ import annotations

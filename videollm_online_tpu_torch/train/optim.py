@@ -9,11 +9,21 @@ packages take the same step from the same state:
      ``(g / g_norm) * max_norm`` unless g_norm < max_norm;
   2. Adam moments ``mu = (1 - b1) g + b1 mu``, ``nu = (1 - b2) g^2 + b2 nu``,
      kept in the parameter dtype, bias-corrected with the incremented count
-     (t = 1 on the first step);
+     (t = 1 on the first step); with ``mu_dtype`` the first moment is
+     stored in that dtype (optax's ``mu_dtype``: the step uses the moment
+     before the cast);
   3. ``u = mu_hat / (sqrt(nu_hat) + eps)``, plus ``weight_decay * p``;
   4. ``p -= lr * u`` with lr from the schedule at the count BEFORE the
      increment: the warmup-cosine schedule gives lr 0 on the very first
      step, while the moments still move.
+
+Each value takes optax's dtype: a Python scalar (a decay, eps, the weight
+decay, ``max_grad_norm``) is rounded to the dtype of the tensor it meets,
+as JAX rounds a weakly typed float (a bf16 moment is scaled by bf16 0.9);
+the global norm is summed in the gradients' dtype; the bias correction is
+``1 - decay**count`` in fp32 cast to the moment's dtype; lr is an fp32
+value cast to the update's dtype, and the sum ``p + update`` is cast to
+p's dtype.
 
 The base (``llama``) is frozen; ``lora`` and ``connector`` train
 (reference finetune_modules + LoRA, models/modeling_live.py:203-213).
@@ -40,6 +50,8 @@ class OptimConfig(NamedTuple):
     eps: float = 1e-8
     max_grad_norm: float = 1.0
     schedule: str = "cosine"  # or "constant"
+    # the first moment's storage dtype ('' = the parameter dtype)
+    mu_dtype: str = ""
 
 
 def make_schedule(cfg: OptimConfig) -> Callable[[int], float]:
@@ -74,8 +86,16 @@ def tree_leaves(tree):
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in fp32."""
-    return torch.sqrt(sum((x.float() ** 2).sum() for x in tree_leaves(tree)))
+    """sqrt of the sum of squares of every leaf, as optax's: each leaf's sum
+    in its own dtype, the sums added in their promoted dtype (bf16 when
+    every leaf is bf16)."""
+    return torch.sqrt(sum((x * x).sum() for x in tree_leaves(tree)))
+
+
+def _weak(x: float, t: torch.Tensor) -> torch.Tensor:
+    """The Python scalar ``x`` as JAX applies it to ``t``: rounded to t's
+    dtype (a bf16 moment is scaled by bf16 0.9)."""
+    return torch.tensor(x, dtype=t.dtype)
 
 
 @dataclass
@@ -87,9 +107,52 @@ class AdamState:
     nu: Tree
 
 
-def init_adam(trainable: Tree) -> AdamState:
-    return AdamState(count=0, mu=tree_map(torch.zeros_like, trainable),
+def tree_unflatten(tree, leaves):
+    """``leaves`` (in ``tree_leaves`` order) laid out as ``tree``."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
+def init_adam(trainable: Tree, mu_dtype: str = "") -> AdamState:
+    def mu(x):
+        return torch.zeros_like(x, dtype=getattr(torch, mu_dtype)
+                                if mu_dtype else None)
+    return AdamState(count=0, mu=tree_map(mu, trainable),
                      nu=tree_map(torch.zeros_like, trainable))
+
+
+@torch.no_grad()
+def clip_grads(grads: Tree, cfg: OptimConfig) -> Tree:
+    """Step 1: the gradients scaled to ``max_grad_norm`` when their global
+    norm reaches it."""
+    g_norm = global_norm(grads)
+    if bool(g_norm >= _weak(cfg.max_grad_norm, g_norm)):
+        grads = tree_map(lambda g: (g / g_norm.to(g.dtype))
+                         * _weak(cfg.max_grad_norm, g), grads)
+    return grads
+
+
+@torch.no_grad()
+def adam_leaf(g, m, v, p, count: int, lr: float, cfg: OptimConfig):
+    """Steps 2-4 on one leaf, given its clipped gradient, moments and value
+    and the incremented count: (new value, new mu as stored, new nu)."""
+    def correct(t, decay):
+        # 1 - decay**count in fp32, then in t's dtype (optax's
+        # bias_correction)
+        f32 = torch.tensor(decay, dtype=torch.float32)
+        return t / (1 - f32 ** count).to(t.dtype)
+
+    g2 = g ** 2
+    m = _weak(1 - cfg.b1, g) * g + _weak(cfg.b1, m) * m
+    v = _weak(1 - cfg.b2, g2) * g2 + _weak(cfg.b2, v) * v
+    vh = torch.sqrt(correct(v, cfg.b2))
+    u = correct(m, cfg.b1) / (vh + _weak(cfg.eps, vh))
+    if cfg.weight_decay:
+        u = u + _weak(cfg.weight_decay, p) * p
+    if cfg.mu_dtype:
+        m = m.to(getattr(torch, cfg.mu_dtype))
+    step = torch.tensor(-lr, dtype=torch.float32).to(u.dtype)
+    return (p + step * u).to(p.dtype), m, v
 
 
 @torch.no_grad()
@@ -98,26 +161,14 @@ def adamw_update(grads: Tree, state: AdamState, params: Tree,
                  ) -> Tuple[Tree, AdamState]:
     """One clip + AdamW step: (new params, new state). New tensors; the
     inputs are left as they are."""
-    g_norm = global_norm(grads)
-    clip = bool(g_norm >= cfg.max_grad_norm)
-    if clip:
-        grads = tree_map(lambda g: (g / g_norm.to(g.dtype)) * cfg.max_grad_norm,
-                         grads)
-    mu = tree_map(lambda g, m: (1 - cfg.b1) * g + cfg.b1 * m, grads, state.mu)
-    nu = tree_map(lambda g, v: (1 - cfg.b2) * (g ** 2) + cfg.b2 * v, grads,
-                  state.nu)
-    count = state.count + 1
-    bc1, bc2 = 1 - cfg.b1 ** count, 1 - cfg.b2 ** count
-    lr = schedule(state.count)
-
-    def step(p, m, v):
-        u = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
-        if cfg.weight_decay:
-            u = u + cfg.weight_decay * p
-        return p + (-lr) * u
-
-    new_params = tree_map(step, params, mu, nu)
-    return new_params, AdamState(count=count, mu=mu, nu=nu)
+    grads = clip_grads(grads, cfg)
+    count, lr = state.count + 1, schedule(state.count)
+    new = [adam_leaf(g, m, v, p, count, lr, cfg) for g, m, v, p in zip(
+        *(tree_leaves(t) for t in (grads, state.mu, state.nu, params)))]
+    ps, ms, vs = zip(*new)
+    return tree_unflatten(params, ps), AdamState(
+        count=count, mu=tree_unflatten(params, ms),
+        nu=tree_unflatten(params, vs))
 
 
 def split_trainable(params: Dict[str, Any]):

@@ -1,7 +1,9 @@
 """The training step: weighted streaming CE over LoRA + connector.
 
 Counterpart of ``videollm_online_tpu/train/step.py``. One step is forward
-(per-layer remat) + backward + the clip/AdamW update of train/optim.py.
+(per-layer remat, or grouped with ``remat_group``) + backward + the
+clip/AdamW update of train/optim.py (``update``: train/offload.py gives
+one that streams host-resident moments).
 Gradient accumulation averages the gradients of the microbatches on a
 leading axis of the batch, as the JAX package's scan does. PyTorch runs
 eagerly, so there is no jit.
@@ -54,13 +56,15 @@ def init_train_state(params: Dict[str, Any]
 
 def loss_fn(trainable, frozen, cfg: LiveConfig, batch, *, remat=True,
             attn_impl=None, dropout_seed: Optional[int] = None,
-            chunked_loss=False, loss_chunk=None) -> torch.Tensor:
+            chunked_loss=False, loss_chunk=None,
+            remat_group: int = 1) -> torch.Tensor:
     params = optim.merge_params(trainable, frozen)
     _, loss = live.forward(
         params, cfg, input_ids=batch["input_ids"], frames=batch.get("frames"),
         labels=batch["labels"], remat=remat, attn_impl=attn_impl,
         dropout_seed=dropout_seed, chunked_loss=chunked_loss,
-        loss_chunk=loss_chunk, shard=batch.get("shard"))
+        loss_chunk=loss_chunk, shard=batch.get("shard"),
+        remat_group=remat_group)
     return loss
 
 
@@ -72,21 +76,23 @@ def _grads(trainable, frozen, cfg, batch, seed, kw):
     grads = coll.reduce_grads(
         torch.autograd.grad(loss, leaves, allow_unused=True,
                             materialize_grads=True), current_mesh())
-    it = iter(grads)
-    return loss.detach(), optim.tree_map(lambda _: next(it), trainable)
+    return loss.detach(), optim.tree_unflatten(trainable, grads)
 
 
 def train_step(state: TrainState, frozen, batch, *, cfg: LiveConfig,
                optim_cfg: optim.OptimConfig, schedule, accum_steps: int = 1,
                attn_impl=None, chunked_loss: bool = False, loss_chunk=None,
-               remat: bool = True) -> Tuple[TrainState, Dict[str, Any]]:
+               remat: bool = True, remat_group: int = 1,
+               update=optim.adamw_update
+               ) -> Tuple[TrainState, Dict[str, Any]]:
     """One optimizer step. With ``accum_steps > 1`` every entry of
     ``batch`` carries a leading (accum_steps, ...) axis and the gradients
     (and loss) are averaged over it. Metrics: ``loss``, ``grad_norm`` (the
     global norm of the raw, unclipped gradients) and ``step`` (before the
-    increment), as tensors."""
+    increment), as tensors. ``update`` has ``optim.adamw_update``'s
+    signature."""
     kw = dict(remat=remat, attn_impl=attn_impl, chunked_loss=chunked_loss,
-              loss_chunk=loss_chunk)
+              loss_chunk=loss_chunk, remat_group=remat_group)
     step_seed = fold_seed(DROPOUT_SEED, state.step)
     if accum_steps == 1:
         loss, grads = _grads(state.trainable, frozen, cfg, batch, step_seed,
@@ -103,8 +109,8 @@ def train_step(state: TrainState, frozen, batch, *, cfg: LiveConfig,
         grads = optim.tree_map(lambda g: g / accum_steps, grads)
     grad_norm = optim.global_norm(grads)
     params = optim.tree_map(lambda p: p.detach(), state.trainable)
-    new_params, opt_state = optim.adamw_update(grads, state.opt_state, params,
-                                               optim_cfg, schedule)
+    new_params, opt_state = update(grads, state.opt_state, params, optim_cfg,
+                                   schedule)
     trainable = optim.tree_map(lambda p: p.requires_grad_(True), new_params)
     metrics = {"loss": loss, "grad_norm": grad_norm, "step": state.step}
     return TrainState(state.step + 1, trainable, opt_state), metrics

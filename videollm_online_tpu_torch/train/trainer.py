@@ -20,9 +20,12 @@ DATA coordinate (the ranks of one data index must see the same samples);
 ``evaluate`` does too and runs tensor parallel over the model axis, or,
 under a sequence-parallel attention, stripes by rank and runs each rank's
 samples outside the mesh on the base it holds whole; it gathers the
-predictions before ``compute_metrics``. Rank 0 alone logs and saves. Refused:
-``offload_optimizer`` and ``remat_group`` other than 1 (16 GiB-fit
-mechanisms the port drops: it remats every layer on its own).
+predictions before ``compute_metrics``. Rank 0 alone logs and saves.
+
+Memory: ``remat_group`` checkpoints groups of that many layers around the
+per-layer checkpoints (``models/llama.py``), and ``offload_optimizer``
+keeps the Adam moments in pinned host memory between steps
+(``train/offload.py``), the analog of the reference's ZeRO-2 CPU offload.
 """
 
 from __future__ import annotations
@@ -56,12 +59,6 @@ class LiveTrainer:
                  train_dataset=None, eval_dataset_dict=None,
                  compute_metrics_dict=None, collate_fn=None, mesh=None,
                  attn_impl=None):
-        for name, value in (("offload_optimizer", args.offload_optimizer),
-                            ("remat_group", args.remat_group != 1)):
-            if value:
-                raise NotImplementedError(
-                    f"{name} fits 8B into one 16 GiB chip; the port drops it "
-                    f"(ROADMAP, dropped 16 GiB-fit mechanisms)")
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.args = args
@@ -117,6 +114,16 @@ class LiveTrainer:
                                            axes=axes)
         self.state, self.frozen = step_mod.init_train_state(params)
         self.device = optim.tree_leaves(self.state.trainable)[0].device
+        self._offload_step = None
+        if args.offload_optimizer:
+            from . import offload
+            self.state = offload.offload_state(self.state)
+            self._offload_step = offload.make_offload_train_step(
+                cfg, self.optim_cfg, self.schedule,
+                accum_steps=args.gradient_accumulation_steps,
+                attn_impl=self.attn_impl, chunked_loss=args.chunked_loss,
+                loss_chunk=args.loss_chunk or None,
+                remat_group=args.remat_group)
 
     def _sequence_parallel(self) -> bool:
         return getattr(self.attn_impl, "sequence_axis", None) is not None
@@ -139,13 +146,16 @@ class LiveTrainer:
             self.logger.log(step, metrics)
 
     def _step(self, state, frozen, batch):
+        if self._offload_step is not None:
+            return self._offload_step(state, frozen, batch)
         args = self.args
         return step_mod.train_step(
             state, frozen, batch, cfg=self.cfg, optim_cfg=self.optim_cfg,
             schedule=self.schedule,
             accum_steps=args.gradient_accumulation_steps,
             attn_impl=self.attn_impl, chunked_loss=args.chunked_loss,
-            loss_chunk=args.loss_chunk or None)
+            loss_chunk=args.loss_chunk or None,
+            remat_group=args.remat_group)
 
     # ------------------------------------------------------------- training
     def _microbatch_stack(self, batches: List[dict]) -> dict:
