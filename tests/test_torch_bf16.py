@@ -41,6 +41,17 @@ REL_JAX_TORCH = {None: 6e-3, 8: 7e-3}
 FP32_SHARE = 1.1
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's torch work: the suite runs its
+    files in parallel processes, where torch's default of a thread a core
+    oversubscribes the CPU and its spinning workers slow every process."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _rel(a, b):
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 

@@ -41,6 +41,17 @@ BF16_TOL = {"kernel": dict(atol=1e-3, rtol=2e-2, rel=1e-3),
             "xla": dict(atol=4e-3, rtol=2e-2, rel=6e-3)}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's torch work: the suite runs its
+    files in parallel processes, where torch's default of a thread a core
+    oversubscribes the CPU and its spinning workers slow every process."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(S, seed=0, quant=False, starts=(700, 37)):
     rng = np.random.RandomState(seed)
     q = rng.randn(B, HKV * G, S, D).astype(np.float32)

@@ -32,6 +32,17 @@ from videollm_online_tpu_torch.ops import fused_mlp
 from videollm_online_tpu_torch.serve import cli
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's torch work: the suite runs its
+    files in parallel processes, where torch's default of a thread a core
+    oversubscribes the CPU and its spinning workers slow every process."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(x):
     if torch.is_tensor(x):
         x = x.detach().cpu()

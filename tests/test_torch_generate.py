@@ -26,6 +26,17 @@ from videollm_online_tpu_torch.tokenizer.live_tokenizer import LiveTokenizer
 from videollm_online_tpu_torch.tokenizer.tiny import ByteTokenizer
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's torch work: the suite runs its
+    files in parallel processes, where torch's default of a thread a core
+    oversubscribes the CPU and its spinning workers slow every process."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def setup():
     jcfg = JaxTokenizer(JaxBytes(), jax_tiny()).cfg

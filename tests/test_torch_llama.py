@@ -31,6 +31,17 @@ ATOL = 1e-5      # fp32 weights, fp32 activations
 ATOL_Q8 = 1e-4   # int8 weights: the per-channel scale multiplies a larger sum
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's torch work: the suite runs its
+    files in parallel processes, where torch's default of a thread a core
+    oversubscribes the CPU and its spinning workers slow every process."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def pair():
     jcfg = jax_tiny()

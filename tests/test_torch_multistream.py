@@ -14,6 +14,7 @@ version of K3 and the JAX package's is its gather reference.
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 
@@ -30,6 +31,17 @@ from videollm_online_tpu_torch.models.bridge import params_from_numpy
 from videollm_online_tpu_torch.serve.multistream import MultiStreamEngine
 from videollm_online_tpu_torch.tokenizer.live_tokenizer import LiveTokenizer
 from videollm_online_tpu_torch.tokenizer.tiny import ByteTokenizer
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's torch work: the suite runs its
+    files in parallel processes, where torch's default of a thread a core
+    oversubscribes the CPU and its spinning workers slow every process."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _params(seed, jcfg):

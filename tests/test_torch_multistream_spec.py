@@ -12,9 +12,21 @@ engine pair per fixture on the same weights, driven through a scenario;
 
 import numpy as np
 import pytest
+import torch
 
 from test_torch_multistream import (_drain, _feats, _feed_schedule, _pair,
                                     _params, _snapshot)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's torch work: the suite runs its
+    files in parallel processes, where torch's default of a thread a core
+    oversubscribes the CPU and its spinning workers slow every process."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

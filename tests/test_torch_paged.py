@@ -53,6 +53,17 @@ LOGIT_TOL = dict(atol=3e-5, rtol=3e-4)
 BF16_KERNEL_TOL = dict(atol=2e-3, rtol=2e-2, rel=4e-3)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's torch work: the suite runs its
+    files in parallel processes, where torch's default of a thread a core
+    oversubscribes the CPU and its spinning workers slow every process."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _attention_case(seed, quantized):
     """tests/test_paged.py's kernel cases: 2 streams, 2 layers, pages of
     32 slots, a shuffled table, stream 0 crossing pages, stream 1 short."""

@@ -46,6 +46,19 @@ so all ranks dispatch, resolve and roll back alike and their collectives
 stay in step. Where those collectives stage through host buffers (gloo on
 the card) each of them makes the host wait, so nothing runs ahead there;
 the transcripts are the same.
+
+Each phase of a tick runs inside a span (``LatencyHistogram.measure``):
+``multistream.admit`` (prefill or prefix admission, the tick's collection
+and capacity guard), ``.ingest`` (the batched ingest's dispatch),
+``.settle`` (the gate readback, its bookkeeping, the schedule) and
+``.respond`` (a respond program; its prompt forward ``.respond.prefill``,
+each decode or verify forward ``.respond.decode``); the page allocator's
+work is ``.pages`` inside them; ``input_*`` and ``close_stream`` are
+``.input`` and ``.close``. No span covers a whole ``step()``. Their host
+times feed ``stats()["phases"]``, and while ``torch.profiler`` records each
+is a range on its timeline. ``counters()`` counts the respond programs,
+their decode forwards, the batch rows those forwards fed and, of those,
+the rows of streams not yet done.
 """
 
 from __future__ import annotations
@@ -335,19 +348,22 @@ class MultiStreamEngine:
         (done streams append nothing). Returns (out (N, max_new), lengths)."""
         N, max_new, eos = self.N, self.max_new, self.cfg.eos_token_id
         nv = np.where(active, num_valid, 0)
-        logits = self._fwd(self._prompt_embeds(prompt_ids, num_valid), nv,
-                           torch.as_tensor(np.maximum(nv - 1, 0)))
-        first = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
+        with self._span("multistream.respond.prefill"):
+            logits = self._fwd(self._prompt_embeds(prompt_ids, num_valid), nv,
+                               torch.as_tensor(np.maximum(nv - 1, 0)))
+            first = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
         out = np.zeros((N, max_new), np.int64)
         out[:, 0] = first
         done = ~active | (first == eos)
         lengths = np.where(active, 1, 0)
         i = 1
         while i < max_new and not done.all():
-            logits = self._fwd(self._embed(out[:, i - 1:i]),
-                               (~done).astype(np.int32),
-                               torch.zeros((N,), dtype=torch.long))
-            nxt = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
+            self._count_decode(done)
+            with self._span("multistream.respond.decode"):
+                logits = self._fwd(self._embed(out[:, i - 1:i]),
+                                   (~done).astype(np.int32),
+                                   torch.zeros((N,), dtype=torch.long))
+                nxt = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
             nxt = np.where(done, eos, nxt)
             out[:, i] = nxt
             lengths = np.where(done, lengths, i + 1)
@@ -375,9 +391,10 @@ class MultiStreamEngine:
         hn = nv if hist_nv is None else np.where(active, hist_nv, 0)
         for i in np.flatnonzero(hn):
             self._hist_append(i, np.roll(prompt_ids[i], -(P - nv[i])), hn[i])
-        logits = self._fwd(self._prompt_embeds(prompt_ids, num_valid), nv,
-                           torch.as_tensor(np.maximum(nv - 1, 0)))
-        first = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
+        with self._span("multistream.respond.prefill"):
+            logits = self._fwd(self._prompt_embeds(prompt_ids, num_valid), nv,
+                               torch.as_tensor(np.maximum(nv - 1, 0)))
+            first = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
         out = np.zeros((N, max_new), np.int64)
         out[:, 0] = first
         done = ~active | (first == eos)
@@ -399,8 +416,10 @@ class MultiStreamEngine:
             toks = np.concatenate([prev[:, None], drafts], axis=1)
             off0 = self.cache.offset
             feed = np.where(done, 0, K + 1)
-            logits = self._fwd(self._embed(toks), feed, gpos)
-            preds = torch.argmax(logits, dim=-1).cpu().numpy()   # (N, K+1)
+            self._count_decode(done)
+            with self._span("multistream.respond.decode"):
+                logits = self._fwd(self._embed(toks), feed, gpos)
+                preds = torch.argmax(logits, dim=-1).cpu().numpy()  # (N, K+1)
             mism = preds[:, :K] != drafts
             emit = np.where(mism, kk[None, :K], K).min(axis=1) + 1
             is_eos = (preds == eos) & (kk[None] < emit[:, None])
@@ -423,8 +442,17 @@ class MultiStreamEngine:
             i_n = i_n + emit
         return out, lengths
 
+    def _count_decode(self, done):
+        """One decode (or verify) forward over all N rows, of which the
+        streams not yet ``done`` are fed."""
+        c = self._counters
+        c["decode_forwards"] += 1
+        c["decode_rows"] += self.N
+        c["decode_rows_valid"] += int((~done).sum())
+
     def _respond(self, prompt_ids, num_valid, active, hist_nv=None):
         """Greedy or speculative batched respond. Returns (out, lengths)."""
+        self._counters["respond_programs"] += 1
         if self.spec_decode:
             return self._respond_core_spec(prompt_ids, num_valid, active,
                                            hist_nv)
@@ -507,7 +535,14 @@ class MultiStreamEngine:
                                  dtype=torch.int32)
         self._hcount = torch.zeros((self.N,), dtype=torch.int32)
         self._sstats = torch.zeros((2,), dtype=torch.int32)
+        # "tick": each step(); the phases' spans ("multistream.*") beside it
         self._tick_hist = LatencyHistogram(max_samples=4096)
+        self._span = self._tick_hist.measure
+        # respond programs and their decode (or verify) forwards: rows fed
+        # (N a forward) and rows of streams not yet done
+        self._counters = dict.fromkeys(
+            ("respond_programs", "decode_forwards", "decode_rows",
+             "decode_rows_valid"), 0)
         self._dropped = [0] * self.N
         # response latency: wall clock from the arrival of a response's
         # trigger (the frame's input_frames / the query's input_query call)
@@ -534,33 +569,37 @@ class MultiStreamEngine:
         (T, vision_hidden)), projected on the device at once, or, with
         ``vision_params``, raw uint8 pixels ((T, 3, H, W)) encoded through
         the tower and the connector, ENCODE_FRAMES frames a batch."""
-        feats = np.asarray(features)
-        embeds = None
-        if feats.dtype == np.uint8:
-            if self.vision_params is None:
-                raise ValueError("raw pixel input needs vision_params")
-            if len(feats):
-                px = torch.from_numpy(np.ascontiguousarray(feats)).to(
+        with self._span("multistream.input"):
+            feats = np.asarray(features)
+            embeds = None
+            if feats.dtype == np.uint8:
+                if self.vision_params is None:
+                    raise ValueError("raw pixel input needs vision_params")
+                if len(feats):
+                    px = torch.from_numpy(np.ascontiguousarray(feats)).to(
+                        self.device)
+                    embeds = torch.cat([
+                        live.pixels_to_embeds(
+                            self.vision_params, self.params,
+                            px[i:i + ENCODE_FRAMES], self.cfg)
+                        for i in range(0, len(px), ENCODE_FRAMES)])
+            elif len(feats):
+                if feats.ndim == 2:
+                    feats = feats[:, None, :]
+                x = torch.from_numpy(np.ascontiguousarray(feats)).to(
                     self.device)
-                embeds = torch.cat([
-                    live.pixels_to_embeds(self.vision_params, self.params,
-                                          px[i:i + ENCODE_FRAMES], self.cfg)
-                    for i in range(0, len(px), ENCODE_FRAMES)])
-        elif len(feats):
-            if feats.ndim == 2:
-                feats = feats[:, None, :]
-            x = torch.from_numpy(np.ascontiguousarray(feats)).to(self.device)
-            embeds = live.visual_embed(self.params, x, self.cfg).reshape(
-                -1, self.fnt, self.hidden)
-        now = _time.perf_counter()
-        for i in range(len(feats)):
-            t = video_time + i / self.frame_fps
-            self.frame_queues[stream].append((t, (embeds, i)))
-            self._note_arrival(stream, ("f", t), now)
+                embeds = live.visual_embed(self.params, x, self.cfg).reshape(
+                    -1, self.fnt, self.hidden)
+            now = _time.perf_counter()
+            for i in range(len(feats)):
+                t = video_time + i / self.frame_fps
+                self.frame_queues[stream].append((t, (embeds, i)))
+                self._note_arrival(stream, ("f", t), now)
 
     def input_query(self, stream: int, query: str, video_time: float):
-        self.query_queues[stream].append((video_time, query))
-        self._note_arrival(stream, ("q", video_time), _time.perf_counter())
+        with self._span("multistream.input"):
+            self.query_queues[stream].append((video_time, query))
+            self._note_arrival(stream, ("q", video_time), _time.perf_counter())
 
     def _note_arrival(self, i: int, key, now: float):
         d = self._arrival[i]
@@ -645,16 +684,17 @@ class MultiStreamEngine:
         mask = np.array([o is not None for o in self._open], bool)
         if not mask.any():
             return
-        ids = np.zeros((self.N, TEXT_BUCKET), np.int64)
-        nv = np.zeros((self.N,), np.int64)
-        for i in np.flatnonzero(mask):
-            ids[i, -1] = self._open[i]["toks"][-1]
-            nv[i] = 1
-        out, lengths = self._respond(ids, nv, mask,
-                                     hist_nv=np.zeros((self.N,), np.int64))
-        self._sync_offsets()
-        for i in np.flatnonzero(mask):
-            self._extend_open(i, out[i, :lengths[i]].astype(np.int32))
+        with self._span("multistream.respond"):
+            ids = np.zeros((self.N, TEXT_BUCKET), np.int64)
+            nv = np.zeros((self.N,), np.int64)
+            for i in np.flatnonzero(mask):
+                ids[i, -1] = self._open[i]["toks"][-1]
+                nv[i] = 1
+            out, lengths = self._respond(ids, nv, mask,
+                                         hist_nv=np.zeros((self.N,), np.int64))
+            self._sync_offsets()
+            for i in np.flatnonzero(mask):
+                self._extend_open(i, out[i, :lengths[i]].astype(np.int32))
 
     def _finish_open_responses(self, streams=None):
         """Run continuation segments until no response of ``streams`` (every
@@ -711,11 +751,20 @@ class MultiStreamEngine:
                 q.popleft()
                 self._dropped[i] += 1
 
+    def counters(self) -> Dict[str, int]:
+        """Since ``reset``: respond programs, their decode (greedy) or
+        verify (spec) forwards, the batch rows those fed (N each) and the
+        rows of streams not yet done."""
+        return dict(self._counters)
+
     def stats(self) -> Dict[str, Any]:
         """Serving snapshot from host state alone: per-stream queue and cache
         occupancy and drops, pool accounting (paged) with the allocator's
         conservation invariants asserted, tick and response latency
-        percentiles."""
+        percentiles, each phase's span percentiles (``phases``, keyed by
+        span name) and ``counters()``."""
+        phases = self._tick_hist.summary()
+        ticks = phases.pop("tick", {})
         out = {
             "streams": [{
                 "offset": int(self._host_offsets[i]),
@@ -725,7 +774,9 @@ class MultiStreamEngine:
                 "transcript_len": len(self.transcripts[i]),
                 "dropped_frames": self._dropped[i],
             } for i in range(self.N)],
-            "ticks": self._tick_hist.summary().get("tick", {}),
+            "ticks": ticks,
+            "phases": phases,
+            "counters": self.counters(),
             "response_latency": self._resp_hist.summary(),
             "open_responses": sum(o is not None for o in self._open),
             "inflight_dispatches": len(self._pipe),
@@ -869,22 +920,23 @@ class MultiStreamEngine:
         if not self.paged:
             return True
 
-        def over():
-            return [i for i in idxs if int(self._host_offsets[i]) + budget
-                    + (0 if ahead is None else int(ahead[i]))
-                    > self.kv_capacity]
+        with self._span("multistream.pages"):
+            def over():
+                return [i for i in idxs if int(self._host_offsets[i]) + budget
+                        + (0 if ahead is None else int(ahead[i]))
+                        > self.kv_capacity]
 
-        # in-flight ticks append through the current table: no compaction
-        # while one is in flight
-        if (over() or not self._ensure_pages(idxs, budget, ahead)) \
-                and not self._pipe:
-            self._compact_paged()
-        if not over() and not self._ensure_pages(idxs, budget, ahead) \
-                and self._prefix_entries:
-            # frees every page whose sole owner is a template; no stream
-            # table references any of them
-            self._clear_prefix_cache()
-        return not over() and self._ensure_pages(idxs, budget, ahead)
+            # in-flight ticks append through the current table: no compaction
+            # while one is in flight
+            if (over() or not self._ensure_pages(idxs, budget, ahead)) \
+                    and not self._pipe:
+                self._compact_paged()
+            if not over() and not self._ensure_pages(idxs, budget, ahead) \
+                    and self._prefix_entries:
+                # frees every page whose sole owner is a template; no stream
+                # table references any of them
+                self._clear_prefix_cache()
+            return not over() and self._ensure_pages(idxs, budget, ahead)
 
     # ------------------------------------------------------------------ tick
     def _prefill_starts(self):
@@ -900,32 +952,33 @@ class MultiStreamEngine:
         # an admission writes through the table and the host offsets:
         # in-flight ticks resolve first
         self._resolve_all()
-        key = tuple(self._start_ids)
-        if self.prefix_cache:
-            ent = self._prefix_entries.get(key)
-            if ent is not None and self._admit_from_prefix(todo, ent):
-                self._prefix_hits += len(todo)
-                return
-        P = -(-len(self._start_ids) // PROMPT_BUCKET) * PROMPT_BUCKET
-        ids = np.zeros((self.N, P), np.int32)
-        nv = np.zeros((self.N,), np.int32)
-        for i in todo:
-            s = self._start_ids
-            ids[i, P - len(s):] = s
-            nv[i] = len(s)
-            self._needs_prefill[i] = False
-            self.prepends[i] = []
-            self._host_offsets[i] += len(s)
-        active = np.zeros((self.N,), bool)
-        active[todo] = True
-        # host offsets already include the prefill tokens: budget 0
-        if not self._paged_admit(todo, 0):
-            raise RuntimeError("paged KV pool exhausted during prefill; "
-                               "raise pool_pages")
-        self._prefill(ids, nv, active)
-        self._sync_offsets()
-        if self.prefix_cache and key not in self._prefix_entries:
-            self._build_prefix_template(todo[0], key)
+        with self._span("multistream.admit"):
+            key = tuple(self._start_ids)
+            if self.prefix_cache:
+                ent = self._prefix_entries.get(key)
+                if ent is not None and self._admit_from_prefix(todo, ent):
+                    self._prefix_hits += len(todo)
+                    return
+            P = -(-len(self._start_ids) // PROMPT_BUCKET) * PROMPT_BUCKET
+            ids = np.zeros((self.N, P), np.int32)
+            nv = np.zeros((self.N,), np.int32)
+            for i in todo:
+                s = self._start_ids
+                ids[i, P - len(s):] = s
+                nv[i] = len(s)
+                self._needs_prefill[i] = False
+                self.prepends[i] = []
+                self._host_offsets[i] += len(s)
+            active = np.zeros((self.N,), bool)
+            active[todo] = True
+            # host offsets already include the prefill tokens: budget 0
+            if not self._paged_admit(todo, 0):
+                raise RuntimeError("paged KV pool exhausted during prefill; "
+                                   "raise pool_pages")
+            self._prefill(ids, nv, active)
+            self._sync_offsets()
+            if self.prefix_cache and key not in self._prefix_entries:
+                self._build_prefix_template(todo[0], key)
 
     def _build_prefix_template(self, donor: int, key: tuple) -> None:
         """Snapshot the just-prefilled ``donor``'s pages as the prefix
@@ -952,36 +1005,37 @@ class MultiStreamEngine:
         (refcounts bumped) and giving each a private copy of the template's
         tail page. Returns False, for a normal prefill, when the pool cannot
         cover the tail pages."""
-        S = ent["length"]
-        if ent["tail_page"] is not None \
-                and len(self._free_pages) < len(todo):
-            self._compact_paged()
-            if len(self._free_pages) < len(todo):
-                return False
-        dsts = []
-        for i in todo:
-            for j, p in enumerate(ent["pages"]):
-                self._page_refs[p] += 1
-                self._table_host[i, j] = p
-            alloc = len(ent["pages"])
-            if ent["tail_page"] is not None:
-                p_new = self._free_pages.pop()
-                self._page_refs[p_new] = 1
-                self._table_host[i, alloc] = p_new
-                dsts.append(p_new)
-                alloc += 1
-            self._pages_alloc[i] = alloc
-            self._host_offsets[i] = S
-            self._pos_base_host[i] = 0
-            self._needs_prefill[i] = False
-            self.prepends[i] = []
-        self._set_table()
-        if dsts:
-            self._copy_page_multi(ent["tail_page"], dsts)
-        mask = np.zeros((self.N,), bool)
-        mask[todo] = True
-        self._mask_set_offsets(mask, np.full((self.N,), S, np.int32))
-        return True
+        with self._span("multistream.pages"):
+            S = ent["length"]
+            if ent["tail_page"] is not None \
+                    and len(self._free_pages) < len(todo):
+                self._compact_paged()
+                if len(self._free_pages) < len(todo):
+                    return False
+            dsts = []
+            for i in todo:
+                for j, p in enumerate(ent["pages"]):
+                    self._page_refs[p] += 1
+                    self._table_host[i, j] = p
+                alloc = len(ent["pages"])
+                if ent["tail_page"] is not None:
+                    p_new = self._free_pages.pop()
+                    self._page_refs[p_new] = 1
+                    self._table_host[i, alloc] = p_new
+                    dsts.append(p_new)
+                    alloc += 1
+                self._pages_alloc[i] = alloc
+                self._host_offsets[i] = S
+                self._pos_base_host[i] = 0
+                self._needs_prefill[i] = False
+                self.prepends[i] = []
+            self._set_table()
+            if dsts:
+                self._copy_page_multi(ent["tail_page"], dsts)
+            mask = np.zeros((self.N,), bool)
+            mask[todo] = True
+            self._mask_set_offsets(mask, np.full((self.N,), S, np.int32))
+            return True
 
     def _clear_prefix_cache(self):
         for ent in self._prefix_entries.values():
@@ -1093,30 +1147,36 @@ class MultiStreamEngine:
     def _step_unfused(self) -> List[Optional[Tuple[Optional[str], str]]]:
         self._prefill_starts()
         N = self.N
-        active = np.zeros((N,), bool)
-        fire = np.zeros((N,), bool)
-        next_id = np.zeros((N,), np.int64)
-        consumed = np.zeros((N,), np.int64)
-        frame_times = [None] * N
-        coll = self._collect_ingest()
+        with self._span("multistream.admit"):
+            coll = self._collect_ingest()
+            if coll is not None:
+                self._admit_tick(coll)
         if coll is not None:
-            self._admit_tick(coll)
-            e = self._dispatch_ingest(coll)
-            consumed, fire, next_id, tokens = self._settle_ingest(e)
-            active = coll["active"]
-            # each stream's offset at the end of its consumed frames
-            self.cache = self.cache.replace(offset=torch.as_tensor(
-                e["base"] + tokens, dtype=torch.int32))
-            self._sync_offsets()
-            # pop consumed frames; record each stream's last processed time
-            for i in range(N):
-                c = int(consumed[i])
-                for _ in range(c):
-                    self.frame_queues[i].popleft()
-                if c:
-                    frame_times[i] = coll["bursts"][i][c - 1][0]
-        results = self._respond_turn(*self._schedule(
-            active, consumed, fire, next_id, frame_times), frame_times)
+            with self._span("multistream.ingest"):
+                e = self._dispatch_ingest(coll)
+        with self._span("multistream.settle"):
+            active = np.zeros((N,), bool)
+            fire = np.zeros((N,), bool)
+            next_id = np.zeros((N,), np.int64)
+            consumed = np.zeros((N,), np.int64)
+            frame_times = [None] * N
+            if coll is not None:
+                consumed, fire, next_id, tokens = self._settle_ingest(e)
+                active = coll["active"]
+                # each stream's offset at the end of its consumed frames
+                self.cache = self.cache.replace(offset=torch.as_tensor(
+                    e["base"] + tokens, dtype=torch.int32))
+                self._sync_offsets()
+                # pop consumed frames; record each stream's last processed
+                # time
+                for i in range(N):
+                    c = int(consumed[i])
+                    for _ in range(c):
+                        self.frame_queues[i].popleft()
+                    if c:
+                        frame_times[i] = coll["bursts"][i][c - 1][0]
+            due = self._schedule(active, consumed, fire, next_id, frame_times)
+        results = self._respond_turn(*due, frame_times)
         # surface queued entries FIFO; this tick's result queues behind them
         for i in range(N):
             if self._resp_out[i]:
@@ -1174,54 +1234,55 @@ class MultiStreamEngine:
         results: List[Optional[Tuple[Optional[str], str]]] = [None] * N
         if not respond_mask.any():
             return results
-        prompts: Dict[int, List[int]] = {}
-        for i in range(N):
-            if not respond_mask[i]:
-                continue
-            if respond_query[i] is not None:
-                prompts[i] = list(self.tokenizer.apply_chat_template(
-                    [{"role": "user", "content": respond_query[i][1]}],
-                    tokenize=True, add_stream_query_prompt=True,
-                    add_generation_prompt=True))
-                self.prepends[i] = []
-            else:
-                prompts[i] = self._gen_prompt_ids
-        longest = max(len(p) for p in prompts.values())
-        P = -(-max(longest, 1) // PROMPT_BUCKET) * PROMPT_BUCKET
-        ids = np.zeros((N, P), np.int64)
-        nv = np.zeros((N,), np.int64)
-        for i, prompt in prompts.items():
-            ids[i, P - len(prompt):] = prompt
-            nv[i] = len(prompt)
-        out, lengths = self._respond(ids, nv, respond_mask)
-        self._sync_offsets(respond_mask)
-        for i in range(N):
-            if not respond_mask[i]:
-                continue
-            toks = out[i, :lengths[i]]
-            t = (respond_query[i][0] if respond_query[i] is not None
-                 else frame_times[i])
-            if self.stream_tokens:
-                # the first segment opens the response; a completed one
-                # lands in _resp_out and surfaces this tick
-                query = respond_query[i]
-                self._begin_open(i, "q" if query is not None else "f", t,
-                                 query[1] if query is not None else None)
-                self._extend_open(i, toks.astype(np.int32))
-                continue
-            if toks.size and toks[-1] == self.cfg.eos_token_id:
-                self.prepends[i] = ([int(toks[-1])]
-                                    + self._stream_prompt_ids)
-            elif toks.size:
-                self.prepends[i] = [int(toks[-1])]
-            resp = self.tokenizer.decode(toks.astype(np.int32),
-                                         skip_special_tokens=True)
-            q_str = (f"(Video Time = {t}s) User: {respond_query[i][1]}"
-                     if respond_query[i] is not None else None)
-            results[i] = (q_str, f"(Video Time = {t}s) Assistant:{resp}")
-            self._record_response_latency(
-                i, "q" if respond_query[i] is not None else "f", t)
-            self.transcripts[i].append(results[i])
+        with self._span("multistream.respond"):
+            prompts: Dict[int, List[int]] = {}
+            for i in range(N):
+                if not respond_mask[i]:
+                    continue
+                if respond_query[i] is not None:
+                    prompts[i] = list(self.tokenizer.apply_chat_template(
+                        [{"role": "user", "content": respond_query[i][1]}],
+                        tokenize=True, add_stream_query_prompt=True,
+                        add_generation_prompt=True))
+                    self.prepends[i] = []
+                else:
+                    prompts[i] = self._gen_prompt_ids
+            longest = max(len(p) for p in prompts.values())
+            P = -(-max(longest, 1) // PROMPT_BUCKET) * PROMPT_BUCKET
+            ids = np.zeros((N, P), np.int64)
+            nv = np.zeros((N,), np.int64)
+            for i, prompt in prompts.items():
+                ids[i, P - len(prompt):] = prompt
+                nv[i] = len(prompt)
+            out, lengths = self._respond(ids, nv, respond_mask)
+            self._sync_offsets(respond_mask)
+            for i in range(N):
+                if not respond_mask[i]:
+                    continue
+                toks = out[i, :lengths[i]]
+                t = (respond_query[i][0] if respond_query[i] is not None
+                     else frame_times[i])
+                if self.stream_tokens:
+                    # the first segment opens the response; a completed one
+                    # lands in _resp_out and surfaces this tick
+                    query = respond_query[i]
+                    self._begin_open(i, "q" if query is not None else "f", t,
+                                     query[1] if query is not None else None)
+                    self._extend_open(i, toks.astype(np.int32))
+                    continue
+                if toks.size and toks[-1] == self.cfg.eos_token_id:
+                    self.prepends[i] = ([int(toks[-1])]
+                                        + self._stream_prompt_ids)
+                elif toks.size:
+                    self.prepends[i] = [int(toks[-1])]
+                resp = self.tokenizer.decode(toks.astype(np.int32),
+                                             skip_special_tokens=True)
+                q_str = (f"(Video Time = {t}s) User: {respond_query[i][1]}"
+                         if respond_query[i] is not None else None)
+                results[i] = (q_str, f"(Video Time = {t}s) Assistant:{resp}")
+                self._record_response_latency(
+                    i, "q" if respond_query[i] is not None else "f", t)
+                self.transcripts[i].append(results[i])
         return results
 
     # ------------------------------------------------------ pipelined mode
@@ -1259,32 +1320,34 @@ class MultiStreamEngine:
         iv = self.cfg.frame_token_interval_id
         added = 0
         while len(self._pipe) < self.pipeline_depth:
-            coll = self._collect_ingest()
-            if coll is None:
-                return False, added
-            idxs = [int(i) for i in np.flatnonzero(coll["active"])]
-            # each stream's tokens in flight: the tick is admitted from the
-            # offset its stream would have if no gate in flight fires, as
-            # the blocking tick would admit it there
-            ahead = (self.cache.offset.numpy().astype(np.int64)
-                     - self._host_offsets)
-            if any(int(self._host_offsets[i] + ahead[i]) + coll["budget"]
-                   > self.kv_capacity for i in idxs):
-                return True, added
-            before = list(self._pages_alloc) if self.paged else None
-            if self.paged and not self._paged_admit(idxs, coll["budget"],
-                                                    ahead):
-                return True, added
-            e = self._dispatch_ingest(coll)
-            # the pages this tick's admission mapped, freed again if its
-            # stream's work here is rolled back
-            e["pages"] = ({i: before[i] for i in idxs} if self.paged
-                          else {})
-            for i in idxs:
-                for _ in coll["bursts"][i]:
-                    self.frame_queues[i].popleft()
-                self.prepends[i] = [iv] if iv is not None else []
-            self._pipe.append(e)
+            with self._span("multistream.admit"):
+                coll = self._collect_ingest()
+                if coll is None:
+                    return False, added
+                idxs = [int(i) for i in np.flatnonzero(coll["active"])]
+                # each stream's tokens in flight: the tick is admitted from
+                # the offset its stream would have if no gate in flight
+                # fires, as the blocking tick would admit it there
+                ahead = (self.cache.offset.numpy().astype(np.int64)
+                         - self._host_offsets)
+                if any(int(self._host_offsets[i] + ahead[i]) + coll["budget"]
+                       > self.kv_capacity for i in idxs):
+                    return True, added
+                before = list(self._pages_alloc) if self.paged else None
+                if self.paged and not self._paged_admit(idxs, coll["budget"],
+                                                        ahead):
+                    return True, added
+            with self._span("multistream.ingest"):
+                e = self._dispatch_ingest(coll)
+                # the pages this tick's admission mapped, freed again if
+                # its stream's work here is rolled back
+                e["pages"] = ({i: before[i] for i in idxs} if self.paged
+                              else {})
+                for i in idxs:
+                    for _ in coll["bursts"][i]:
+                        self.frame_queues[i].popleft()
+                    self.prepends[i] = [iv] if iv is not None else []
+                self._pipe.append(e)
             added += 1
             self._counts.inflight(len(self._pipe))
         return False, added
@@ -1296,36 +1359,38 @@ class MultiStreamEngine:
         stale slots past it are never attended), while the other streams
         keep their work; then one respond program for the streams that
         answer now. Their responses queue in ``_resp_out``."""
-        e = self._pipe.popleft()
-        coll = e["coll"]
-        consumed, fire, next_id, tokens = self._settle_ingest(e)
         N = self.N
-        frame_times = [None] * N
-        for i in np.flatnonzero(coll["active"]):
-            self._host_offsets[i] = e["base"][i] + tokens[i]
-            if consumed[i]:
-                frame_times[i] = coll["bursts"][i][consumed[i] - 1][0]
-        for i in np.flatnonzero(fire):
-            for newer in reversed(self._pipe):
-                nc = newer["coll"]
-                if nc["active"][i]:
-                    self.frame_queues[i].extendleft(reversed(nc["bursts"][i]))
-                    nc["active"][i] = False
-                    if self.paged:
-                        self._unmap_tail(i, newer["pages"][i])
-                    self._counts.rolled_back(len(nc["bursts"][i]))
-            self.frame_queues[i].extendleft(
-                reversed(coll["bursts"][i][consumed[i]:]))
-        if fire.any():
-            offs = self.cache.offset.clone()
-            offs[fire] = torch.as_tensor(self._host_offsets[fire],
-                                         dtype=torch.int32)
-            self.cache = self.cache.replace(offset=offs)
-        in_newer = [any(n["coll"]["active"][i] for n in self._pipe)
-                    for i in range(N)]
-        results = self._respond_turn(*self._schedule(
-            coll["active"], consumed, fire, next_id, frame_times, in_newer),
-            frame_times)
+        with self._span("multistream.settle"):
+            e = self._pipe.popleft()
+            coll = e["coll"]
+            consumed, fire, next_id, tokens = self._settle_ingest(e)
+            frame_times = [None] * N
+            for i in np.flatnonzero(coll["active"]):
+                self._host_offsets[i] = e["base"][i] + tokens[i]
+                if consumed[i]:
+                    frame_times[i] = coll["bursts"][i][consumed[i] - 1][0]
+            for i in np.flatnonzero(fire):
+                for newer in reversed(self._pipe):
+                    nc = newer["coll"]
+                    if nc["active"][i]:
+                        self.frame_queues[i].extendleft(
+                            reversed(nc["bursts"][i]))
+                        nc["active"][i] = False
+                        if self.paged:
+                            self._unmap_tail(i, newer["pages"][i])
+                        self._counts.rolled_back(len(nc["bursts"][i]))
+                self.frame_queues[i].extendleft(
+                    reversed(coll["bursts"][i][consumed[i]:]))
+            if fire.any():
+                offs = self.cache.offset.clone()
+                offs[fire] = torch.as_tensor(self._host_offsets[fire],
+                                             dtype=torch.int32)
+                self.cache = self.cache.replace(offset=offs)
+            in_newer = [any(n["coll"]["active"][i] for n in self._pipe)
+                        for i in range(N)]
+            due = self._schedule(coll["active"], consumed, fire, next_id,
+                                 frame_times, in_newer)
+        results = self._respond_turn(*due, frame_times)
         for i, r in enumerate(results):
             if r is not None:
                 self._resp_out[i].append(r)
@@ -1335,11 +1400,13 @@ class MultiStreamEngine:
         (pages a rolled-back tick mapped; the work in flight that writes
         them comes first on the stream, so a page's next owner overwrites
         it)."""
-        while self._pages_alloc[i] > keep:
-            self._pages_alloc[i] -= 1
-            self._unref_page(int(self._table_host[i, self._pages_alloc[i]]))
-            self._table_host[i, self._pages_alloc[i]] = 0
-        self._set_table()
+        with self._span("multistream.pages"):
+            while self._pages_alloc[i] > keep:
+                self._pages_alloc[i] -= 1
+                j = self._pages_alloc[i]
+                self._unref_page(int(self._table_host[i, j]))
+                self._table_host[i, j] = 0
+            self._set_table()
 
     def _resolve_all(self):
         while self._pipe:
@@ -1373,32 +1440,34 @@ class MultiStreamEngine:
         # belongs to this dialogue: finish it
         self._resolve_all()
         self._finish_open_responses([i])
-        out = self.transcripts[i]
-        self.transcripts[i] = []
-        self.frame_queues[i].clear()
-        self.query_queues[i].clear()
-        self.prepends[i] = []
-        self._resp_out[i].clear()
-        self._needs_prefill[i] = True
-        self._host_offsets[i] = 0
-        if self.paged:
-            for j in range(self._pages_alloc[i]):
-                self._unref_page(int(self._table_host[i, j]))
-            self._table_host[i] = 0
-            self._pages_alloc[i] = 0
-            self._pos_base_host[i] = 0
-            self._set_table()
-        off = self.cache.offset.clone()
-        pb = self.cache.pos_base.clone()
-        off[i] = 0
-        pb[i] = 0
-        self.cache = self.cache.replace(offset=off, pos_base=pb)
-        # spec-decode history and drop stats are per dialogue
-        self._hist[i] = 0
-        self._hcount[i] = 0
-        self._dropped[i] = 0
-        self._arrival[i].clear()
-        return out
+        with self._span("multistream.close"):
+            out = self.transcripts[i]
+            self.transcripts[i] = []
+            self.frame_queues[i].clear()
+            self.query_queues[i].clear()
+            self.prepends[i] = []
+            self._resp_out[i].clear()
+            self._needs_prefill[i] = True
+            self._host_offsets[i] = 0
+            if self.paged:
+                with self._span("multistream.pages"):
+                    for j in range(self._pages_alloc[i]):
+                        self._unref_page(int(self._table_host[i, j]))
+                    self._table_host[i] = 0
+                    self._pages_alloc[i] = 0
+                    self._pos_base_host[i] = 0
+                    self._set_table()
+            off = self.cache.offset.clone()
+            pb = self.cache.pos_base.clone()
+            off[i] = 0
+            pb[i] = 0
+            self.cache = self.cache.replace(offset=off, pos_base=pb)
+            # spec-decode history and drop stats are per dialogue
+            self._hist[i] = 0
+            self._hcount[i] = 0
+            self._dropped[i] = 0
+            self._arrival[i].clear()
+            return out
 
     def _unref_page(self, p: int):
         self._page_refs[p] -= 1

@@ -1,16 +1,46 @@
-"""Wall-clock latency summaries.
+"""Wall-clock latency summaries and the spans that feed them.
 
-Counterpart of ``LatencyHistogram`` in ``videollm_online_tpu/utils/profiling.py``
-(the JAX profiler helpers there are not carried over).
+Counterpart of ``LatencyHistogram`` in
+``videollm_online_tpu/utils/profiling.py`` (the JAX profiler helpers there
+are not carried over). ``measure(stage)`` is also a span on
+``torch.profiler``'s timeline while a profiler records.
 """
 
 from __future__ import annotations
 
-import contextlib
 import time
 from typing import Dict, List, Optional
 
 import numpy as np
+from torch.autograd import profiler as _profiler
+
+
+class _Span:
+    """``LatencyHistogram.measure``'s context: the body's wall-clock seconds
+    go to the histogram under ``stage``; while ``torch.profiler`` records,
+    the body is also a ``record_function(stage)`` range (a
+    ``user_annotation`` on the trace's clock, beside the device's events).
+    With no profiler on, no ``record_function`` or dispatcher call is
+    made."""
+
+    __slots__ = ("_hist", "_stage", "_t0", "_rf")
+
+    def __init__(self, hist: "LatencyHistogram", stage: str):
+        self._hist, self._stage, self._rf = hist, stage, None
+
+    def __enter__(self):
+        if _profiler._is_profiler_enabled:
+            self._rf = _profiler.record_function(self._stage)
+            self._rf.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self._hist.add(self._stage, time.perf_counter() - self._t0)
+        if self._rf is not None:
+            rf, self._rf = self._rf, None
+            rf.__exit__(*exc)
+        return False
 
 
 class LatencyHistogram:
@@ -23,13 +53,10 @@ class LatencyHistogram:
         self.samples: Dict[str, List[float]] = {}
         self.max_samples = max_samples
 
-    @contextlib.contextmanager
-    def measure(self, stage: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.add(stage, time.perf_counter() - t0)
+    def measure(self, stage: str) -> _Span:
+        """``with hist.measure(stage): ...`` times the body as one sample
+        of ``stage`` (and names it on a running profiler's trace)."""
+        return _Span(self, stage)
 
     def add(self, stage: str, seconds: float):
         xs = self.samples.setdefault(stage, [])
