@@ -3491,15 +3491,22 @@ def phase_small_multistream():
 
 # --------------------------------------------------------------- phase 15
 class _CountForwards:
-    """Counts llama.forward calls (one per batched forward) while entered."""
+    """Counts llama.forward calls (one per batched forward) while entered,
+    as the kernels' launch counters see them: a decode forward replayed as
+    a CUDA graph (``llama.DecodeGraph``) launches nothing through them and
+    counts 0, the one that captured it (a warm-up, then the capture) 2."""
 
     def __enter__(self):
         from videollm_online_tpu_torch.models import llama
         self.n, self._llama, self._saved = 0, llama, llama.forward
 
         def counted(*a, **kw):
-            self.n += 1
-            return self._saved(*a, **kw)
+            g = kw.get("decode_graph")
+            before = (g.captures, g.replays) if g is not None else (0, 0)
+            out = self._saved(*a, **kw)
+            after = (g.captures, g.replays) if g is not None else (0, 0)
+            self.n += 1 + (after[0] - before[0]) - (after[1] - before[1])
+            return out
 
         llama.forward = counted
         return self

@@ -995,6 +995,92 @@ def test_multistream_paged_through_k3_equals_plain_on_card(card,
     assert run() == got
 
 
+@pytest.mark.parametrize("dtype,kv_quant", [("float32", None),
+                                            ("bfloat16", None),
+                                            ("bfloat16", "int8")])
+def test_multistream_decode_graph_equals_eager_on_card(card, monkeypatch,
+                                                       dtype, kv_quant):
+    """The greedy decode forward replayed as one CUDA graph: a small paged
+    MultiStreamEngine (pages of 16, so answers cross into new pages
+    mid-decode; streams answering alone and together, a tick a frame)
+    gives the eager forward's transcripts byte for byte, captures once and
+    replays every later decode forward, and after ``reset()`` captures
+    again and still equals the eager run. K3's launch counter sees the
+    capture (its warm-up and the capture itself) and no replay."""
+    lcfg = LlamaConfig(vocab_size=512, hidden_size=256, intermediate_size=512,
+                       num_layers=2, num_heads=8, num_kv_heads=2, head_dim=64,
+                       dtype=dtype)
+    cfg = LiveConfig(llama=lcfg, lora=None, vision_hidden_size=64)
+    tok = LiveTokenizer(ByteTokenizer(), cfg)
+    cfg = tok.cfg.replace(max_response_tokens=12, gate_logit_bias=60.0)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    # weights at 4x init_params' scale, so the greedy answers vary token by
+    # token (at 0.02 every answer repeats one byte)
+    p = llama.init_params(gen, cfg.llama, device="cuda")
+    p = {k: v * 4 if k in ("embed", "lm_head") else v for k, v in p.items()}
+    p["layers"] = {k: v * 4 if k.startswith("w") else v
+                   for k, v in p["layers"].items()}
+    params = {"llama": p, "connector": live.init_connector(gen, cfg,
+                                                           device="cuda")}
+    feats = np.random.RandomState(1).randn(
+        12, cfg.frame_num_tokens, cfg.vision_hidden_size).astype(np.float32)
+    page = 16
+    forward = llama.forward
+    calls = [0]           # every forward
+    decode_rows = []      # per graph-mode forward: (offsets, rows fed)
+
+    def spy(params, **kw):
+        calls[0] += 1
+        if kw.get("decode_graph") is not None:
+            decode_rows.append((kw["kv_cache"].offset.numpy().copy(),
+                                np.asarray(kw["num_valid"]).copy()))
+        return forward(params, **kw)
+
+    monkeypatch.setattr(llama, "forward", spy)
+
+    def drive(ms):
+        for i in range(3):
+            ms.input_frames(i, 0.0, feats)
+            for t in ((0.5, 3.0, 5.0), (1.0, 3.0), (2.0, 4.0, 5.5))[i]:
+                ms.input_query(i, f"what now {i}?", t)
+        while ms.pending():
+            ms.step()
+        return [list(t) for t in ms.transcripts]
+
+    def engine():
+        return MultiStreamEngine(params, tok, cfg, num_streams=3,
+                                 kv_capacity=1024, page_size=page, paged=True,
+                                 chunk_frames=1, kv_quant=kv_quant,
+                                 device="cuda")
+
+    ms = engine()
+    pa.paged_decode_attention.launches = 0
+    got = drive(ms)
+    c = ms.counters()
+    assert c["decode_graph_captures"] == 1
+    assert (c["decode_graph_captures"] + c["decode_graph_replays"]
+            == c["decode_forwards"] == len(decode_rows))
+    assert c["decode_rows_valid"] < c["decode_rows"]
+    # a live row appends at the first slot of a page
+    assert any(((off % page == 0) & (nv > 0)).any()
+               for off, nv in decode_rows)
+    # every forward but the replays launched K3 once a layer, the capture
+    # twice (warm-up and capture)
+    launching = (calls[0] + c["decode_graph_captures"]
+                 - c["decode_graph_replays"])
+    assert pa.paged_decode_attention.launches == lcfg.num_layers * launching
+    ms.reset()
+    again = drive(ms)
+    assert ms.counters()["decode_graph_captures"] == 1
+
+    monkeypatch.setattr(MultiStreamEngine, "_decode_graph", lambda self: None)
+    eager = engine()
+    want = drive(eager)
+    assert eager.counters()["decode_graph_captures"] == 0
+    assert got == want and again == want
+    assert len({a for t in want for _, a in t}) > 4
+
+
 # ----------------------------------------------- the demo path's options
 def _chip_smoke():
     """chip_smoke.py at the repository's root, as a module."""

@@ -144,9 +144,11 @@ def run(request, setup, tmp_path_factory):
 def _expected(programs):
     """The counters a respond program's returned lengths imply: a stream
     of final length L is fed in decode forwards 1 .. L - 1, and a program
-    runs max(L) - 1 of them, each over all N rows."""
+    runs max(L) - 1 of them, each over all N rows; on the CPU none of them
+    captures or replays a CUDA graph."""
     c = dict(respond_programs=0, decode_forwards=0, decode_rows=0,
-             decode_rows_valid=0)
+             decode_rows_valid=0, decode_graph_captures=0,
+             decode_graph_replays=0)
     for active, lengths in programs:
         steps = int(lengths[active].max()) - 1
         c["respond_programs"] += 1
@@ -192,6 +194,8 @@ def test_no_record_function_without_a_profiler(run):
 def test_counters_equal_a_hand_count(run):
     (a1, _), = run["first"]
     (a2, _), = run["second"]
+    # no mode records a CUDA graph on the CPU
+    assert run["counters"]["decode_graph_captures"] == 0
     # one stream answering of N, then two
     assert a1.tolist() == [True, False, False]
     assert a2.tolist() == [False, True, True]

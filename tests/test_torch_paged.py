@@ -299,6 +299,23 @@ def test_dispatch_takes_the_plain_version_on_the_cpu():
     assert torch.equal(out, pa.paged_attention_reference(*args, 1))
 
 
+@pytest.mark.parametrize("kind", ["paged", "ring_int8"])
+def test_decode_graph_refuses_what_it_cannot_replay(kind, tiny_decoder):
+    """A decode graph replays a paged-cache forward on a CUDA device only:
+    on the CPU, and over the ring, the forward refuses the holder before it
+    writes anything, and the holder has captured nothing."""
+    jcfg, cfg, _, params, _ = tiny_decoder
+    _, cache = _caches(kind, jcfg, cfg, 2, 32, 6)
+    k0 = cache.k.clone()
+    graph = llama.DecodeGraph()
+    with pytest.raises(ValueError, match="decode graph"):
+        llama.forward(params, cfg=cfg.llama,
+                      input_ids=torch.ones((2, 1), dtype=torch.long),
+                      kv_cache=cache, decode_graph=graph)
+    assert torch.equal(cache.k, k0)
+    assert graph.captures == graph.replays == 0 and graph.post_out is None
+
+
 @pytest.mark.parametrize("design", pa.DESIGNS)
 @pytest.mark.parametrize("page", [32, 64, 512])
 def test_schedule_over_pages(design, page):

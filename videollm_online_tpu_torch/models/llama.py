@@ -591,6 +591,7 @@ def forward(
     lora_dropout: float = 0.0,
     shard_rows: Optional[Tuple[int, int, int, int]] = None,
     remat_group: int = 1,
+    decode_graph: Optional["DecodeGraph"] = None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Run the decoder.
 
@@ -617,6 +618,12 @@ def forward(
     every rank. ``shard_rows`` = (batch start, global batch, position
     start, global length) places a batch or sequence shard in the global
     tensor for the dropout masks.
+
+    With ``decode_graph`` (a ``DecodeGraph``; a paged cache on a CUDA
+    device, no mesh) the same forward is replayed as a CUDA graph: the
+    host builds its index tensors as below, the graph's static buffers
+    take them and ``inputs_embeds``, and the returned logits (or hidden
+    states) are the graph's output tensor, overwritten by its next replay.
     """
     par = ParallelContext.current(cfg, attn_impl)
     if par is not None:
@@ -626,93 +633,232 @@ def forward(
         attn_impl = _windowed(attn_impl, cfg.sliding_window)
     if inputs_embeds is None:
         inputs_embeds = embed_tokens(params, input_ids, cfg)
-    h = inputs_embeds
-    B, S, _ = h.shape
-    dev = h.device
+    B, S, _ = inputs_embeds.shape
+    paged = isinstance(kv_cache, PagedKVCache)
+    if decode_graph is not None and not (
+            paged and inputs_embeds.is_cuda and par is None):
+        raise ValueError("a decode graph replays a paged-cache forward on a "
+                         "CUDA device with no mesh")
 
-    # host-built index tensors reach the card through pinned, non-blocking
-    # copies (core/device.py::to_device): the forward makes the host wait
-    # for nothing, so work can be dispatched ahead of its readback
+    # the index tensors the forward builds on the host; they reach the card
+    # through pinned, non-blocking copies (core/device.py::to_device), or a
+    # decode graph's one staging copy: the forward makes the host wait for
+    # nothing, so work can be dispatched ahead of its readback
     if positions is None:
         base = (kv_cache.pos_base + kv_cache.offset if kv_cache is not None
                 else torch.zeros((B,), dtype=torch.int32))
         positions = base[:, None] + torch.arange(S, dtype=torch.int32)[None]
     positions = positions.to(torch.int32)
+    idx = {"positions": positions}
     if kv_cache is not None:
         pos_base = kv_cache.pos_base.to(positions.device)
-        attn_pos = to_device((positions - pos_base[:, None]).to(
-            torch.int32).contiguous(), dev)
-    positions = to_device(positions, dev)
-    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
-    layer_lora = (lora or {}).get("layers") or None
-
-    if kv_cache is not None:
+        idx["attn_pos"] = (positions - pos_base[:, None]).to(
+            torch.int32).contiguous()
         nv = (torch.full((B,), S, dtype=torch.int32) if num_valid is None
               else torch.as_tensor(num_valid, dtype=torch.int32).cpu())
-        if isinstance(kv_cache, PagedKVCache):
-            phys, row = paged_slots(kv_cache.table, kv_cache.offset,
-                                    kv_cache.page_size, S, nv)
-            where = tuple(to_device(t, dev)
-                          for t in (kv_cache.table, phys, row))
+        if paged:
+            idx["phys"], idx["row"] = paged_slots(
+                kv_cache.table, kv_cache.offset, kv_cache.page_size, S, nv)
+            idx["table"] = kv_cache.table
         else:
             C = kv_cache.capacity
-            where = [min(max(int(o), 0), C - S) for o in kv_cache.offset]
-        for i in range(cfg.num_layers):
-            h = _layer(h, _index_tree(params["layers"], i),
-                       _index_tree(layer_lora, i), cos, sin, attn_pos,
-                       (kv_cache, where, i), cfg, lora_scaling, attn_impl,
-                       par=par)
-        new_cache = kv_cache.replace(offset=kv_cache.offset + nv)
-    else:
-        use_dropout = (dropout_seed is not None and lora_dropout > 0.0
-                       and layer_lora is not None)
-
-        def layer(h, i):
-            # layer i's masks are seeded by i alone, so a recompute under
-            # either remat draws them again the same
-            args = (h, _index_tree(params["layers"], i),
-                    _index_tree(layer_lora, i), cos, sin, positions, None,
-                    cfg, lora_scaling, attn_impl,
-                    fold_seed(dropout_seed, i) if use_dropout else None,
-                    lora_dropout if use_dropout else 0.0, par, shard_rows)
-            if remat:
-                return checkpoint(_layer, *args, use_reentrant=False)
-            return _layer(*args)
-
-        G = remat_group
-        if remat and G > 1 and cfg.num_layers % G == 0:
-            def group(h, g0):
-                for i in range(g0, g0 + G):
-                    h = layer(h, i)
-                return h
-
-            for g0 in range(0, cfg.num_layers, G):
-                h = checkpoint(group, h, g0, use_reentrant=False)
-        else:
-            for i in range(cfg.num_layers):
-                h = layer(h, i)
-        new_cache = None
-
+            starts = [min(max(int(o), 0), C - S) for o in kv_cache.offset]
     if logit_gather_positions is not None:
         # (B,) or (B, G) positions within the chunk
-        pos = to_device(torch.as_tensor(logit_gather_positions),
-                        dev).long()
-        if pos.ndim == 2:
-            h = torch.take_along_dim(h, pos[..., None], dim=1)
+        idx["gather"] = torch.as_tensor(logit_gather_positions)
+    layer_lora = (lora or {}).get("layers") or None
+
+    def run(h, idx):
+        """The forward's device work, from the index tensors on h's
+        device."""
+        cos, sin = rope_cos_sin(idx["positions"], cfg.head_dim,
+                                cfg.rope_theta)
+        if kv_cache is not None:
+            where = ((idx["table"], idx["phys"], idx["row"]) if paged
+                     else starts)
+            for i in range(cfg.num_layers):
+                h = _layer(h, _index_tree(params["layers"], i),
+                           _index_tree(layer_lora, i), cos, sin,
+                           idx["attn_pos"], (kv_cache, where, i), cfg,
+                           lora_scaling, attn_impl, par=par)
         else:
-            h = h[torch.arange(B, device=dev), pos][:, None]
-    elif last_logit_only:
-        h = h[:, -1:]
-    h = rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
-    if return_hidden:
-        return h, new_cache
-    head_seed = (fold_seed(dropout_seed, cfg.num_layers)
-                 if dropout_seed is not None and lora_dropout > 0.0 else None)
-    return lm_head(params, h, cfg, lora=lora, lora_scaling=lora_scaling,
-                   drop_seed=head_seed, drop_rate=lora_dropout,
-                   drop_region=(_drop_region(h, shard_rows)
-                                if head_seed is not None else None),
-                   par=par), new_cache
+            use_dropout = (dropout_seed is not None and lora_dropout > 0.0
+                           and layer_lora is not None)
+
+            def layer(h, i):
+                # layer i's masks are seeded by i alone, so a recompute
+                # under either remat draws them again the same
+                args = (h, _index_tree(params["layers"], i),
+                        _index_tree(layer_lora, i), cos, sin,
+                        idx["positions"], None, cfg, lora_scaling, attn_impl,
+                        fold_seed(dropout_seed, i) if use_dropout else None,
+                        lora_dropout if use_dropout else 0.0, par, shard_rows)
+                if remat:
+                    return checkpoint(_layer, *args, use_reentrant=False)
+                return _layer(*args)
+
+            G = remat_group
+            if remat and G > 1 and cfg.num_layers % G == 0:
+                def group(h, g0):
+                    for i in range(g0, g0 + G):
+                        h = layer(h, i)
+                    return h
+
+                for g0 in range(0, cfg.num_layers, G):
+                    h = checkpoint(group, h, g0, use_reentrant=False)
+            else:
+                for i in range(cfg.num_layers):
+                    h = layer(h, i)
+
+        if "gather" in idx:
+            pos = idx["gather"].long()
+            if pos.ndim == 2:
+                h = torch.take_along_dim(h, pos[..., None], dim=1)
+            else:
+                h = h[torch.arange(B, device=h.device), pos][:, None]
+        elif last_logit_only:
+            h = h[:, -1:]
+        h = rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
+        if return_hidden:
+            return h
+        head_seed = (fold_seed(dropout_seed, cfg.num_layers)
+                     if dropout_seed is not None and lora_dropout > 0.0
+                     else None)
+        return lm_head(params, h, cfg, lora=lora, lora_scaling=lora_scaling,
+                       drop_seed=head_seed, drop_rate=lora_dropout,
+                       drop_region=(_drop_region(h, shard_rows)
+                                    if head_seed is not None else None),
+                       par=par)
+
+    if decode_graph is None:
+        dev = inputs_embeds.device
+        out = run(inputs_embeds,
+                  {k: to_device(t, dev) for k, t in idx.items()})
+    else:
+        out = decode_graph.run(
+            run, inputs_embeds, idx,
+            (cfg, lora_scaling, return_hidden, last_logit_only,
+             _tensor_key((params, lora, kv_cache.k, kv_cache.v,
+                          kv_cache.k_scale, kv_cache.v_scale))))
+    new_cache = (None if kv_cache is None
+                 else kv_cache.replace(offset=kv_cache.offset + nv))
+    return out, new_cache
+
+
+def _tensor_key(tree) -> tuple:
+    """(address, shape, dtype) of every tensor in a tree of dicts, lists
+    and tuples, in order: what a recorded graph reads them by."""
+    if isinstance(tree, torch.Tensor):
+        return ((tree.data_ptr(), tuple(tree.shape), tree.dtype),)
+    if isinstance(tree, dict):
+        tree = [tree[k] for k in sorted(tree)]
+    if isinstance(tree, (list, tuple)):
+        return tuple(k for t in tree for k in _tensor_key(t))
+    return ()
+
+
+class DecodeGraph:
+    """One forward shape recorded as a CUDA graph and replayed: the holder
+    a caller passes to ``forward`` as ``decode_graph``, for the batched
+    engine's 1-token decode forward (serve/multistream.py).
+
+    ``forward`` builds its host index tensors (positions, the paged
+    append's pool rows, the page table, the gather positions) as the eager
+    forward does, host checks included, and hands them to ``run`` with its
+    device work. The first call, or a call whose key differs from the
+    recorded one, warms that work up eagerly on a side stream and captures
+    it (``captures``); any other call replays the graph (``replays``). The
+    key holds the shapes and dtypes of the inputs and index tensors, and
+    the address, shape and dtype of every parameter and pool the forward
+    reads, so a parameter swap or a new pool captures again. Each call
+    packs the index tensors into one pinned host buffer, copies it to the
+    device once and copies ``inputs_embeds`` into the graph's static input
+    before the replay; the page table is such an input, never a recorded
+    constant. ``post`` (output -> tensor), when given, is recorded after
+    the forward and its result is ``post_out``. Outputs are the graph's
+    static tensors, overwritten by the next replay. The kernel wrappers'
+    ``.launches`` counters count a capture twice (its warm-up and the
+    capture itself) and a replay not at all: a replay launches no kernel
+    through them."""
+
+    def __init__(self, post=None):
+        self.post = post
+        self.captures = 0
+        self.replays = 0
+        self.drop()
+
+    def drop(self):
+        """Forget the recorded graph and its buffers; the next ``run``
+        captures again."""
+        self._key = self._graph = self._out = self.post_out = None
+        self._h = self._host = self._dev = self._host_idx = None
+        self._copied = None
+
+    def run(self, body, h: torch.Tensor, idx: Dict[str, torch.Tensor],
+            key) -> torch.Tensor:
+        """``body(h, idx)`` with idx's host tensors on h's device, replayed
+        (or captured, then replayed). Returns its output tensor."""
+        if any(t.device.type != "cpu" for t in idx.values()):
+            raise ValueError("a decode graph stages host index tensors")
+        key = (key, tuple(h.shape), h.dtype,
+               tuple((k, tuple(t.shape), t.dtype) for k, t in idx.items()))
+        if key != self._key:
+            self._capture(body, h, idx)
+            self._key = key
+            self.captures += 1
+        else:
+            self._stage(h, idx)
+            self.replays += 1
+        self._graph.replay()
+        return self._out
+
+    def _stage(self, h, idx):
+        # the previous call's copy must have left the pinned buffer
+        self._copied.synchronize()
+        for k, t in idx.items():
+            self._host_idx[k].copy_(t)
+        self._dev.copy_(self._host, non_blocking=True)
+        self._copied.record()
+        self._h.copy_(h)
+
+    def _capture(self, body, h, idx):
+        """Static buffers for these shapes, the staged inputs, an eager
+        warm-up of ``body`` on a side stream, then its capture."""
+        self.drop()
+        dev = h.device
+        spans, size = {}, 0
+        for k, t in idx.items():
+            nbytes = t.numel() * t.element_size()
+            spans[k] = (size, nbytes, t.dtype, tuple(t.shape))
+            size += -(-nbytes // 16) * 16
+
+        def views(buf):
+            return {k: buf[o:o + n].view(dtype).view(shape)
+                    for k, (o, n, dtype, shape) in spans.items()}
+
+        self._host = torch.empty(size, dtype=torch.uint8, pin_memory=True)
+        self._dev = torch.empty(size, dtype=torch.uint8, device=dev)
+        self._host_idx, dev_idx = views(self._host), views(self._dev)
+        self._h = torch.empty_like(h)
+        self._copied = torch.cuda.Event()
+        self._stage(h, idx)
+
+        def record():
+            with torch.no_grad():
+                out = body(self._h, dev_idx)
+                return out, (None if self.post is None else self.post(out))
+
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            record()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: another thread's work on the card (a server's
+        # handlers) does not break this thread's capture
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            self._out, self.post_out = record()
+        self._graph = graph
 
 
 def embed_tokens(params: Params, input_ids: torch.Tensor, cfg: LlamaConfig

@@ -59,6 +59,15 @@ times feed ``stats()["phases"]``, and while ``torch.profiler`` records each
 is a range on its timeline. ``counters()`` counts the respond programs,
 their decode forwards, the batch rows those forwards fed and, of those,
 the rows of streams not yet done.
+
+On a card, over the paged pool and with no tensor-parallel mesh, the
+greedy decode forward (with its argmax) is captured once as a CUDA graph
+(``models.llama.DecodeGraph``) at its first use and replayed at every
+later step: the host builds the forward's index tensors as the eager
+forward does and stages them in one copy. ``counters()`` counts the
+captures and the replays beside the decode forwards. Everything else (the
+ring, TP serving, the spec verify forward, the prompt and ingest
+forwards, the CPU) runs the eager forward.
 """
 
 from __future__ import annotations
@@ -75,6 +84,7 @@ from ..core.config import LiveConfig
 from ..core.device import DeferredRead, resolve_device, to_device
 from ..models import generate as gen_mod
 from ..models import live, llama
+from ..parallel.context import ParallelContext
 from ..tokenizer.live_tokenizer import LiveTokenizer
 from ..utils.profiling import LatencyHistogram
 from .engine import DispatchCounts, _check_same_tree
@@ -100,6 +110,11 @@ def _gate(rows: torch.Tensor, gate_id: int, threshold: float, bias: float
         below, torch.zeros((), dtype=probs.dtype, device=probs.device),
         probs[..., gate_id])
     return torch.argmax(probs, dim=-1)
+
+
+def _greedy_ids(logits: torch.Tensor) -> torch.Tensor:
+    """(N, 1, V) logits of a decode forward -> the (N,) greedy next ids."""
+    return torch.argmax(logits[:, 0], dim=-1)
 
 
 def _roll_valid_first(embeds: torch.Tensor, n, bucket: int) -> torch.Tensor:
@@ -237,15 +252,25 @@ class MultiStreamEngine:
         self.reset()
 
     # ---------------------------------------------------- device programs
-    def _fwd(self, embeds, num_valid, gather_pos=None, return_hidden=False):
+    def _fwd(self, embeds, num_valid, gather_pos=None, return_hidden=False,
+             decode_graph=None):
         logits, self.cache = llama.forward(
             self.params["llama"], cfg=self.cfg.llama, inputs_embeds=embeds,
             kv_cache=self.cache,
             num_valid=torch.as_tensor(np.asarray(num_valid), dtype=torch.int32),
             lora=self.params.get("lora"), lora_scaling=self._lora_scaling,
             attn_impl=self.attn_impl, logit_gather_positions=gather_pos,
-            return_hidden=return_hidden)
+            return_hidden=return_hidden, decode_graph=decode_graph)
         return logits
+
+    def _decode_graph(self) -> Optional[llama.DecodeGraph]:
+        """The greedy decode forward's graph holder where that forward can
+        be replayed as a CUDA graph (a card, the paged pool, no
+        tensor-parallel mesh), else None: the eager forward."""
+        if self.device.type == "cuda" and self.paged and \
+                ParallelContext.current(self.cfg.llama) is None:
+            return self._graph
+        return None
 
     def _embed(self, ids) -> torch.Tensor:
         return llama.embed_tokens(
@@ -345,7 +370,9 @@ class MultiStreamEngine:
     def _respond_core(self, prompt_ids, num_valid, active):
         """Batched greedy decode of the active streams: the prompt forward,
         then one 1-token forward per step for every stream not yet done
-        (done streams append nothing). Returns (out (N, max_new), lengths)."""
+        (done streams append nothing); where ``_decode_graph`` gives a
+        holder, that forward and its argmax are one CUDA graph, replayed.
+        Returns (out (N, max_new), lengths)."""
         N, max_new, eos = self.N, self.max_new, self.cfg.eos_token_id
         nv = np.where(active, num_valid, 0)
         with self._span("multistream.respond.prefill"):
@@ -360,10 +387,13 @@ class MultiStreamEngine:
         while i < max_new and not done.all():
             self._count_decode(done)
             with self._span("multistream.respond.decode"):
+                graph = self._decode_graph()
                 logits = self._fwd(self._embed(out[:, i - 1:i]),
                                    (~done).astype(np.int32),
-                                   torch.zeros((N,), dtype=torch.long))
-                nxt = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
+                                   torch.zeros((N,), dtype=torch.long),
+                                   decode_graph=graph)
+                nxt = (_greedy_ids(logits) if graph is None
+                       else graph.post_out).cpu().numpy()
             nxt = np.where(done, eos, nxt)
             out[:, i] = nxt
             lengths = np.where(done, lengths, i + 1)
@@ -543,6 +573,9 @@ class MultiStreamEngine:
         self._counters = dict.fromkeys(
             ("respond_programs", "decode_forwards", "decode_rows",
              "decode_rows_valid"), 0)
+        # the greedy decode forward's CUDA graph (_decode_graph), captured
+        # at its first use
+        self._graph = llama.DecodeGraph(post=_greedy_ids)
         self._dropped = [0] * self.N
         # response latency: wall clock from the arrival of a response's
         # trigger (the frame's input_frames / the query's input_query call)
@@ -738,6 +771,7 @@ class MultiStreamEngine:
         self._finish_open_responses()
         self._clear_prefix_cache()
         self.params = params
+        self._graph.drop()
 
     def _shed_lag(self):
         """Drop each lagging stream's OLDEST queued frames down to
@@ -754,8 +788,11 @@ class MultiStreamEngine:
     def counters(self) -> Dict[str, int]:
         """Since ``reset``: respond programs, their decode (greedy) or
         verify (spec) forwards, the batch rows those fed (N each) and the
-        rows of streams not yet done."""
-        return dict(self._counters)
+        rows of streams not yet done; of the greedy decode forwards, those
+        that captured the CUDA graph and those that replayed it."""
+        return dict(self._counters,
+                    decode_graph_captures=self._graph.captures,
+                    decode_graph_replays=self._graph.replays)
 
     def stats(self) -> Dict[str, Any]:
         """Serving snapshot from host state alone: per-stream queue and cache
