@@ -18,7 +18,8 @@ at the window's batch, over the contexts the window's ingest built; that
 ``probe_rounds`` times. Then
 the engine is freed, and a seeded sample of the dialogues with answers from
 the window or the probe (the one with the longest context always in it) is
-rebuilt and run through the fp32 reference (``reference/dialogue.py``);
+rebuilt and run through the fp32 reference (``reference/dialogue.py`` over
+the configuration's family's reference decoder);
 the widest gap by which a served token's reference logit lies below the
 reference's best (``max_gap``) and the mean gap over the judged tokens
 (``mean_gap``) are read. Before the probe, ``gate_ticks`` more ticks run,
@@ -45,26 +46,26 @@ import numpy as np
 import torch
 
 from portbench import roofline, tokenizer as tk, trace, traffic, weights
-from portbench.reference import decoder, dialogue
-from portbench.portcfg import port_live_config
-from portbench.weights import attention_window
+from portbench.reference import common, dialogue
 
 ANSWER = re.compile(r"^\(Video Time = ([-0-9.e+]+)s\) Assistant:(.*)$", re.S)
 
 
 class FlopMeter:
-    """Counts what each decoder forward must do (``roofline``), from the
-    shapes of the calls the engine makes: wraps the port's
-    ``models.llama.forward`` while it is on."""
+    """Counts what each decoder forward must do, from the shapes of the
+    calls the engine makes: wraps the family's port forward
+    (``port_forward``) while it is on, and asks the family what a forward
+    needs (``forward_flops``) and which kernels it calls
+    (``kernel_calls``)."""
 
-    def __init__(self, c: Dict[str, Any]):
-        self.c = c
+    def __init__(self, family, c: Dict[str, Any]):
+        self.family, self.c = family, c
         self.flops = 0.0
-        self.k3 = []       # per forward: (offsets, S) of its K3 calls
+        self.calls = []    # per forward: (offsets of its valid streams, S)
 
     def __enter__(self):
-        from videollm_online_tpu_torch.models import llama
-        self._mod, self._orig = llama, llama.forward
+        self._mod, self._name = self.family.port_forward()
+        self._orig = getattr(self._mod, self._name)
         meter = self
 
         def counted(params, **kw):
@@ -74,11 +75,11 @@ class FlopMeter:
                 meter.note(emb.shape, cache.offset, kw)
             return meter._orig(params, **kw)
 
-        llama.forward = counted
+        setattr(self._mod, self._name, counted)
         return self
 
     def __exit__(self, *exc):
-        self._mod.forward = self._orig
+        setattr(self._mod, self._name, self._orig)
 
     def note(self, shape, offset, kw):
         B, S = int(shape[0]), int(shape[1])
@@ -92,24 +93,28 @@ class FlopMeter:
             g = np.asarray(torch.as_tensor(g).cpu(), np.int64)
             g = g.reshape(B, -1)
             rows = int((g < nv[:, None]).sum())
-        self.flops += roofline.serve_forward_flops(self.c, nv, off, rows)
-        self.k3.append((off[nv > 0], S))
+        self.flops += self.family.forward_flops(self.c, nv, off, rows)
+        self.calls.append((off[nv > 0], S))
 
-    def k3_bound(self) -> Dict[str, Any]:
-        c = self.c
-        t, kinds, calls = 0.0, {}, 0
-        for off, S in self.k3:
+    def kernel_bounds(self) -> Dict[str, Dict[str, Any]]:
+        """{class: {bound_s, calls, kind}}: each kernel's least time over
+        the forwards with a valid stream, its calls, and the bound kind
+        that holds most of that time."""
+        acc: Dict[str, Dict[str, Any]] = {}
+        for off, S in self.calls:
             if not len(off):
                 continue
-            calls += c["num_hidden_layers"]
-            f, b = roofline.k3_call(off, S, c["num_attention_heads"],
-                                    c["num_key_value_heads"], c["head_dim"],
-                                    attention_window(c))
-            s, kind = roofline.least_time(f, b)
-            t += s * c["num_hidden_layers"]
-            kinds[kind] = kinds.get(kind, 0.0) + s
-        return {"bound_s": t, "calls": calls,
-                "kind": max(kinds, key=kinds.get) if kinds else None}
+            for cls, (f, b, layers) in self.family.kernel_calls(
+                    self.c, off, S).items():
+                a = acc.setdefault(cls, {"bound_s": 0.0, "calls": 0,
+                                         "kinds": {}})
+                a["calls"] += layers
+                s, kind = roofline.least_time(f, b)
+                a["bound_s"] += s * layers
+                a["kinds"][kind] = a["kinds"].get(kind, 0.0) + s
+        return {cls: {"bound_s": a["bound_s"], "calls": a["calls"],
+                      "kind": max(a["kinds"], key=a["kinds"].get)}
+                for cls, a in acc.items()}
 
 
 class GateTap:
@@ -278,10 +283,11 @@ def run(ctx) -> Dict[str, Any]:
     from videollm_online_tpu_torch.tokenizer.live_tokenizer import (
         LiveTokenizer)
 
-    c, mix, seed, dev = ctx.config, ctx.mix, ctx.seed, ctx.device
+    c, mix, seed, dev, fam = (ctx.config, ctx.mix, ctx.seed, ctx.device,
+                              ctx.family)
     live = c["live"]
-    cfg = port_live_config(c, max_response_tokens=mix["max_new_tokens"],
-                           gate_logit_bias=mix["gate_bias"])
+    cfg = fam.live_config(c, max_response_tokens=mix["max_new_tokens"],
+                          gate_logit_bias=mix["gate_bias"])
     tok = LiveTokenizer(tk.IdTokenizer(), cfg)
     cfg = tok.cfg
     need = traffic.worst_dialogue_tokens(mix, live["system_prompt"],
@@ -289,7 +295,7 @@ def run(ctx) -> Dict[str, Any]:
     if need > mix["kv_capacity"]:
         raise ValueError(f"the longest dialogue needs {need} KV slots, more "
                          f"than kv_capacity {mix['kv_capacity']}")
-    params = weights.make(c, seed, dev)
+    params = weights.make(fam, c, seed, dev)
     plan = traffic.ServePlan(mix, seed)
     bank = traffic.feature_bank(seed, mix["bank_frames"],
                                 live["frame_num_tokens"],
@@ -318,14 +324,15 @@ def run(ctx) -> Dict[str, Any]:
 
     record: Dict[str, Any] = {"trace": None}
     if ctx.trace:
-        with trace.profiled(ctx.out_dir, lambda: _sync(dev)) as prof, \
-                FlopMeter(c) as k3m:
+        with trace.profiled(ctx.out_dir, lambda: _sync(dev),
+                            fam.KERNEL_CLASSES) as prof, \
+                FlopMeter(fam, c) as kmeter:
             t_end = time.perf_counter() + mix["profile_seconds"]
             while time.perf_counter() < t_end:
                 cl.tick()
                 cl.turn_over()
         record["trace"] = prof["summary"]
-        record["k3"] = k3m.k3_bound()
+        record["kernel_bounds"] = kmeter.kernel_bounds()
         record["trace_read_s"] = prof["read_s"]
 
     spec0 = eng.spec_stats()
@@ -333,7 +340,8 @@ def run(ctx) -> Dict[str, Any]:
     ticks = []
     _sync(dev)
     gated_at = []          # (seconds into the window, frames gated so far)
-    with (FlopMeter(c) if ctx.trace else contextlib.nullcontext()) as meter:
+    with (FlopMeter(fam, c) if ctx.trace
+          else contextlib.nullcontext()) as meter:
         w0 = time.perf_counter()
         end = w0 + ctx.seconds
         while True:
@@ -418,7 +426,7 @@ def judge_sample(ctx, params, bank, dialogues):
     n = min(mix["sample_dialogues"] - 1, len(rest))
     pick = [longest] + [rest[k] for k in sorted(
         rng.choice(len(rest), size=n, replace=False))] if n else [longest]
-    decoder.exact_fp32()
+    common.exact_fp32()
     iv = tk.encode(tk.INTERVAL)[0]
     seqs, judged, gated = [], [], []
     for k in pick:
@@ -429,15 +437,15 @@ def judge_sample(ctx, params, bank, dialogues):
         items, jd, gates = dialogue.layout(d, live["system_prompt"], iv)
         spec = d["spec"]
         seqs.append(dialogue.embed(
-            items, params,
+            ctx.family.reference, items, params,
             lambda j, spec=spec: traffic.video_features(bank, spec, j, j + 1)[0],
             ctx.device))
         judged.append(jd)
         gated.append(gates)
     t0 = time.perf_counter()
     with torch.no_grad():
-        stats = dialogue.judge(params, c, seqs, judged, gated, iv,
-                               control=ctx.control)
+        stats = dialogue.judge(ctx.family.reference, params, c, seqs, judged,
+                               gated, iv, control=ctx.control)
     stats["reference_s"] = time.perf_counter() - t0
     stats["dialogues"] = len(pick)
     stats["longest_tokens"] = max(int(s.shape[0]) for s in seqs)

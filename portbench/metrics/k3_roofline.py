@@ -3,16 +3,15 @@
 or operations at 989 TFLOP/s, the larger) over K3's device time there (its
 paged kernels and, where no K1 runs, the merges of its split partials)."""
 
+from portbench.metrics._share import kernel_roofline
 
-def read(rec, info):
-    s, k3 = rec.get("trace"), rec.get("k3")
-    if not s or not k3 or not k3["calls"]:
-        return None
-    cls = s["classes"]
+
+def _time(cls):
     t = cls.get("K3", [0.0, 0])[0]
     if "K1" not in cls:
         t += cls.get("K1/K3 merge", [0.0, 0])[0]
-    if not t:
-        return None
-    return {"value": 100.0 * k3["bound_s"] / t, "bound": k3["kind"],
-            "power_limit_w": info["power_limit_w"]}
+    return t
+
+
+def read(rec, info):
+    return kernel_roofline(rec, info, "K3", _time)

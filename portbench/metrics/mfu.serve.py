@@ -1,5 +1,5 @@
 """mfu.serve: the operations the serving forwards of the metered window
-must do (``roofline.serve_forward_flops``, counted from each forward's
+must do (the family's ``forward_flops``, counted from each forward's
 shapes), over the window's seconds and the card's bf16 peak."""
 
 from portbench import roofline

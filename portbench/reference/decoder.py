@@ -10,9 +10,13 @@ grouped-query causal attention over keys j with i - window < j <= i, the
 o projection, SwiGLU, the final norm and the head. Attention runs in
 blocks of query rows, each over the keys its rows can see.
 
-``Rounder`` stands in a lower precision for the control: every matmul's
-activation operand, and q, k and v, rounded to float8 e4m3 with one scale
-per row (amax / 448).
+``Rounder`` (``common.py``) stands in a lower precision for the control:
+every matmul's activation operand, and q, k and v, rounded to float8 e4m3
+with one scale per row (amax / 448).
+
+A family's reference module gives the shared judge (``dialogue.py``)
+``embed_ids``, ``final_hidden`` and ``logits``, each over the decoder's
+tree (``params["llama"]``); this is the Llama family's.
 """
 
 from __future__ import annotations
@@ -23,31 +27,15 @@ from typing import Any, Dict, List, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-from ..weights import attention_window
-
-FP8_MAX = 448.0
+from .common import Rounder
 
 
-def exact_fp32() -> None:
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
-
-
-class Rounder:
-    """Identity (the reference) or per-row float8 e4m3 (the control)."""
-
-    def __init__(self, fp8: bool = False):
-        self.fp8 = fp8
-
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.fp8:
-            return x
-        with torch.no_grad():
-            s = x.abs().amax(dim=-1, keepdim=True).clamp(min=1e-30) / FP8_MAX
-            r = (x / s).to(torch.float8_e4m3fn).float() * s
-        # straight through in a backward: the rounding's gradient is 1
-        return x + (r - x).detach()
+def attention_window(c: Dict[str, Any]) -> Optional[int]:
+    """The sliding window a configuration's attention uses (None: full
+    causal); Qwen2's config carries a window it does not use."""
+    if not c.get("use_sliding_window", True):
+        return None
+    return c.get("sliding_window")
 
 
 def deq(m: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -68,13 +56,6 @@ def embed_ids(params: Dict[str, Any], ids: torch.Tensor) -> torch.Tensor:
     e = params["embed"]
     ids = ids.to(e["q8"].device).long()
     return e["q8"][ids].float() * e["scale"][ids].float()[:, None]
-
-
-def connector(conn: Dict[str, Any], feats: torch.Tensor) -> torch.Tensor:
-    """Frame features (n, vision_hidden) -> (n, D): Linear, erf GELU, Linear."""
-    h = feats.float() @ conn["fc1"]["w"].float() + conn["fc1"]["b"].float()
-    h = F.gelu(h, approximate="none")
-    return h @ conn["fc2"]["w"].float() + conn["fc2"]["b"].float()
 
 
 def rms(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:

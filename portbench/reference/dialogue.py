@@ -10,6 +10,11 @@ tokens but its last; the last token (with the stream prompt after an
 <eos>) goes in front of the next frame. Position p of that sequence
 predicts the token at p + 1, so a response's k-th token is judged at the
 position before it, and a frame's gate at the frame's last token.
+
+The decoder is the configuration's family's reference module (``ref``:
+``embed_ids``, ``final_hidden`` and ``logits`` over ``params["llama"]``),
+which the caller passes in; the connector and the control's rounding are
+shared (``common.py``).
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ import numpy as np
 import torch
 
 from .. import tokenizer as tk
-from . import decoder
+from .common import Rounder, connector
 
 
 def layout(d: Dict[str, Any], system_prompt: str, interval_id: int
@@ -73,7 +78,7 @@ def layout(d: Dict[str, Any], system_prompt: str, interval_id: int
     return items, judged, gates
 
 
-def embed(items: Sequence[Tuple[str, int]], params: Dict[str, Any],
+def embed(ref, items: Sequence[Tuple[str, int]], params: Dict[str, Any],
           frame_feats, device) -> torch.Tensor:
     """(T, D) fp32 embeddings: text ids through the dequantized table, frames
     (``frame_feats(j)`` -> (fnt, vision_hidden)) through the connector."""
@@ -81,7 +86,7 @@ def embed(items: Sequence[Tuple[str, int]], params: Dict[str, Any],
 
     def flush():
         if run:
-            parts.append(decoder.embed_ids(
+            parts.append(ref.embed_ids(
                 params["llama"], torch.tensor(run, device=device)))
             run.clear()
 
@@ -91,45 +96,42 @@ def embed(items: Sequence[Tuple[str, int]], params: Dict[str, Any],
         else:
             flush()
             f = torch.from_numpy(np.asarray(frame_feats(val))).to(device)
-            parts.append(decoder.connector(params["connector"], f))
+            parts.append(connector(params["connector"], f))
     flush()
     return torch.cat(parts)
 
 
-def judge(params: Dict[str, Any], c: Dict[str, Any], seqs, judged, gated,
-          gate_id: int, control: bool = False) -> Dict[str, Any]:
+def judge(ref, params: Dict[str, Any], c: Dict[str, Any], seqs, judged,
+          gated, gate_id: int, control: bool = False) -> Dict[str, Any]:
     """Per sequence, the gap by which each served token's reference logit
     lies below the reference's best, and at each gated frame the difference
     between the program's gate margin and the reference's; with ``control``
     also the same two readings of the fp8 control at the same positions
     (the gap of the token that it puts first, its own gate margin)."""
-    hid = decoder.final_hidden(params["llama"], c, seqs)
-    ctl = (decoder.final_hidden(params["llama"], c, seqs,
-                                decoder.Rounder(fp8=True))
+    hid = ref.final_hidden(params["llama"], c, seqs)
+    ctl = (ref.final_hidden(params["llama"], c, seqs, Rounder(fp8=True))
            if control else None)
     gaps, cgaps, ggaps, cggaps = [], [], [], []
     for n, (h, jd, gd) in enumerate(zip(hid, judged, gated)):
         if jd:
             p = torch.tensor([q for q, _, _ in jd], device=h.device)
             tok = torch.tensor([t for _, t, _ in jd], device=h.device)
-            lg = decoder.logits(params["llama"], h[p])
+            lg = ref.logits(params["llama"], h[p])
             best = lg.max(dim=-1).values
             gaps.append((best - lg.gather(1, tok[:, None])[:, 0]).cpu())
             if ctl is not None:
-                lc = decoder.logits(params["llama"], ctl[n][p],
-                                    decoder.Rounder(fp8=True))
+                lc = ref.logits(params["llama"], ctl[n][p], Rounder(fp8=True))
                 pick = lc.argmax(dim=-1)
                 cgaps.append((best - lg.gather(1, pick[:, None])[:, 0]).cpu())
         if gd:
             p = torch.tensor([q for q, _ in gd], device=h.device)
             prog = torch.tensor([m for _, m in gd])
-            ref = gate_margin(decoder.logits(params["llama"], h[p]),
-                              gate_id).cpu()
-            ggaps.append((prog - ref).abs())
+            want = gate_margin(ref.logits(params["llama"], h[p]),
+                               gate_id).cpu()
+            ggaps.append((prog - want).abs())
             if ctl is not None:
-                lc = decoder.logits(params["llama"], ctl[n][p],
-                                    decoder.Rounder(fp8=True))
-                cggaps.append((gate_margin(lc, gate_id).cpu() - ref).abs())
+                lc = ref.logits(params["llama"], ctl[n][p], Rounder(fp8=True))
+                cggaps.append((gate_margin(lc, gate_id).cpu() - want).abs())
     g = torch.cat(gaps) if gaps else torch.zeros(0)
     gg = torch.cat(ggaps) if ggaps else torch.zeros(0)
     out = {"tokens": int(g.numel()), "gaps": g,

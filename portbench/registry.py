@@ -1,11 +1,39 @@
-"""Find a cell's configuration, traffic mix, driver and metric readers by the
-names in ``BENCHMARK.json``.
+"""Find a cell's configuration, model family, traffic mix, driver and
+metric readers by the names in ``BENCHMARK.json``.
 
-A configuration is the JSON file its ``configs`` entry names; a traffic mix
-is ``traffic/<mix>.json``; the mix names its driver, ``drivers/<driver>.py``
+A configuration is the JSON file its ``configs`` entry names; its family is
+the module of ``families/`` whose ``ARCHITECTURES`` holds the
+configuration's ``architectures[0]``; a traffic mix is
+``traffic/<mix>.json``; the mix names its driver, ``drivers/<driver>.py``
 (a module with ``run(ctx)``); a per-layer metric is ``metrics/<metric>.py``
-(a module with ``read(record)``). Adding a cell, a mix, a driver or a metric
-adds files and entries and edits none.
+(a module with ``read(record, info)``). Adding a cell, a mix, a driver, a
+metric or a family adds files and entries and edits none.
+
+A family (``families/<family>.py``; ``llama.py`` is one) is everything the
+benchmark knows of one kind of decoder. It provides:
+
+- ``ARCHITECTURES``: the Hugging Face ``architectures`` names it runs; no
+  two families share one.
+- ``KERNEL_CLASSES``: ``(class, match)`` pairs, ``match`` taking a
+  lowercased kernel name, tried before ``trace.CLASSES``: the kernels of
+  its own that a roofline metric reads.
+- ``reference``: its plain fp32 decoder, a module under ``reference/`` that
+  reaches nothing of the port, with ``embed_ids(tree, ids)``,
+  ``final_hidden(tree, c, seqs, rnd)`` and ``logits(tree, hidden, rnd)``
+  over the decoder's tree (``reference/decoder.py`` is Llama's).
+- ``live_config(c, *, max_response_tokens, gate_logit_bias)``: the port's
+  ``LiveConfig`` for configuration ``c``.
+- ``make_decoder(c, g, device)``: the decoder's weight tree, drawn from the
+  generator ``g``, in the layout the port takes.
+- ``forward_flops(c, num_valid, offsets, head_rows)``: the operations one
+  serving forward must do, for the rows with valid tokens.
+- ``kernel_calls(c, offsets, S)``: ``{class: (operations, bytes, layers)}``
+  of one forward's calls, for the streams with valid tokens.
+- ``port_forward()``: ``(module, attribute)`` of the port's forward that
+  ``FlopMeter`` wraps; it reads the engine's call keywords.
+
+A new kernel's roofline metric is a file ``metrics/<kernel>_roofline.py``
+whose ``read`` returns ``_share.kernel_roofline(rec, info, "<class>")``.
 """
 
 from __future__ import annotations
@@ -18,6 +46,9 @@ from typing import Any, Dict, List
 
 HERE = Path(__file__).resolve().parent
 REPO = HERE.parent
+# directories that hold families/, drivers/ and metrics/, searched in order
+# (the tests add one of their own)
+ROOTS = (HERE,)
 
 
 def load_benchmark() -> Dict[str, Any]:
@@ -45,16 +76,37 @@ def traffic(name: str) -> Dict[str, Any]:
     return json.loads((HERE / "traffic" / f"{name}.json").read_text())
 
 
-def _module(kind: str, name: str) -> ModuleType:
-    path = HERE / kind / f"{name}.py"
-    if not path.is_file():
-        raise KeyError(f"no {kind[:-1]} file {path.name} under portbench/"
-                       f"{kind}")
+def _load(path: Path, kind: str) -> ModuleType:
     spec = importlib.util.spec_from_file_location(
-        f"portbench_{kind}_{name.replace('.', '_').replace('-', '_')}", path)
+        f"portbench_{kind}_{path.stem.replace('.', '_').replace('-', '_')}",
+        path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def _module(kind: str, name: str) -> ModuleType:
+    for root in ROOTS:
+        path = root / kind / f"{name}.py"
+        if path.is_file():
+            return _load(path, kind)
+    raise KeyError(f"no {kind[:-1]} file {name}.py under portbench/{kind}")
+
+
+def family(c: Dict[str, Any]) -> ModuleType:
+    """The family module that runs configuration ``c``: the one whose
+    ``ARCHITECTURES`` holds ``c["architectures"][0]``."""
+    arch = c["architectures"][0]
+    found = []
+    for root in ROOTS:
+        for path in sorted((root / "families").glob("[!_]*.py")):
+            mod = _load(path, "families")
+            if arch in mod.ARCHITECTURES:
+                found.append(mod)
+    if len(found) != 1:
+        raise KeyError(f"{len(found)} families under portbench/families run "
+                       f"the architecture {arch!r}; one must")
+    return found[0]
 
 
 def driver(name: str) -> ModuleType:

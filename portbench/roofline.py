@@ -10,16 +10,16 @@ bandwidth; its bound kind says which.
 
 K3's counts follow the bound arithmetic of ``chip_smoke.py`` (phase 13),
 copied here: K/V bytes for the visible slots only, q and out once,
-operations 4 d per visible (query, key) pair.
+operations 4 d per visible (query, key) pair. Every family whose attention
+runs K3 counts it here; what a whole forward needs, and which kernels it
+calls, is the family's (``families/<family>.py``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
-
-from .weights import attention_window
 
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
@@ -59,32 +59,3 @@ def k3_call(offsets: Sequence[int], S: int, Hq: int, Hkv: int, d: int,
     flops = 4.0 * d * Hq * pairs
     nbytes = 2.0 * slots * Hkv * d * kv_bytes + 2.0 * B * Hq * S * d * q_bytes
     return flops, nbytes
-
-
-# ------------------------------------------------------------ model FLOPs
-def matrix_params(c: Dict) -> Dict[str, int]:
-    """Weights of one decoder layer's matrices, and of the head."""
-    D, F, d = c["hidden_size"], c["intermediate_size"], c["head_dim"]
-    q, kv = c["num_attention_heads"] * d, c["num_key_value_heads"] * d
-    return {"layer": D * q + 2 * D * kv + q * D + 3 * D * F,
-            "head": D * c["vocab_size"]}
-
-
-def serve_forward_flops(c: Dict, num_valid: Sequence[int],
-                        offsets: Sequence[int], head_rows: int) -> float:
-    """Operations a serving forward must do: 2 per weight per valid token
-    in every layer, the head only on the rows whose logits are taken, and
-    attention (4 d a visible pair a query head) for the valid queries.
-    Padding rows, the embedding gather, norms, rope and the connector (under
-    0.3 % of a frame's operations) are left out."""
-    L, Hq, d = (c["num_hidden_layers"], c["num_attention_heads"],
-                c["head_dim"])
-    w = attention_window(c)
-    p = matrix_params(c)
-    nv = np.asarray(num_valid, np.int64)
-    off = np.asarray(offsets, np.int64)
-    pairs = sum(int(visible(o + np.arange(n), w).sum())
-                for o, n in zip(off, nv) if n)
-    return (2.0 * p["layer"] * L * int(nv.sum()) + 4.0 * d * Hq * L * pairs
-            + 2.0 * p["head"] * head_rows)
-

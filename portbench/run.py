@@ -3,15 +3,16 @@
     python3 portbench/run.py --workload <name> --seed <n> --seconds <s> \
         --trace <0|1>
 
-from the root of a checkout. The cell's configuration, traffic mix, driver
-and metric readers are found by name (``registry.py``). ``--trace 0``
-reports the cell's end-to-end metrics; ``--trace 1`` its per-layer metrics,
-from a profiled sub-window and a metered window after it. Without as many
-CUDA devices as the cell asks for, it exits with code 3 and prints no
-result. The last line of standard output is one JSON object: ``correct``,
-``attempted``, ``failed``, ``metrics``, ``device``, with ``--trace 1``
-``breakdown``, and last ``checks``, each compared number beside its limit
-(also the last lines of standard error).
+from the root of a checkout. The cell's configuration, model family,
+traffic mix, driver and metric readers are found by name
+(``registry.py``). ``--trace 0`` reports the cell's end-to-end metrics;
+``--trace 1`` its per-layer metrics, from a profiled sub-window and a
+metered window after it. Without as many CUDA devices as the cell asks
+for, it exits with code 3 and prints no result. The last line of
+standard output is one JSON object: ``correct``, ``attempted``,
+``failed``, ``metrics``, ``device``, with ``--trace 1`` ``breakdown``,
+and last ``checks``, each compared number beside its limit (also the last
+lines of standard error).
 """
 
 from __future__ import annotations
@@ -73,8 +74,9 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
 
     bench = bench or registry.load_benchmark()
     cell = registry.workload(bench, workload)
+    config = config or registry.config(bench, cell["config"])
     ctx = SimpleNamespace(
-        config=config or registry.config(bench, cell["config"]),
+        config=config, family=registry.family(config),
         mix=mix or registry.traffic(cell["traffic"]), seed=int(seed),
         seconds=float(seconds), trace=bool(trace), device=device,
         out_dir=REPO / "portbench" / "out", control=control, patch=patch,
@@ -124,6 +126,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     out["_stats"] = dict(res.get("stats", {}),
                          trace_read_s=res["record"].get("trace_read_s"))
     out["_summary"] = summary
+    out["_classes"] = ctx.family.KERNEL_CLASSES
     return out
 
 
@@ -155,12 +158,14 @@ def main(argv=None) -> int:
         return 4
     stats = out.pop("_stats")
     summary = out.pop("_summary", None)
+    classes = out.pop("_classes")
     if summary is not None:
         from portbench import trace as tr
         top = sorted(summary["kernels"].items(), key=lambda kv: -kv[1][0])
         for name, (secs, n) in top[:15]:
             print(f"kernel {secs * 1e3:9.2f} ms x{n:<5d} "
-                  f"[{tr.classify(name)}] {name[:110]}", file=sys.stderr)
+                  f"[{tr.classify(name, classes)}] {name[:110]}",
+                  file=sys.stderr)
         print("classes " + json.dumps(summary["classes"]), file=sys.stderr)
     print("portbench stats: " + json.dumps(
         {k: v for k, v in stats.items() if not hasattr(v, "shape")}),

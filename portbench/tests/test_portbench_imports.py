@@ -1,5 +1,6 @@
 """Nothing in portbench/ imports JAX or the JAX package (top-level names
-compared whole), and nothing in portbench/reference/ reaches the port."""
+compared whole), and nothing in portbench/reference/, where every family's
+reference decoder lives, reaches the port."""
 
 import ast
 from pathlib import Path
@@ -49,6 +50,10 @@ def _portbench_module(name: str, level: int, path: Path):
 
 
 def test_reference_reaches_nothing_of_the_port():
+    from portbench import registry
+    for path in sorted((ROOT / "families").glob("[!_]*.py")):
+        ref = Path(registry._load(path, "families").reference.__file__)
+        assert ref.parent == ROOT / "reference", (path, ref)
     seen, todo = set(), list((ROOT / "reference").glob("*.py"))
     while todo:
         path = todo.pop()
@@ -72,4 +77,5 @@ def test_reference_reaches_nothing_of_the_port():
                             d = _portbench_module(a.name, level, path)
                             if d is not None:
                                 todo.append(d)
-    assert any(p.name == "weights.py" for p in seen)
+    # the walk follows imports out of reference/ (dialogue.py's tokenizer)
+    assert {"common.py", "tokenizer.py"} <= {p.name for p in seen}

@@ -21,6 +21,7 @@ def test_every_cell_finds_its_files(bench):
     for cell in bench["workloads"]:
         cfg = registry.config(bench, cell["config"])
         assert cfg["name"] == cell["config"]
+        assert cfg["architectures"][0] in registry.family(cfg).ARCHITECTURES
         mix = registry.traffic(cell["traffic"])
         assert hasattr(registry.driver(mix["driver"]), "run")
         assert registry.end_to_end(bench, cell["name"])

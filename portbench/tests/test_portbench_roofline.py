@@ -1,8 +1,8 @@
-"""The counts of roofline.py against hand counts at small shapes."""
-
-import pytest
+"""The counts of roofline.py and of the Llama family's forward against
+hand counts at small shapes."""
 
 from portbench import roofline
+from portbench.families import llama
 
 
 def test_k3_call_by_hand():
@@ -33,7 +33,7 @@ def test_serve_forward_flops_by_hand():
     c = _cfg()
     per_layer = 8 * 8 + 2 * 8 * 4 + 8 * 8 + 3 * 8 * 16
     # one stream, 2 valid tokens at slots 5, 6; one head row
-    f = roofline.serve_forward_flops(c, [2, 0], [5, 0], 1)
+    f = llama.forward_flops(c, [2, 0], [5, 0], 1)
     assert f == 2 * per_layer * 3 * 2 + 4 * 2 * 4 * 3 * (6 + 7) + 2 * 8 * 10
 
 

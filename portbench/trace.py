@@ -3,11 +3,13 @@ a run, reduced to device busy time, time by kernel class and the host's
 activity in the device's idle gaps.
 
 Kernel classes are matched on the lowercased kernel name, first match
-wins. K1 and K3 run one templated kernel over a pool type, so they are told
-apart by the pool's name; the merge of their split partials is a class of
-its own. The int8 weights' conversion copies (``quantized_matmul``'s cast of
-the codes to bf16 before each cuBLAS product, the gap a W8A16 kernel would
-close) are copies whose loads convert.
+wins: the configuration's family's own (``KERNEL_CLASSES``) before the
+shared ones here. K1 and K3 run one templated kernel over a pool type, so
+they are told apart by the pool's name; the merge of their split partials
+is a class of its own. The int8 weights' conversion copies
+(``quantized_matmul``'s cast of the codes to bf16 before each cuBLAS
+product, the gap a W8A16 kernel would close) are copies whose loads
+convert.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import json
 import time
 from contextlib import contextmanager
 from pathlib import Path
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -45,9 +47,13 @@ LONG_US = 1000.0
 HOST_CATS = ("cpu_op", "cuda_runtime", "cuda_driver", "user_annotation")
 
 
-def classify(name: str) -> str:
+def classify(name: str, kernel_classes: Sequence = ()) -> str:
+    """The class of a kernel: the first of ``kernel_classes`` (a
+    family's), then of ``CLASSES``, whose match takes the lowercased
+    name."""
     n = name.lower()
-    return next((c for c, match in CLASSES if match(n)), "other")
+    return next((c for c, match in (*kernel_classes, *CLASSES)
+                 if match(n)), "other")
 
 
 def _merge(intervals: List[Tuple[float, float]]) -> List[Tuple[float, float]]:
@@ -60,12 +66,14 @@ def _merge(intervals: List[Tuple[float, float]]) -> List[Tuple[float, float]]:
     return [(a, b) for a, b in out]
 
 
-def summarize(events: List[Dict[str, Any]]) -> Optional[Dict[str, Any]]:
+def summarize(events: List[Dict[str, Any]], kernel_classes: Sequence = ()
+              ) -> Optional[Dict[str, Any]]:
     """Reduce chrome-trace events (microseconds) to the window's figures,
     in seconds: ``window_s``, ``busy_s`` (the union of device operations in
     the window), ``classes`` {class: [seconds, launches]}, ``kernels``
     {name: [seconds, launches]}, ``idle`` {host activity: seconds} and
-    ``gaps``. None when the window or any device operation is missing."""
+    ``gaps``; kernels are classed by ``classify(name, kernel_classes)``. None
+    when the window or any device operation is missing."""
     win = [e for e in events if e.get("name") == WINDOW
            and e.get("cat") == "user_annotation" and "dur" in e]
     if not win:
@@ -84,7 +92,8 @@ def summarize(events: List[Dict[str, Any]]) -> Optional[Dict[str, Any]]:
             continue
         dev.append((a, b))
         name = e.get("name", "")
-        cls = classify(name) if e["cat"] == "kernel" else e["cat"]
+        cls = (classify(name, kernel_classes) if e["cat"] == "kernel"
+               else e["cat"])
         for table, key in ((classes, cls), (kernels, name)):
             slot = table.setdefault(key, [0.0, 0])
             slot[0] += (b - a) * 1e-6
@@ -144,10 +153,12 @@ def breakdown(summary: Dict[str, Any]) -> Dict[str, List]:
 
 
 @contextmanager
-def profiled(out_dir: Path, sync: Callable[[], None]):
+def profiled(out_dir: Path, sync: Callable[[], None],
+             kernel_classes: Sequence = ()):
     """Profile the body (CPU and CUDA activities) inside one
     ``portbench.window`` annotation, then export the trace to ``out_dir``,
-    read it back and delete it. Yields a dict that gets ``summary``."""
+    read it back and delete it. Yields a dict that gets ``summary``
+    (``summarize`` with the family's ``kernel_classes``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -168,5 +179,5 @@ def profiled(out_dir: Path, sync: Callable[[], None]):
         events = json.loads(path.read_text()).get("traceEvents", [])
     finally:
         path.unlink(missing_ok=True)
-    out["summary"] = summarize(events)
+    out["summary"] = summarize(events, kernel_classes)
     out["read_s"] = time.perf_counter() - t0
