@@ -3491,14 +3491,19 @@ def phase_small_multistream():
 
 # --------------------------------------------------------------- phase 15
 class _CountForwards:
-    """Counts llama.forward calls (one per batched forward) while entered,
-    as the kernels' launch counters see them: a decode forward replayed as
-    a CUDA graph (``llama.DecodeGraph``) launches nothing through them and
-    counts 0, the one that captured it (a warm-up, then the capture) 2."""
+    """Counts the decoder module's forward calls (``models/llama.py``'s
+    unless another is given; one per batched forward) while entered, as
+    the kernels' launch counters see them: a decode forward replayed as a
+    CUDA graph (``DecodeGraph``) launches nothing through them and counts
+    0, the one that captured it (a warm-up, then the capture) 2."""
+
+    def __init__(self, module=None):
+        self._module = module
 
     def __enter__(self):
         from videollm_online_tpu_torch.models import llama
-        self.n, self._llama, self._saved = 0, llama, llama.forward
+        self._llama = self._module or llama
+        self.n, self._saved = 0, self._llama.forward
 
         def counted(*a, **kw):
             g = kw.get("decode_graph")
@@ -3508,7 +3513,7 @@ class _CountForwards:
             self.n += 1 + (after[0] - before[0]) - (after[1] - before[1])
             return out
 
-        llama.forward = counted
+        self._llama.forward = counted
         return self
 
     def __exit__(self, *exc):
@@ -4019,6 +4024,271 @@ def small_demo_drive(setup, frames, *, video_every, device="cuda", **kw):
                 break
             out.append((q, r))
     return out, deltas, eng, at_compaction
+
+
+# --------------------------------------------------------------- phase 15c
+# the latent kernel against its plain version at the card test's tolerances
+# (tests/test_torch_cuda.py::test_mla_kernel_matches_plain_on_card: the
+# kernel rounds P to bf16 before P V, and its output to bf16)
+MLA_TOL = {"atol": 1e-2, "rtol": 2e-2, "rel": 5e-3}
+# deepseek-v2-lite-bf16.narrate64's latent pool: 64 streams of 28 pages of
+# 512 (kv_capacity 14336), caches of 6.6 k to 13.2 k slots, 16 heads
+MLA_CELL = {"B": 64, "maxp": 28, "page": 512, "lo": 6600, "hi": 13200,
+            "H": 16}
+MLA_SCALE = 0.11472    # DeepSeek-V2-Lite's yarn-scaled softmax scale
+# the grouped expert products against the loop over the experts, both
+# bf16 on the card (another order of the same sums), outputs of unit size
+MOE_TOL = {"atol": 5e-2, "rtol": 5e-2, "rel": 2e-2}
+
+
+def _mla_inputs(S, nvalid, gen, L=2):
+    """A latent pool of L layers at the cell's size (unit normals, every
+    stream's pages dealt from a permutation, page 0 the trash page),
+    queries at stream offsets drawn over the cell's cache lengths, and
+    ``nvalid`` (B,) real queries a stream."""
+    c = MLA_CELL
+    B, maxp, page = c["B"], c["maxp"], c["page"]
+    P = B * maxp + 1
+    latent = torch.randn((L, P, page, 576), generator=gen, device="cuda"
+                         ).to(torch.bfloat16)
+    perm = torch.randperm(P - 1, generator=gen, device="cuda") + 1
+    table = perm.view(B, maxp).to(torch.int32)
+    offs = torch.randint(c["lo"], c["hi"] - S + 1, (B,), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    q_pos = offs[:, None] + torch.arange(S, device="cuda",
+                                         dtype=torch.int32)[None]
+    q = torch.randn((B, S, c["H"], 576), generator=gen, device="cuda"
+                    ).to(torch.bfloat16)
+    nv = torch.as_tensor(nvalid, dtype=torch.int32, device="cuda")
+    return q, latent, table, q_pos, nv
+
+
+def _mla_poisoned(latent, table, q_pos, nv):
+    """The pool with NaN over every row no real query may read: the trash
+    page and, in each stream's pages, the slots past its last real query
+    (all of a stream with none)."""
+    page = latent.shape[2]
+    B, maxp = table.shape
+    idx = (nv.long() - 1).clamp(min=0)[:, None]
+    last = torch.where(nv > 0, q_pos.gather(1, idx)[:, 0], q_pos[:, 0] - 1)
+    slot = torch.arange(maxp * page, device=latent.device).view(
+        1, maxp, page)
+    dead = slot > last[:, None, None].long()             # (B, maxp, page)
+    pages = table.long()[:, :, None].expand_as(dead)[dead]
+    rows = torch.arange(page, device=latent.device).expand_as(dead)[dead]
+    out = latent.clone()
+    out[:, 0] = float("nan")
+    out[:, pages, rows] = float("nan")
+    return out
+
+
+def _mla_case(label, S, nvalid, gen):
+    """The kernel against the plain version on one input at the cell's
+    shapes (_repeatable: the wrapper's splits and one split, each twice
+    with equal bits; the kernel reads the poisoned pool, the plain version
+    the clean one; padding queries and streams with none output 0), then
+    timed: the kernel a call from a CUDA graph over the pool's two layers,
+    the plain version eagerly, and the bound from 2 H (576 + 512) a
+    visible (real query, slot) pair and the visible latent rows plus the
+    live streams' q and output."""
+    from videollm_online_tpu_torch.ops import mla_attention as ma
+    q, latent, table, q_pos, nv = _mla_inputs(S, nvalid, gen)
+    L = latent.shape[0]
+    layer = L - 1
+
+    def kern(pool, i):
+        return ma.mla_paged_attention(q, pool, table, q_pos, i, nv,
+                                      scale=MLA_SCALE, dv=512)
+
+    def plain(i):
+        return ma.mla_attention_reference(q, latent, table, q_pos, i % L, nv,
+                                          scale=MLA_SCALE, dv=512)
+
+    want = plain(layer)
+    poisoned = _mla_poisoned(latent, table, q_pos, nv)
+    r = _repeatable(f"MLA {label}", lambda: kern(poisoned, layer), want,
+                    MLA_TOL, ma)
+    got = kern(poisoned, layer)
+    real = (torch.arange(S, device="cuda")[None] < nv[:, None])
+    if got[~real].any():
+        raise AssertionError(f"MLA {label}: a padding query's output is "
+                             f"not 0")
+    del poisoned, want, got
+    torch.cuda.empty_cache()
+    t = {"ms": graph_ms(lambda i: kern(latent, i % L), L),
+         "plain_ms": cuda_ms(plain, 2, 1), "library_ms": None,
+         "splits": ma.num_splits(q.shape[0], S * q.shape[2],
+                                 table.shape[1] * latent.shape[2])}
+    live = nv > 0
+    pairs = int(((q_pos.long() + 1) * real).sum())
+    visible = int(torch.where(live, q_pos.max(dim=1).values + 1, 0).sum())
+    H = q.shape[2]
+    flops = 2 * H * (576 + 512) * pairs
+    bytes_ = (visible * 576 * 2
+              + int(live.sum()) * S * H * (576 + 512) * 2)
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t.update(bound_ms=max(t_bytes, t_ops),
+             bound_by="bytes" if t_bytes >= t_ops else "operations",
+             tflops=flops / t["ms"] / 1e9, mbytes=bytes_ / 1e6)
+    log(f"MLA {label} (B {q.shape[0]}, S {S}, {int(live.sum())} streams "
+        f"with {int(nv.sum())} real queries, caches {MLA_CELL['lo']} to "
+        f"{MLA_CELL['hi']} slots in pages of {MLA_CELL['page']}, H {H}, "
+        f"rows of 576 / 512): agrees ({_readings(r)}); kernel {t['ms']:.4f} "
+        f"ms a call ({t['splits']} splits, {t['tflops']:.1f} TFLOP/s), plain "
+        f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+        f"({t['bound_by']}, {t['mbytes']:.1f} MB, {flops / 1e12:.3f} TFLOP): "
+        f"{100 * t['bound_ms'] / t['ms']:.1f} % of the bound")
+    del q, latent, table, q_pos, nv
+    torch.cuda.empty_cache()
+    return r, t
+
+
+def _moe_case(label, mp, cfg0, T, n_valid, gen):
+    """The grouped expert products (``torch._grouped_mm``) against the loop
+    over the experts on one layer's weights, T rows of which n_valid are
+    real tokens (the others routed nowhere); then each timed eagerly, and
+    the whole expert layer."""
+    import torch.nn.functional as F
+    from videollm_online_tpu_torch.models import deepseek_v2 as ds
+    E, k = cfg0.n_routed_experts, cfg0.num_experts_per_tok
+    Fe = cfg0.moe_intermediate_size
+    x = torch.randn((T, cfg0.hidden_size), generator=gen, device="cuda"
+                    ).to(torch.bfloat16)
+    valid = torch.arange(T, device="cuda") < n_valid
+    _, e = ds.route(x, mp["gate"], cfg0)
+    key = torch.where(valid[:, None], e, E).reshape(-1)
+    order = torch.argsort(key, stable=True)
+    per = torch.zeros((E + 1,), dtype=torch.int64, device="cuda")
+    per.scatter_add_(0, key, torch.ones_like(key))
+    xs = x[order // k]
+    routed = int(per[:E].sum())
+
+    def grouped(i=0):
+        return ds._expert_products(xs, per[:E], mp["w_gate_up"],
+                                   mp["w_down"])
+
+    def loop(i=0):
+        out = torch.zeros_like(xs)
+        s = 0
+        for j, n in enumerate(per[:E].tolist()):
+            if n:
+                h = xs[s:s + n] @ mp["w_gate_up"][j]
+                out[s:s + n] = (F.silu(h[:, :Fe]) * h[:, Fe:]) @ mp[
+                    "w_down"][j]
+                s += n
+        return out
+
+    r = _close(f"MoE {label}", grouped()[:routed], loop()[:routed], MOE_TOL)
+    t = {"grouped_ms": cuda_ms(grouped, 10), "loop_ms": cuda_ms(loop, 3, 1),
+         "layer_ms": cuda_ms(lambda i: ds.moe(x, mp, cfg0, valid, None), 10)}
+    log(f"MoE {label} ({T} rows, {n_valid} real tokens, {routed} routed "
+        f"pairs, {E} experts of {Fe}): grouped products agree with the loop "
+        f"({_readings(r)}); grouped {t['grouped_ms']:.4f} ms, loop "
+        f"{t['loop_ms']:.4f} ms, the whole layer {t['layer_ms']:.4f} ms")
+    return r, t
+
+
+def phase_mla(n_streams: int = 8, n_frames: int = 64, layers: int = 3):
+    """DeepSeek-V2's latent attention kernel (``ops/mla_attention.py``,
+    ``csrc/mla_attention.cu``) held to its plain version and timed at
+    deepseek-v2-lite-bf16.narrate64's shapes (a decode forward: 64
+    streams, 2 with a query; an ingest tick: 64 streams x 88 queries, a
+    few with padding); then the main path: a MultiStreamEngine over
+    DeepSeek-V2-Lite's widths at ``layers`` layers (layer 0 dense, the
+    rest 64 experts) with phase 15's traffic, the launch count set to 0
+    just before the counted run and read after it (one launch a layer a
+    forward, counted as _CountForwards counts them), the decode graph
+    replayed; then the expert layer's grouped products against the expert
+    loop, at a decode forward's and an ingest tick's rows."""
+    from videollm_online_tpu_torch.core.config import (DeepseekV2Config,
+                                                       LiveConfig)
+    from videollm_online_tpu_torch.models import deepseek_v2 as ds
+    from videollm_online_tpu_torch.models import live
+    from videollm_online_tpu_torch.ops import mla_attention as ma
+    from videollm_online_tpu_torch.serve.multistream import MultiStreamEngine
+    from videollm_online_tpu_torch.tokenizer.live_tokenizer import (
+        LiveTokenizer)
+    from videollm_online_tpu_torch.tokenizer.tiny import ByteTokenizer
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    B = MLA_CELL["B"]
+    decode_nv = [0] * B
+    decode_nv[5] = decode_nv[40] = 1
+    ingest_nv = [88] * B
+    ingest_nv[3], ingest_nv[17], ingest_nv[60] = 60, 1, 87
+    readings, timing = [], {}
+    for label, S, nv in (("decode", 1, decode_nv), ("ingest", 88, ingest_nv)):
+        r, timing[label] = _mla_case(label, S, nv, gen)
+        readings.append(r)
+
+    cfg0 = DeepseekV2Config(num_layers=layers)
+    cfg = LiveConfig(llama=cfg0, lora=None)
+    tok = LiveTokenizer(ByteTokenizer(), cfg)
+    query_every = 8
+    cfg = tok.cfg.replace(frame_token_interval_threshold=0.725,
+                          max_response_tokens=20, gate_logit_bias=30.0)
+    fnt = cfg.frame_num_tokens
+    capacity = 256 * ((n_frames * (fnt + 4) + 128 + (n_frames // 8 + 2)
+                       * (128 + 20)) // 256 + 1)
+    params = {"llama": ds.init_params(gen, cfg0, device="cuda"),
+              "connector": live.init_connector(gen, cfg, device="cuda")}
+    feats = np.random.RandomState(7).randn(
+        n_frames, fnt, cfg.vision_hidden_size).astype(np.float32)
+    ms = MultiStreamEngine(params, tok, cfg, num_streams=n_streams,
+                           kv_capacity=capacity, device="cuda")
+    _ms_run(ms, feats[:16], query_every)                        # warm-up
+    ms.reset()
+    torch.cuda.synchronize()
+    ma.mla_paged_attention.launches = 0
+    with _CountForwards(ds) as fc:
+        t0 = time.perf_counter()
+        for i in range(ms.N):
+            _ms_admit(ms, i, feats, query_every)
+        out, ticks = _ms_drain(ms)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    launches = ma.mla_paged_attention.launches
+    c = ms.counters()
+    n_resp = sum(map(len, out))
+    if n_resp < n_streams * (n_frames // query_every) or not all(
+            "Assistant:" in r for o in out for _, r in o):
+        raise AssertionError(f"MLA main path: responses {out}")
+    if launches != layers * fc.n:
+        raise AssertionError(f"MLA main path: {launches} launches over "
+                             f"{fc.n} launching forwards (want {layers} a "
+                             f"forward)")
+    if not c["decode_graph_replays"]:
+        raise AssertionError(f"MLA main path: the decode graph never "
+                             f"replayed ({c})")
+    frames = n_streams * n_frames
+    log(f"MLA main path (DeepSeek-V2-Lite widths, {layers} layers, "
+        f"{n_streams} streams x {n_frames} frames, a query every "
+        f"{query_every}, kv_capacity {capacity}, pool {ms.pool_pages} pages "
+        f"of {ms.page_size}): {frames / dt:.3f} frames/s, {n_resp} "
+        f"responses, {ticks} ticks, {fc.n} launching forwards, "
+        f"{launches} MLA launches; decode forwards {c['decode_forwards']}, "
+        f"graph captures {c['decode_graph_captures']}, replays "
+        f"{c['decode_graph_replays']}; expert layer calls "
+        f"{c['moe_layer_calls']}, imbalance 64 x peak / pairs "
+        f"{64 * c['moe_peak_pairs'] / max(c['moe_pairs'], 1):.3f}")
+    log(f"  first response: {out[0][0]!r}")
+    del ms
+    mp = {name: w[0] for name, w in params["llama"]["moe"].items()}
+    moe = {}
+    for label, T, n_valid in (("decode", 64, 2), ("ingest", 5824, 5600)):
+        r, moe[label] = _moe_case(label, mp, cfg0, T, n_valid, gen)
+    del params, mp
+    torch.cuda.empty_cache()
+    result = {"max_abs_err": _worst(readings)["max"], "launches": launches,
+              "timing": timing, "moe": moe, **timing["ingest"]}
+    log("MLA kernel line: " + json.dumps({
+        "name": "mla_paged_attention", "launches": launches,
+        "max_abs_err": result["max_abs_err"],
+        **{key: timing["ingest"][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "decode": {key: timing["decode"][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by")}}))
+    return result
 
 
 def phase_small_demo():
@@ -6134,6 +6404,7 @@ PHASES = {"toolchain": phase_toolchain, "build": phase_build,
           "small_multistream": phase_small_multistream,
           "main_path_multistream": phase_main_path_multistream,
           "main_path_dispatch": phase_main_path_dispatch,
+          "mla": phase_mla,
           "small_demo": phase_small_demo,
           "main_path_demo": phase_main_path_demo,
           "small_eval": phase_small_eval,
@@ -6151,7 +6422,7 @@ DEFAULT_RUN = ("toolchain", "build", "k1", "small_engine", "main_path", "k2",
                "k4_profile",
                "small_int4_engine", "main_path_int4", "ab_paths", "k3",
                "small_multistream", "main_path_multistream",
-               "main_path_dispatch", "small_demo", "main_path_demo",
+               "main_path_dispatch", "mla", "small_demo", "main_path_demo",
                "small_eval", "main_path_eval", "small_prep", "main_path_prep",
                "main_path_web", "tp_serving", "sp_training")
 
@@ -6183,11 +6454,11 @@ def main(argv=None) -> int:
         out[name] = PHASES[name]()
         log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
     smi, k1, main_path, k2, training, fit, fused, int4_path, ab, k3, \
-        multistream, dispatch, demo, evals, prep, web, tp, sp = (
+        multistream, dispatch, mla, demo, evals, prep, web, tp, sp = (
             out[n] for n in (
                 "toolchain", "k1", "main_path", "k2", "main_training",
                 "main_path_fit", "fused", "main_path_int4", "ab_paths", "k3",
-                "main_path_multistream", "main_path_dispatch",
+                "main_path_multistream", "main_path_dispatch", "mla",
                 "main_path_demo", "main_path_eval", "main_path_prep",
                 "main_path_web", "tp_serving", "sp_training"))
     log(f"card: {smi}; total {time.perf_counter() - t_start:.1f} s")
@@ -6218,6 +6489,14 @@ def main(argv=None) -> int:
         "max_abs_err": max(k3["max_abs_err"], tp["errs"]["K3"]),
         **{key: k3[key] for key in keys},
     }]
+    # the latent kernel: no Pallas site (DeepSeek-V2 is the port's own);
+    # its times at the cell's ingest tick, its launches phase 15c's main path
+    kernels.append({
+        "name": "mla_paged_attention", "route": "cuda",
+        "source": "videollm_online_tpu_torch/csrc/mla_attention.cu",
+        "replaces": None, "launches": mla["launches"],
+        "max_abs_err": mla["max_abs_err"],
+        **{key: mla[key] for key in keys}})
     # K2f counts the training, fit and eval main paths' launches; its error
     # is the worst of phase 6's cases, the T 12288 hold and the eval
     # prefill's hold (K2b and K2q: phase 6's and the T 12288 hold)

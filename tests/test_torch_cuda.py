@@ -1276,3 +1276,167 @@ def test_tp2_forward_on_two_ranks_of_the_card(card, tmp_path):
                                        tmp_path)):
         assert r["staging"] and r["k1"] == 2, (rank, r)
         assert r["rel"] < 2e-2, (rank, r)
+
+
+# ------------------------------------------- DeepSeek-V2: MLA and experts
+MLA_CASES = {
+    # decode: one query a stream, a stream with no real query, split
+    # partials merged
+    "decode": dict(S=1, page=512, maxp=4, offsets=(0, 1, 63, 64, 700, 2046),
+                   nvalid=(1, 1, 0, 1, 1, 1)),
+    # an ingest chunk of 88 queries, padding past 60 in one stream
+    "ingest": dict(S=88, page=512, maxp=8, offsets=(0, 1000, 3500),
+                   nvalid=(88, 60, 0)),
+    # one split a row block (enough row blocks fill the card)
+    "ingest_direct": dict(S=88, page=512, maxp=4, offsets=tuple(
+        range(0, 1920, 120)), nvalid=(88,) * 16),
+    # a prompt bucket under a window that starts inside a tile
+    "prompt_window": dict(S=128, page=64, maxp=16, offsets=(5, 700),
+                          nvalid=(30, 128), window=300),
+    # rows not a multiple of 64, pages smaller than a tile
+    "small_pages": dict(S=7, page=32, maxp=24, offsets=(3, 500, 33),
+                        nvalid=(7, 2, 7)),
+}
+
+
+def _mla_inputs(dev, S, page, maxp, offsets, nvalid, H=16, L=2, seed=3,
+                **_):
+    g = torch.Generator().manual_seed(seed)
+    B = len(offsets)
+    P = B * maxp + 1
+    latent = torch.randn(L, P, page, 576, generator=g)
+    perm = torch.randperm(P - 1, generator=g)[:B * maxp] + 1
+    table = perm.view(B, maxp).to(torch.int32)
+    q = torch.randn(B, S, H, 576, generator=g)
+    q_pos = torch.tensor([[o + s for s in range(S)] for o in offsets],
+                         dtype=torch.int32)
+    nv = torch.tensor(nvalid, dtype=torch.int32)
+    return (q.to(torch.bfloat16).to(dev), latent.to(torch.bfloat16).to(dev),
+            table.to(dev), q_pos.to(dev), nv.to(dev))
+
+
+@pytest.mark.parametrize("case", sorted(MLA_CASES))
+def test_mla_kernel_matches_plain_on_card(card, case):
+    """The latent attention kernel against its plain version (gather, fp32
+    softmax, fp32 P V) at DeepSeek-V2's widths (rows of 576, 512 values,
+    16 heads), with NaN over every pool row no query may read (slots past
+    each stream's last real query, the trash page). Tolerances: the
+    kernel rounds P to bf16 before P V and its output to bf16; outputs
+    are weighted means of unit normals (|o| up to about 1): atol 1e-2,
+    rtol 2e-2, and the relative norm of the error under 5e-3."""
+    from videollm_online_tpu_torch.ops import mla_attention as ma
+    kw = MLA_CASES[case]
+    q, latent, table, q_pos, nv = _mla_inputs(card, **kw)
+    window, layer = kw.get("window"), 1
+    scale = 0.1147
+    want = ma.mla_attention_reference(q, latent, table, q_pos, layer, nv,
+                                      scale=scale, dv=512, window=window)
+    poisoned = latent.clone()
+    poisoned[:, 0] = float("nan")
+    page = kw["page"]
+    for b, (o, n) in enumerate(zip(kw["offsets"], kw["nvalid"])):
+        last = o + n - 1       # the last slot a real query may read
+        for j in range(kw["maxp"]):
+            lo = max(last + 1 - j * page, 0)
+            if lo < page:
+                poisoned[:, table[b, j].item(), lo:] = float("nan")
+    before = ma.mla_paged_attention.launches
+    got = ma.mla_paged_attention(q, poisoned, table, q_pos, layer, nv,
+                                 scale=scale, dv=512, window=window)
+    assert ma.mla_paged_attention.launches == before + 1
+    assert got.shape == want.shape and not got.isnan().any()
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-2,
+                               rtol=2e-2)
+    err = (got.float() - want.float()).norm() / want.float().norm()
+    assert err < 5e-3
+    # padding queries and streams with none output 0
+    for b, n in enumerate(kw["nvalid"]):
+        assert not got[b, n:].any()
+    again = ma.mla_paged_attention(q, poisoned, table, q_pos, layer, nv,
+                                   scale=scale, dv=512, window=window)
+    assert torch.equal(got, again)
+
+
+def _tiny_deepseek(dtype="bfloat16"):
+    from videollm_online_tpu_torch.core.config import DeepseekV2Config
+    # the kernel's latent widths (512 + 64), everything else small
+    return DeepseekV2Config(
+        vocab_size=512, hidden_size=256, intermediate_size=384,
+        moe_intermediate_size=128, num_layers=3, num_heads=4,
+        kv_lora_rank=512, qk_nope_head_dim=64, qk_rope_head_dim=64,
+        v_head_dim=64, n_routed_experts=8, n_shared_experts=2,
+        num_experts_per_tok=2, rope_original_max_position=64, dtype=dtype)
+
+
+def test_moe_grouped_products_match_expert_loop_on_card(card):
+    """The expert layer's grouped products (``torch._grouped_mm``) against
+    the CPU's loop over the experts, in fp32 on the same bf16 weights:
+    padding tokens are routed nowhere, the counts agree. Tolerance: the
+    card's bf16 products and roundings against fp32, outputs of about
+    unit size: atol 5e-2, rtol 5e-2."""
+    from videollm_online_tpu_torch.models import deepseek_v2 as ds
+    cfg = _tiny_deepseek()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    p = ds.init_params(gen, cfg, device="cuda", std=0.08)
+    mp = {k: v[0] for k, v in p["moe"].items()}
+    x = torch.randn(300, cfg.hidden_size, device="cuda").to(torch.bfloat16)
+    valid = torch.arange(300, device="cuda") % 7 != 3
+    c_card = torch.zeros(3, dtype=torch.int64, device="cuda")
+    got = ds.moe(x, mp, cfg, valid, c_card)
+    c_cpu = torch.zeros(3, dtype=torch.int64)
+    want = ds.moe(x.cpu().float(), {k: v.cpu().float() for k, v in
+                                    mp.items()}, cfg, valid.cpu(), c_cpu)
+    torch.testing.assert_close(got.float().cpu(), want, atol=5e-2, rtol=5e-2)
+    assert c_card[0] == 1 and c_card[1] == int(valid.sum()) * 2
+    assert c_card[1] == c_cpu[1]
+
+
+def test_deepseek_decode_graph_equals_eager_on_card(card, monkeypatch):
+    """A small DeepSeek-V2 MultiStreamEngine (pages of 16) through the
+    latent kernel and the grouped expert products: the greedy decode
+    forward captured once and replayed every later step, transcripts equal
+    to the eager forward's, the expert layers counted on the device in the
+    graph too."""
+    from videollm_online_tpu_torch.models import deepseek_v2 as ds
+    cfg0 = _tiny_deepseek()
+    cfg = LiveConfig(llama=cfg0, lora=None, vision_hidden_size=64)
+    tok = LiveTokenizer(ByteTokenizer(), cfg)
+    cfg = tok.cfg.replace(max_response_tokens=12, gate_logit_bias=60.0)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params = {"llama": ds.init_params(gen, cfg0, device="cuda", std=0.08),
+              "connector": live.init_connector(gen, cfg, device="cuda")}
+    feats = np.random.RandomState(1).randn(
+        12, cfg.frame_num_tokens, cfg.vision_hidden_size).astype(np.float32)
+
+    def drive(ms):
+        for i in range(3):
+            ms.input_frames(i, 0.0, feats)
+            for t in ((0.5, 3.0, 5.0), (1.0, 3.0), (2.0, 4.0, 5.5))[i]:
+                ms.input_query(i, f"what now {i}?", t)
+        while ms.pending():
+            ms.step()
+        return [list(t) for t in ms.transcripts]
+
+    def engine():
+        return MultiStreamEngine(params, tok, cfg, num_streams=3,
+                                 kv_capacity=1024, page_size=16, paged=True,
+                                 chunk_frames=4, device="cuda")
+
+    ms = engine()
+    got = drive(ms)
+    c = ms.counters()
+    assert c["decode_graph_captures"] == 1
+    assert c["decode_graph_captures"] + c["decode_graph_replays"] == \
+        c["decode_forwards"] > 1
+    assert c["moe_layer_calls"] > 0
+    assert 0 < c["moe_peak_pairs"] <= c["moe_pairs"]
+    monkeypatch.setattr(MultiStreamEngine, "_decode_graph", lambda self: None)
+    eager = engine()
+    want = drive(eager)
+    assert got == want
+    # a capture's eager warm-up runs the expert layers once more
+    ce = eager.counters()
+    assert c["moe_layer_calls"] - ce["moe_layer_calls"] == \
+        (cfg0.num_layers - cfg0.first_k_dense_replace) * c[
+            "decode_graph_captures"]
+    assert c["moe_pairs"] > ce["moe_pairs"]

@@ -14,6 +14,7 @@ in explicitly via :meth:`LiveConfig.with_tokenizer_ids` — no hidden mutation.
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
@@ -57,6 +58,70 @@ class LlamaConfig:
     @property
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.head_dim
+
+
+@dataclass(frozen=True)
+class DeepseekV2Config:
+    """DeepSeek-V2 decoder hyperparameters (``models/deepseek_v2.py``), the
+    keys of the published ``config.json`` that the forward reads; the
+    defaults are DeepSeek-V2-Lite's. Latent attention (MLA) without a q
+    LoRA: q is ``qk_nope_head_dim + qk_rope_head_dim`` a head, the cache
+    holds ``kv_lora_rank + qk_rope_head_dim`` a token a layer. The first
+    ``first_k_dense_replace`` layers are a dense SwiGLU of
+    ``intermediate_size``, the rest DeepSeekMoE: ``n_routed_experts`` of
+    width ``moe_intermediate_size`` (softmax gate, greedy top
+    ``num_experts_per_tok``) and ``n_shared_experts`` always on. Yarn
+    rope on the rope dims (``rope_*``). It takes no tensor or sequence
+    parallelism: the batched engine refuses a mesh for it."""
+
+    vocab_size: int = 102400
+    hidden_size: int = 2048
+    intermediate_size: int = 10944
+    moe_intermediate_size: int = 1408
+    num_layers: int = 27
+    num_heads: int = 16
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    n_routed_experts: int = 64
+    n_shared_experts: int = 2
+    num_experts_per_tok: int = 6
+    first_k_dense_replace: int = 1
+    norm_topk_prob: bool = False
+    routed_scaling_factor: float = 1.0
+    rope_theta: float = 10000.0
+    # yarn (rope_scaling of the published config)
+    rope_factor: float = 40.0
+    rope_original_max_position: int = 4096
+    rope_beta_fast: float = 32.0
+    rope_beta_slow: float = 1.0
+    rope_mscale: float = 0.707
+    rope_mscale_all_dim: float = 0.707
+    rms_norm_eps: float = 1e-6
+    sliding_window: Optional[int] = None
+    dtype: str = "bfloat16"
+
+    @property
+    def q_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @property
+    def latent_dim(self) -> int:
+        """Width of one cached row: the latent and the roped shared key."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+    @property
+    def softmax_scale(self) -> float:
+        """q_head_dim^-0.5 times yarn's mscale(factor, mscale_all_dim)^2,
+        as DeepseekV2Attention scales its logits."""
+        m = yarn_mscale(self.rope_factor, self.rope_mscale_all_dim)
+        return self.q_head_dim ** -0.5 * m * m
+
+
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """Yarn's attention scale for a context stretched ``factor`` times."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
 
 
 @dataclass(frozen=True)

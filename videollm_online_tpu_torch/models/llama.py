@@ -40,6 +40,14 @@ from ..parallel.sharding import MATRICES, logical_shape
 
 Params = Dict[str, Any]
 
+# what this decoder serves in the batched engine
+# (serve/multistream.py::decoder_module reads these): its config type, the
+# batched ring cache besides the paged pool, a tensor- or sequence-parallel
+# mesh
+CONFIG = LlamaConfig
+RING = True
+MESH = True
+
 
 def init_params(generator: torch.Generator, cfg: LlamaConfig, device=None
                 ) -> Params:
@@ -283,6 +291,11 @@ class PagedKVCache:
     @property
     def quantized(self) -> bool:
         return self.k_scale is not None
+
+    def pools(self):
+        """Every tensor paged by ``table``: the codes, then any scales."""
+        return [self.k, self.v] + ([self.k_scale, self.v_scale]
+                                   if self.quantized else [])
 
     def replace(self, **kw) -> "PagedKVCache":
         return dataclasses.replace(self, **kw)

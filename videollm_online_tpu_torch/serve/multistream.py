@@ -9,9 +9,15 @@ whose gate fired or whose query came due (greedy, or n-gram speculative
 with ``spec_decode``). Per-stream conversation state (queues, prepends,
 transcripts) lives on the host; device work is batch-N shaped.
 
-The KV cache is the paged pool (``models.llama.PagedKVCache``, attention
-through K3) or the batched ring (``KVCache``), chosen as the JAX engine
-chooses it; both may be int8 (``kv_quant``). The host owns the page
+The decoder is the module that the type of ``cfg.llama`` names
+(``decoder_module``: ``models/llama.py`` for ``LlamaConfig``,
+``models/deepseek_v2.py`` for ``DeepseekV2Config``), called through the
+module's attributes at each call. The KV cache is the paged pool
+(``models.llama.PagedKVCache``, attention through K3) or the batched ring
+(``KVCache``), chosen as the JAX engine chooses it; both may be int8
+(``kv_quant``). A DeepSeek-V2 decoder keeps the paged latent pool
+(``models.deepseek_v2.PagedLatentCache``, one row a token a layer, through
+the latent attention kernel) and no ring. The host owns the page
 allocator, its refcounts (``fork_stream`` aliases full pages), the prefix
 cache that admits a new dialogue by aliasing the system prompt's pages,
 and ``stream_window`` compaction (pages freed, or the ring rolled).
@@ -58,7 +64,10 @@ work is ``.pages`` inside them; ``input_*`` and ``close_stream`` are
 times feed ``stats()["phases"]``, and while ``torch.profiler`` records each
 is a range on its timeline. ``counters()`` counts the respond programs,
 their decode forwards, the batch rows those forwards fed and, of those,
-the rows of streams not yet done.
+the rows of streams not yet done; with a DeepSeek-V2 decoder also its
+expert layers' counts (``moe_layer_calls``, ``moe_pairs``,
+``moe_peak_pairs``), which the forwards add to on the device and which are
+read only there.
 
 On a card, over the paged pool and with no tensor-parallel mesh, the
 greedy decode forward (with its argmax) is captured once as a CUDA graph
@@ -83,8 +92,9 @@ import torch
 from ..core.config import LiveConfig
 from ..core.device import DeferredRead, resolve_device, to_device
 from ..models import generate as gen_mod
-from ..models import live, llama
+from ..models import deepseek_v2, live, llama
 from ..parallel.context import ParallelContext
+from ..parallel.mesh import current_mesh
 from ..tokenizer.live_tokenizer import LiveTokenizer
 from ..utils.profiling import LatencyHistogram
 from .engine import DispatchCounts, _check_same_tree
@@ -93,6 +103,21 @@ TEXT_BUCKET = 4
 PROMPT_BUCKET = 128
 CHUNK_FRAMES = 8
 ENCODE_FRAMES = 32     # frames a tower batch: a long clip in bounded memory
+
+
+def decoder_module(cfg, *, paged: bool = True):
+    """The decoder module whose ``CONFIG`` is the type of ``cfg``, held to
+    what it declares it serves: the batched ring (``RING``; else only the
+    paged pool) and a mesh of more than one rank (``MESH``)."""
+    dec = deepseek_v2 if isinstance(cfg, deepseek_v2.CONFIG) else llama
+    if not (paged or dec.RING):
+        raise ValueError(f"{dec.__name__} keeps a paged cache only; it has "
+                         f"no ring")
+    mesh = current_mesh()
+    if mesh is not None and mesh.size > 1 and not dec.MESH:
+        raise ValueError(f"{dec.__name__} takes no tensor or sequence "
+                         f"parallelism ({mesh})")
+    return dec
 
 
 def _gate(rows: torch.Tensor, gate_id: int, threshold: float, bias: float
@@ -181,6 +206,7 @@ class MultiStreamEngine:
         if paged is None:
             paged = kv_capacity >= 2 * page_size + (stream_window or 0)
         self.paged = paged
+        self._dec = decoder_module((cfg or tokenizer.cfg).llama, paged=paged)
         self.prefix_cache = bool(prefix_cache) and self.paged
         self.page_size = page_size
         self._maxp = -(-kv_capacity // page_size)
@@ -254,7 +280,7 @@ class MultiStreamEngine:
     # ---------------------------------------------------- device programs
     def _fwd(self, embeds, num_valid, gather_pos=None, return_hidden=False,
              decode_graph=None):
-        logits, self.cache = llama.forward(
+        logits, self.cache = self._dec.forward(
             self.params["llama"], cfg=self.cfg.llama, inputs_embeds=embeds,
             kv_cache=self.cache,
             num_valid=torch.as_tensor(np.asarray(num_valid), dtype=torch.int32),
@@ -273,7 +299,7 @@ class MultiStreamEngine:
         return None
 
     def _embed(self, ids) -> torch.Tensor:
-        return llama.embed_tokens(
+        return self._dec.embed_tokens(
             self.params["llama"], torch.as_tensor(np.asarray(ids)),
             self.cfg.llama)
 
@@ -495,19 +521,15 @@ class MultiStreamEngine:
                   torch.as_tensor(np.maximum(num_valid - 1, 0)),
                   return_hidden=True)
 
-    def _pools(self):
-        c = self.cache
-        return [c.k, c.v] + ([c.k_scale, c.v_scale] if c.quantized else [])
-
     def _copy_page(self, p_new: int, p_old: int):
         """One page (every layer, every pool) copied in place."""
-        for pool in self._pools():
+        for pool in self.cache.pools():
             pool[:, p_new] = pool[:, p_old]
 
     def _copy_page_multi(self, p_src: int, dsts: List[int]):
         """One source page copied into each of ``dsts``, in place."""
         idx = to_device(torch.as_tensor(dsts), self.device)
-        for pool in self._pools():
+        for pool in self.cache.pools():
             pool.index_copy_(1, idx, pool[:, p_src:p_src + 1].expand(
                 (-1, len(dsts)) + pool.shape[2:]).contiguous())
 
@@ -530,7 +552,7 @@ class MultiStreamEngine:
     # ---------------------------------------------------------------- state
     def reset(self):
         if self.paged:
-            self.cache = llama.init_paged_kv_cache(
+            self.cache = self._dec.init_paged_kv_cache(
                 self.cfg.llama, batch=self.N, pool_pages=self.pool_pages,
                 pages_per_stream=self._maxp, page_size=self.page_size,
                 quant=self.kv_quant, device=self.device)
@@ -575,7 +597,7 @@ class MultiStreamEngine:
              "decode_rows_valid"), 0)
         # the greedy decode forward's CUDA graph (_decode_graph), captured
         # at its first use
-        self._graph = llama.DecodeGraph(post=_greedy_ids)
+        self._graph = self._dec.DecodeGraph(post=_greedy_ids)
         self._dropped = [0] * self.N
         # response latency: wall clock from the arrival of a response's
         # trigger (the frame's input_frames / the query's input_query call)
@@ -789,17 +811,27 @@ class MultiStreamEngine:
         """Since ``reset``: respond programs, their decode (greedy) or
         verify (spec) forwards, the batch rows those fed (N each) and the
         rows of streams not yet done; of the greedy decode forwards, those
-        that captured the CUDA graph and those that replayed it."""
-        return dict(self._counters,
-                    decode_graph_captures=self._graph.captures,
-                    decode_graph_replays=self._graph.replays)
+        that captured the CUDA graph and those that replayed it; with a
+        DeepSeek-V2 decoder, its expert-layer calls, valid (token, expert)
+        pairs routed and the busiest expert's pairs summed over calls (64
+        x ``moe_peak_pairs`` / ``moe_pairs`` is the load imbalance of 64
+        experts), read from the device."""
+        out = dict(self._counters,
+                   decode_graph_captures=self._graph.captures,
+                   decode_graph_replays=self._graph.replays)
+        moe = getattr(self.cache, "moe_counts", None)
+        if moe is not None:
+            out.update(zip(("moe_layer_calls", "moe_pairs", "moe_peak_pairs"),
+                           (int(v) for v in moe.tolist())))
+        return out
 
     def stats(self) -> Dict[str, Any]:
         """Serving snapshot from host state alone: per-stream queue and cache
         occupancy and drops, pool accounting (paged) with the allocator's
         conservation invariants asserted, tick and response latency
         percentiles, each phase's span percentiles (``phases``, keyed by
-        span name) and ``counters()``."""
+        span name) and ``counters()`` (whose expert counts, with a
+        DeepSeek-V2 decoder, are the one read from the device)."""
         phases = self._tick_hist.summary()
         ticks = phases.pop("tick", {})
         out = {
